@@ -1,0 +1,101 @@
+"""Build and load the hand-written CUDA kernels.
+
+``nvcc`` compiles ``csrc/elementwise.cu`` for ``sm_90a`` into a shared library
+with a plain C interface, loaded with ``ctypes``. The build happens at first
+use, into ``enflows_tpu_torch/_build/``, under a name that carries a hash of
+the source and the flags, so an edited source is rebuilt. Nothing here runs at
+import time, so the package imports on a machine with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "ops" / "csrc" / "elementwise.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    # x, y, ladj, P, Q, codes, args, n_stages, n, d, tile, grid, block,
+    # smem, stream
+    "enf_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
+                      _I, _P],
+    # x, gy, gladj, gx, P, Q, codes, args, n_stages, n, d, tile, grid, block,
+    # smem, n_pslots, n_hh, groups, p_part, q_part, stream
+    "enf_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P, _P, _P],
+    # x, P, Q, codes, args, n_stages, n, d, tile, grid, block, smem,
+    # n_pslots, n_hh, groups, loss_part, p_part, q_part, stream
+    "enf_fused_negll": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or in /usr/local/cuda/bin)")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"libenflows_elementwise_{digest[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the library if it is not built yet. Returns its path, the
+    seconds the build took (0.0 if it was already there) and nvcc's
+    ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
+    Raises ``RuntimeError`` with nvcc's output when the build fails."""
+    so = library_path()
+    log = so.with_suffix(".log")
+    if so.exists():
+        return so, 0.0, log.read_text() if log.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr}\n{proc.stdout}")
+    report = proc.stderr + proc.stdout
+    log.write_text(report)
+    os.replace(tmp, so)
+    return so, seconds, report
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' library, with ``argtypes`` and
+    ``restype`` declared for every entry point."""
+    so, _, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.enf_error_string.argtypes = [ctypes.c_int]
+    lib.enf_error_string.restype = ctypes.c_char_p
+    return lib

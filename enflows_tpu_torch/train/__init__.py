@@ -1,0 +1,10 @@
+from .whitening import (
+    WhiteningResult, default_optimizer, make_train_step, mvnormal_negll,
+    mvnormal_negll_fused, mvnormal_negll_grad, optimize_whitening,
+)
+
+__all__ = [
+    "WhiteningResult", "default_optimizer", "make_train_step",
+    "mvnormal_negll", "mvnormal_negll_fused", "mvnormal_negll_grad",
+    "optimize_whitening",
+]
