@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's whitening main path once on one CUDA card.
+"""Drive the PyTorch port's two main paths once on one CUDA card: the
+whitening slice (kernels B1-B3) and the coupling-flow slice (B4, B5).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -6,7 +7,7 @@ Phases, one printed line each (more for the slice); any mismatch or
 exception exits non-zero and prints no result:
 
 1. the card's ``nvidia-smi`` name and power limit, and the kernels' build
-   from ``enflows_tpu_torch/ops/csrc/elementwise.cu`` (timed);
+   from every source under ``enflows_tpu_torch/ops/csrc/`` (timed);
 2. B1 (fused forward+ladj) against the plain version: the flagship flow at
    d=2, n=2^24 and at d=50, n=2^17;
 3. B2 (its backward) against plain autograd: loss sum(sin y) + sum(ladj^2)
@@ -22,7 +23,45 @@ exception exits non-zero and prints no result:
    then the fitted flow's full-data negll and its gradient through B1 and
    B2, and cov(f(X)). Each history is finite, falls, and matches a
    plain-path run of the same trainer on the card to 1e-4 relative (f32
-   sums taken in another order).
+   sums taken in another order);
+6. B4 (fused coupling-stack forward+ladj,
+   ``enflows_tpu_torch/ops/csrc/coupling.cu``) against its plain version at
+   the BASELINE config (d=64, 4 couplings, (512, 512) conditioners, n=2^17;
+   affine, and RQ-spline with K=8 bins on [-5, 5]), inputs 2.2 N(0, 1) so
+   that ~2% fall outside the spline's bound, and the round trip through B4
+   on ``stack.inverse()``; the kernel's time beside the plain version's,
+   the f32 FLOP bound and, as a yardstick, the same conditioner products
+   alone in ``torch.matmul``;
+7. B5 (its backward) against plain autograd at the same config: loss
+   sum(sin y) + sum(ladj^2), gx elementwise against a float64 plain run
+   (within 2e-4 of it, plus twice the f32 plain version's largest error),
+   every weight and bias gradient against the float64 run
+   too (``grads_ok``), on the rows that pass no
+   spline knot closer than 1e-4 (``drop_near_knot_rows``);
+8. the coupling sweep (``COUPLING_SWEEP``): B4 and B5 on small chains at a
+   few thousand rows (every activation, inverted couplings, interleaved
+   ScaleShift/JohnsonInv stages, a non-involutive half-preserving Permute
+   with the output in logical order, mixed affine+spline, (1024, 1024)
+   conditioners, n below one tile) against the plain version in float32
+   and float64;
+9. the coupling slice, for the identity-initialized BASELINE affine stack
+   and then the spline stack, each with the launch counters set to 0 just
+   before it: correlated non-Gaussian data at d=64, n=2^19, made on the
+   card; ``optimize_whitening(X, stack, adam(1e-3), nbatches=4,
+   nepochs=3)``, 12 steps of 2^17 samples, each one B4 and one B5 launch.
+   The history is finite, falls, and matches a plain-path run of the same
+   trainer on the card: every step before the first loss spike (a rise of
+   more than 10%) to 1e-4 relative, and all 12 to 1e-3 or to 8x the plain
+   path's own rounding noise, whichever is larger. Each step's loss and
+   gradients are sums over 2^17 samples and 512-wide products taken in
+   another order, and Adam's first steps move every weight by about the
+   learning rate whatever the gradient's size. At this width that throws
+   the spline stack into a loss spike, after which the histories of two
+   runs that differ only in f32 rounding drift apart, the plain path
+   against itself too. That noise is measured in every run: the plain
+   path on the same batches with their rows in two other orders. Then
+   ``torch.profiler`` over 4 fused steps of each stack: device time by
+   kernel and the idle share.
 
 Tolerances: y 2e-5 and ladj 2e-4 (rtol = atol), input cotangents rtol 2e-4
 / atol 2e-5 elementwise, negll 1e-5 relative. Every parameter gradient is
@@ -32,7 +71,9 @@ against the plain version run in float64 on the same rows, within
 version is (``grads_ok``). The gradient
 phases drop the few rows whose plain path meets an exact zero at a sign or
 clamp point, where autograd of the plain stage bodies and the kernels'
-analytic adjoints differ (``drop_exact_zero_rows``).
+analytic adjoints differ (``drop_exact_zero_rows``). The coupling phases
+hold y to 3e-5, ladj to 3e-4 and gradients to 2e-4 (rtol = atol), the
+tolerances of tests/test_coupling.py, and the round trip to 1e-5 / 1e-4.
 
 Weights are random, made from seeded ``torch.Generator`` s. The script needs
 one card and no network; it imports nothing of JAX.
@@ -127,6 +168,21 @@ def max_abs(a, b):
     return float((a - b).abs().max())
 
 
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+
+
+def bound_of(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the f32 operations over the f32 rate outside the tensor
+    cores (NVIDIA's data sheet, at the 700 W limit)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
 def grads_ok(got, plain, plain64):
     """Every parameter gradient of the kernel against the plain version run
     in float64 on the same inputs: within G_RTOL * max|g64| + G_ATOL, or no
@@ -163,11 +219,13 @@ def phase_b1(et, EW, dim, n, gen, device, card):
             lambda: EW._launch_fwd(plan, x, pbuf, qbuf))
         wrapper_ms = cuda_ms(lambda: EW.fused_forward_and_ladj(chain, x))
     err = max(max_abs(y, y0), max_abs(ladj, l0))
+    # x read, y and ladj written; the Householder product's multiply-adds.
+    bound = bound_of(4 * n * (2 * dim + 1), 2 * n * dim * dim)
     print(f"[B1] flagship d={dim} n={n}: max|dy| {max_abs(y, y0):.3e} "
           f"max|dladj| {max_abs(ladj, l0):.3e}; kernel {ms:.4f} ms "
-          f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms [{card}]",
-          flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
 def drop_exact_zero_rows(et, EW, chain, x):
@@ -234,11 +292,16 @@ def phase_b2(et, EW, dim, n, gen, device, card):
                                     [gy, gl], retain_graph=True),
         lambda: EW._launch_grad(plan, x, pbuf, qbuf, gy, gl))
     err = max(max_abs(gx, gx0), worst)
+    # x and gy read, gx written, gladj read; the Householder products of the
+    # recompute, of dQ and of the input cotangent.
+    bound = bound_of(4 * x.shape[0] * (3 * dim + 1),
+                     3 * 2 * x.shape[0] * dim * dim)
     print(f"[B2] flagship d={dim} n={n} ({dropped} exact-zero rows "
           f"dropped): max|dgx| {max_abs(gx, gx0):.3e} "
           f"max|dgrad| {worst:.3e}; kernel {ms:.4f} ms, plain autograd "
-          f"backward {plain_ms:.4f} ms [{card}]", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"backward {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"[{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
 def phase_b3(et, EW, dim, n, gen, device, card):
@@ -260,12 +323,16 @@ def phase_b3(et, EW, dim, n, gen, device, card):
         lambda: EW._launch_grad(plan, x, pbuf, qbuf))
     wrapper_ms = cuda_ms(lambda: EW.fused_negll_value_and_grad(chain, x))
     err = max(abs(float(v) - float(v0)), worst)
+    # x read once; the Householder products of the forward, dQ and the
+    # input cotangent.
+    bound = bound_of(4 * x.shape[0] * dim, 3 * 2 * x.shape[0] * dim * dim)
     print(f"[B3] flagship d={dim} n={n} ({dropped} exact-zero rows "
           f"dropped): negll {float(v):.7f} vs plain "
           f"{float(v0):.7f}, max|dgrad| {worst:.3e}; kernel {ms:.4f} ms "
           f"(wrapper {wrapper_ms:.4f} ms), plain value+grad "
-          f"{plain_ms:.4f} ms [{card}]", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms [{card}]",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
 SWEEP = [  # (d, n, stages); "~" marks an inverted stage
@@ -419,12 +486,491 @@ def train_and_evaluate(et, EW, name, model, X):
     return hist
 
 
+# ----------------------------------------------------------------------
+# The coupling-flow path: kernels B4 (forward + ladj of a whole coupling
+# stack) and B5 (its backward), enflows_tpu_torch/ops/csrc/coupling.cu.
+
+C_Y_TOL, C_LADJ_TOL, C_G_TOL = 3e-5, 3e-4, 2e-4
+RT_X_TOL, RT_LADJ_TOL = 1e-5, 1e-4
+COUPLING_SLICE_RTOL, COUPLING_CALM_RTOL = 1e-3, 1e-4
+BASELINE = dict(dim=64, n_layers=4, hidden=(512, 512))   # BASELINE.md:150
+
+
+def baseline_stack(et, kind, gen, device, last=0.005):
+    """The BASELINE coupling stack (d=64, 4 couplings with reversal
+    Permutes, (512, 512) gelu conditioners; the spline one with K=8 bins on
+    [-5, 5]), He-initialized from ``gen`` with its zeroed last layers
+    perturbed by ``last`` * N(0, 1), so the map is not the identity but
+    stays well conditioned."""
+    make = et.coupling_stack if kind == "affine" else \
+        et.spline_coupling_stack
+    kw = {} if kind == "affine" else dict(n_bins=8, bound=5.0)
+    stack = make(gen, BASELINE["dim"], BASELINE["n_layers"],
+                 BASELINE["hidden"], device=device, **kw)
+    if last:
+        with torch.no_grad():
+            for name, p in stack.named_parameters():
+                if ".layers.2." in name:
+                    p.add_(last * torch.randn(p.shape, generator=gen,
+                                              device=device))
+    return stack
+
+
+def conditioner_flops(st):
+    """Multiply-add FLOPs per sample of a plan's conditioner products."""
+    return 2 * sum(K * N for K, N in st.layers)
+
+
+def matmul_only_ms(st, n, device, backward):
+    """The same conditioner products alone, in torch.matmul f32: the
+    forward's h @ W per layer, or the backward's g @ W^T and h^T @ g. A
+    yardstick; the port never calls it."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    mats = [(torch.randn(n, K, generator=gen, device=device),
+             torch.randn(K, N, generator=gen, device=device),
+             torch.randn(n, N, generator=gen, device=device))
+            for K, N in st.layers]
+
+    def run():
+        for h, W, g in mats:
+            if backward:
+                torch.matmul(g, W.t())
+                torch.matmul(h.t(), g)
+            else:
+                torch.matmul(h, W)
+    return cuda_ms(run, iters=5)
+
+
+def phase_b4(et, C, kind, n, gen, device, card):
+    """B4 against its plain version at the BASELINE config, and the round
+    trip through B4 on stack.inverse()."""
+    stack = baseline_stack(et, kind, gen, device)
+    d = BASELINE["dim"]
+    # Scaled so that some spline inputs fall outside [-5, 5].
+    x = 2.2 * torch.randn(n, d, generator=gen, device=device)
+    out = float(((x.abs() >= 5.0).float().mean()))
+    st = C._stack_structure(stack, d)
+    with torch.no_grad():
+        y, ladj = C.fused_coupling_forward_and_ladj(stack, x)
+        wbuf, pbuf = C._stack_plan(stack, st, torch.float32, device)
+        y0, l0 = C.coupling_forward_plain(st, wbuf, pbuf, x)
+        y0 = y0[:, list(st.out_map)]
+        xb, lb = C.fused_coupling_forward_and_ladj(stack.inverse(), y)
+        xb0, lb0 = plain_coupling(C)(stack.inverse(), y0)
+        torch.cuda.synchronize()
+        check(torch.allclose(y, y0, rtol=C_Y_TOL, atol=C_Y_TOL),
+              f"B4 {kind} y: max|dy| {max_abs(y, y0):.3e}")
+        check(torch.allclose(ladj, l0, rtol=C_LADJ_TOL, atol=C_LADJ_TOL),
+              f"B4 {kind} ladj: max|dladj| {max_abs(ladj, l0):.3e}")
+        # The round trip: within 1e-5 / 1e-4 (rtol = atol), as
+        # tests/test_coupling.py:167-181 holds the affine stack, or no
+        # further off than twice the plain version's own round trip. A
+        # spline's inverse amplifies an f32 ulp of y by the local inverse
+        # slope wherever the forward compresses (tests/test_spline.py:
+        # 140-145), on both paths alike.
+        for got, ref, plain, tol, what in (
+                (xb, x, xb0, RT_X_TOL, "x"), (lb, -ladj, -lb0 - l0,
+                                              RT_LADJ_TOL, "ladj")):
+            err = (got - ref).abs()
+            err_p = float((plain - ref).abs().max()) if what == "x" else \
+                float(plain.abs().max())
+            check(bool((err <= tol * (1 + ref.abs())).all())
+                  or float(err.max()) <= 2.0 * err_p,
+                  f"B4 {kind} round trip {what}: max|d| {float(err.max()):.3e}"
+                  f", plain round trip {err_p:.3e}")
+        plain_ms, ms = interleaved_ms(
+            lambda: C.coupling_forward_plain(st, wbuf, pbuf, x),
+            lambda: C._launch_fwd(st, x, wbuf, pbuf), iters=5)
+        wrapper_ms = cuda_ms(lambda: C.fused_coupling_forward_and_ladj(
+            stack, x, physical_order=True), iters=5)
+    mm_ms = matmul_only_ms(st, n, device, backward=False)
+    flops = conditioner_flops(st) * n
+    bound = bound_of(4 * (n * (2 * d + 1) + st.w_len), flops)
+    err = max(max_abs(y, y0), max_abs(ladj, l0))
+    print(f"[B4] {kind} d={d} 4x{BASELINE['hidden']} n={n} "
+          f"({100 * out:.2f}% of inputs outside +-5): max|dy| "
+          f"{max_abs(y, y0):.3e} max|dladj| {max_abs(ladj, l0):.3e}; round "
+          f"trip max|dx| {max_abs(xb, x):.3e} (plain {max_abs(xb0, x):.3e})"
+          f", max|ladj + ladj_inv| {max_abs(lb, -ladj):.3e} (plain "
+          f"{max_abs(lb0, -l0):.3e}); kernel {ms:.3f} ms (wrapper "
+          f"{wrapper_ms:.3f} ms), plain {plain_ms:.3f} ms, f32 FLOP bound "
+          f"{bound['bound_ms']:.3f} ms ({flops / 1e9:.1f} GFLOP), "
+          f"{flops / ms / 1e9:.2f} TFLOP/s [{card}]", flush=True)
+    print(f"[B4] {kind} yardstick: the same conditioner products alone in "
+          f"torch.matmul f32 {mm_ms:.3f} ms [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+                matmul_ms=mm_ms)
+
+
+def grads_of(C, chain, x, forward):
+    """(gx, {parameter: gradient}) of sum(sin y) + sum(ladj^2)."""
+    params = dict(chain.named_parameters())
+    xr = x.clone().requires_grad_(True)
+    y, ladj = forward(chain, xr)
+    gs = torch.autograd.grad(torch.sin(y).sum() + (ladj * ladj).sum(),
+                             [xr, *params.values()], allow_unused=True)
+    return gs[0], {k: torch.zeros_like(p) if g is None else g
+                   for (k, p), g in zip(params.items(), gs[1:])}
+
+
+def plain_coupling(C, physical_order=False):
+    """The plain version through the plan, as a forward function."""
+    def forward(chain, x):
+        st = C._stack_structure(chain, x.shape[1])
+        wbuf, pbuf = C._stack_plan(chain, st, x.dtype, x.device)
+        y, ladj = C.coupling_forward_plain(st, wbuf, pbuf, x)
+        if not physical_order and not st.identity_out:
+            y = y[:, list(st.out_map)]
+        return y, ladj
+    return forward
+
+
+KNOT_EPS = 1e-4
+
+
+def drop_near_knot_rows(et, chain, x):
+    """``x`` without the rows where some spline coupling's input passes
+    within KNOT_EPS of an interior knot, found by a float64 pass. There f32
+    rounding may put the element in either bin: y and ladj are continuous
+    across a knot, but ladj's derivative jumps, so a kernel and a plain
+    version that pick different bins give gradients that differ by that
+    jump times the ladj cotangent, on either side of the float64 answer."""
+    from enflows_tpu_torch.bijectors.spline import _knots
+
+    chain64 = copy.deepcopy(chain).double()
+    bad = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    t = x.double()
+    with torch.no_grad():
+        for s in chain64.stages:
+            if isinstance(s, et.RQSplineCoupling):
+                xb = t[:, s.split:]
+                K = s.n_bins
+                p = s.conditioner(t[:, :s.split]).reshape(*xb.shape,
+                                                          3 * K - 1)
+                raw = p[..., K:2 * K] if s.inverted else p[..., :K]
+                _, knots = _knots(raw, s.bound, 1e-3)
+                near = (xb[..., None] - knots[..., 1:-1]).abs() < KNOT_EPS
+                bad |= near.any(-1).any(-1)
+            t = s(t)
+    return x[~bad].contiguous(), int(bad.sum())
+
+
+def phase_b5(et, C, kind, n, gen, device, card):
+    """B5 against plain autograd at the BASELINE config: gx elementwise,
+    every weight and bias gradient against a float64 plain run."""
+    stack = baseline_stack(et, kind, gen, device)
+    d = BASELINE["dim"]
+    x, dropped = drop_near_knot_rows(
+        et, stack, 2.2 * torch.randn(n, d, generator=gen, device=device))
+    gx, g = grads_of(C, stack, x, C.fused_coupling_forward_and_ladj)
+    gx0, g0 = grads_of(C, stack, x, plain_coupling(C))
+    stack64 = copy.deepcopy(stack).double()
+    gx64, g64 = grads_of(C, stack64, x.double(), plain_coupling(C))
+    torch.cuda.synchronize()
+    # gx elementwise: within 2e-4 (rtol = atol) of the float64 run, plus
+    # twice the plain f32 version's largest error. An element of gx sums
+    # terms of the size of the ladj cotangent times ladj's derivative that
+    # cancel, so its f32 error follows those terms, not its own value; on
+    # the spline stack the plain f32 version itself misses 2e-4 of the
+    # float64 run on about 0.02% of the elements.
+    err_k = (gx.double() - gx64).abs()
+    err_p = (gx0.double() - gx64).abs()
+    tol = C_G_TOL * (1 + gx64.abs())
+    check(bool((err_k <= tol + 2 * err_p.max()).all()),
+          f"B5 {kind} gx: max|kernel - f64| {float(err_k.max()):.3e}, "
+          f"max|plain f32 - f64| {float(err_p.max()):.3e}")
+    off = (int((err_k > tol).sum()), int((err_p > tol).sum()))
+    worst = grads_ok(g, g0, g64)
+    del stack64, g64, gx64
+    # The backward alone: the kernel on a saved forward, the plain version
+    # by autograd over a retained graph.
+    st = C._stack_structure(stack, d)
+    with torch.no_grad():
+        wbuf, pbuf = C._stack_plan(stack, st, torch.float32, device)
+        y, ladj = C._launch_fwd(st, x, wbuf, pbuf)
+    gy, gl = torch.cos(y), 2.0 * ladj
+    params = list(stack.parameters())
+    xr = x.clone().requires_grad_(True)
+    y0, l0 = plain_coupling(C, physical_order=True)(stack, xr)
+    plain_ms, ms = interleaved_ms(
+        lambda: torch.autograd.grad([y0, l0], [xr, *params], [gy, gl],
+                                    retain_graph=True),
+        lambda: C._launch_bwd(st, x, wbuf, pbuf, gy, gl), iters=3)
+    del y0, l0, xr
+    n = x.shape[0]
+    mm_ms = matmul_only_ms(st, n, device, backward=True)
+    flops = 2 * conditioner_flops(st) * n
+    # x, gy, gl read and gx written; the weights read and their gradient
+    # written.
+    bound = bound_of(4 * (n * (3 * d + 1) + 2 * st.w_len), flops)
+    err = max(max_abs(gx, gx0), worst)
+    print(f"[B5] {kind} d={d} 4x{BASELINE['hidden']} n={n} ({dropped} "
+          f"rows within {KNOT_EPS} of a spline knot dropped): max|dgx| "
+          f"{max_abs(gx, gx0):.3e}; gx elements beyond 2e-4 of float64: "
+          f"kernel {off[0]}, plain f32 {off[1]}; max|dgrad| {worst:.3e} "
+          f"(every gradient "
+          f"within tolerance of the float64 plain run); kernel {ms:.3f} ms, "
+          f"plain autograd backward {plain_ms:.3f} ms, f32 FLOP bound "
+          f"{bound['bound_ms']:.3f} ms ({flops / 1e9:.1f} GFLOP of dh and "
+          f"dW; the recompute not counted) [{card}]", flush=True)
+    print(f"[B5] {kind} yardstick: the dh and dW products alone in "
+          f"torch.matmul f32 {mm_ms:.3f} ms [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+                matmul_ms=mm_ms)
+
+
+# (name, n, make_chain) of the coupling sweep; make_chain(et, gen, device)
+# returns the chain.
+HALF_CYCLE_8 = (1, 2, 3, 0, 6, 7, 4, 5)   # half-preserving, not involutive
+
+
+def _vec(d, v, device):
+    return torch.full((d,), v, device=device)
+
+
+def _sweep_affine(act):
+    return lambda et, gen, dev: et.coupling_stack(
+        gen, 8, 3, (16, 16), activation=act, device=dev)
+
+
+def _sweep_spline_inverted(et, gen, dev):
+    return et.spline_coupling_stack(gen, 16, 3, (32,), n_bins=6, bound=3.0,
+                                    activation="silu",
+                                    device=dev).inverse()
+
+
+def _sweep_template(et, gen, dev):
+    d = 12
+    stack = et.coupling_stack(gen, d, 3, (24, 24), device=dev)
+    return et.Chain.of(et.ScaleShift(_vec(d, 1.1, dev), _vec(d, 0.1, dev)),
+                       et.JohnsonInv(_vec(d, 0.0, dev), _vec(d, 5.0, dev),
+                                     _vec(d, 0.0, dev), _vec(d, 5.0, dev)),
+                       *stack.stages,
+                       et.ScaleShift(_vec(d, 0.9, dev), _vec(d, -0.1, dev)))
+
+
+def _sweep_cycle(et, gen, dev):
+    a = et.coupling_stack(gen, 8, 2, (16,), activation="tanh", device=dev)
+    cyc = et.Permute(HALF_CYCLE_8)
+    return et.Chain.of(cyc, a.stages[0], cyc, *a.stages[1:])
+
+
+def _sweep_mixed(et, gen, dev):
+    a = et.coupling_stack(gen, 8, 2, (16, 16), device=dev)
+    s = et.spline_coupling_stack(gen, 8, 2, (16,), n_bins=5, bound=3.0,
+                                 activation="relu", device=dev)
+    return et.Chain.of(*a.stages, et.Permute(HALF_CYCLE_8), *s.stages)
+
+
+def _sweep_wide(et, gen, dev):
+    return et.coupling_stack(gen, 64, 2, (1024, 1024), device=dev)
+
+
+COUPLING_SWEEP = [
+    ("affine tanh", 3001, _sweep_affine("tanh")),
+    ("affine gelu", 3001, _sweep_affine("gelu")),
+    ("affine relu", 3001, _sweep_affine("relu")),
+    ("affine silu", 3001, _sweep_affine("silu")),
+    ("inverted spline", 2007, _sweep_spline_inverted),
+    ("ScaleShift/JohnsonInv template", 1234, _sweep_template),
+    ("non-involutive Permute", 999, _sweep_cycle),
+    ("mixed affine+spline", 4097, _sweep_mixed),
+    ("hidden (1024, 1024)", 777, _sweep_wide),
+    ("n=5, below one tile", 5, _sweep_affine("gelu")),
+]
+
+
+def phase_coupling_sweep(et, C, gen, device):
+    """B4 and B5 against the plain version (float32 and float64) on small
+    chains at a few thousand rows, with random cotangents."""
+    worst = 0.0
+    for name, n, build_chain in COUPLING_SWEEP:
+        chain = build_chain(et, gen, device)
+        with torch.no_grad():
+            for p in chain.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen,
+                                          device=device))
+        d = next(s for s in chain.stages if hasattr(s, "split")).split * 2
+        check(C.is_fusible_coupling_stack(chain, d), f"sweep {name} fusible")
+        chain64 = copy.deepcopy(chain).double()
+        x, _ = drop_near_knot_rows(
+            et, chain, 1.5 * torch.randn(n, d, generator=gen, device=device))
+        n = x.shape[0]
+        gy = torch.randn(n, d, generator=gen, device=device)
+        gl = torch.randn(n, generator=gen, device=device)
+
+        def run(c, forward, xx):
+            xr = xx.clone().requires_grad_(True)
+            y, ladj = forward(c, xr)
+            ps = dict(c.named_parameters())
+            gs = torch.autograd.grad([y, ladj], [xr, *ps.values()],
+                                     [gy.to(y.dtype), gl.to(y.dtype)])
+            return y.detach(), ladj.detach(), gs[0], dict(zip(ps, gs[1:]))
+
+        got = run(chain, C.fused_coupling_forward_and_ladj, x)
+        ref = run(chain, plain_coupling(C), x)
+        ref64 = run(chain64, plain_coupling(C), x.double())
+        what = f"coupling sweep {name} d={d} n={n}"
+        errs = [close_to_f64(got[0], ref[0], ref64[0], C_Y_TOL, what + " y"),
+                close_to_f64(got[1], ref[1], ref64[1], C_LADJ_TOL,
+                             what + " ladj"),
+                close_to_f64(got[2], ref[2], ref64[2], C_G_TOL,
+                             what + " gx")]
+        for k in ref64[3]:
+            errs.append(close_to_f64(got[3][k], ref[3][k], ref64[3][k],
+                                     C_G_TOL, f"{what} grad {k}"))
+        worst = max(worst, *errs)
+    print(f"[coupling sweep] {len(COUPLING_SWEEP)} chains "
+          f"({', '.join(name for name, _, _ in COUPLING_SWEEP)}): B4 and B5 "
+          f"within tolerance of the float64 plain version (worst |kernel - "
+          f"f64| {worst:.3e})", flush=True)
+
+
+def coupling_data(et, n, gen, device):
+    """Correlated non-Gaussian data at d=64: z A^T with A = I + 0.3 randn /
+    sqrt(64), through a JohnsonInv warp 0.1 sinh(u / 1.5). The small scale
+    keeps Adam's first steps, which move every last-layer weight by about
+    the learning rate, from throwing the identity-initialized affine stack
+    off: at scale 1 its loss ends the 12 steps above where it started."""
+    d = BASELINE["dim"]
+    A = torch.eye(d, device=device) + 0.3 * torch.randn(
+        d, d, generator=gen, device=device) / d ** 0.5
+    warp = et.JohnsonInv(_vec(d, 0.0, device), _vec(d, 1.5, device),
+                         _vec(d, 0.0, device), _vec(d, 0.1, device))
+    with torch.no_grad():
+        return warp(torch.randn(n, d, generator=gen, device=device) @ A.T)
+
+
+def adam(params):
+    return torch.optim.Adam(params, lr=1e-3)
+
+
+def coupling_slice(C, EW, kind, stack, X):
+    """The user's path: optimize_whitening of an identity-initialized
+    BASELINE stack for 3 epochs of 4 batches, with the launch counters set
+    to 0 just before and read just after. Returns (history, launches)."""
+    from enflows_tpu_torch.train import optimize_whitening
+
+    torch.cuda.synchronize()
+    for counts in (C.LAUNCHES, EW.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    res = optimize_whitening(X, stack, adam, nbatches=4, nepochs=3)
+    hist = res.negll_history.cpu()
+    torch.cuda.synchronize()
+    launches = {**C.LAUNCHES, **EW.LAUNCHES}
+    check(launches["coupling_fwd"] == 12 and launches["coupling_bwd"] == 12,
+          f"coupling slice {kind}: launches {launches}, not 12 B4 and 12 B5")
+    check(bool(torch.isfinite(hist).all()) and hist.shape == (12,),
+          f"coupling slice {kind}: history {hist.tolist()}")
+    check(float(hist[-1]) < float(hist[0]),
+          f"coupling slice {kind}: negll did not fall: {hist.tolist()}")
+    return hist, launches
+
+
+def rows_permuted_within_batches(X, nbatches, gen):
+    """X with the rows of each of its ``nbatches`` batches in another
+    order: every step sees the same samples, summed in another order."""
+    bs = X.shape[0] // nbatches
+    perm = torch.randperm(bs, generator=gen, device=X.device)
+    return torch.cat([X[b * bs:(b + 1) * bs][perm] for b in range(nbatches)])
+
+
+def rel_diff(a, b):
+    return float(((a - b).abs() / b.abs()).max())
+
+
+def coupling_slice_timing(kind, initial, X, hist, gen, card):
+    """The same trainer from the same start on the plain path (the chain's
+    own autograd), and warm ms/step of both, timed plain, fused, fused,
+    plain on the host clock with a synchronize. Then the plain path once
+    more on X with the rows of each batch in another order, which measures
+    how far the training dynamics amplify f32 rounding alone."""
+    from enflows_tpu_torch.train import optimize_whitening
+
+    def train(path, data):
+        return optimize_whitening(
+            data, copy.deepcopy(initial), adam, nbatches=4, nepochs=3,
+            use_fused="coupling" if path == "fused" else False)
+
+    runs = {"plain": [], "fused": []}
+    for path in ("plain", "fused", "fused", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = train(path, X).negll_history.cpu()
+        runs[path].append(((time.perf_counter() - t0) * 1e3 / 12, h))
+    plain = runs["plain"][0][1]
+    noise = max(rel_diff(train("plain", rows_permuted_within_batches(
+        X, 4, gen)).negll_history.cpu(), plain) for _ in range(2))
+    # Steps before the first loss spike (a rise of more than 10%).
+    rises = [i for i in range(1, 12) if plain[i] > 1.1 * plain[i - 1]]
+    calm = rises[0] if rises else 12
+    rel, rel_calm = rel_diff(hist, plain), rel_diff(hist[:calm],
+                                                     plain[:calm])
+    fused_ms = min(t for t, _ in runs["fused"])
+    plain_ms = min(t for t, _ in runs["plain"])
+    print(f"[coupling slice] {kind}: negll history "
+          f"{[round(float(v), 5) for v in hist]}; plain-path history "
+          f"{[round(float(v), 5) for v in plain]}; max rel diff {rel:.3e} "
+          f"(first {calm} steps, before any loss spike, {rel_calm:.3e}; the "
+          f"plain path on rows in another order: {noise:.3e}); warm ms/step "
+          f"(host clock, 2^17 samples): fused "
+          f"{fused_ms:.2f}, plain {plain_ms:.2f} [{card}]", flush=True)
+    check(rel_calm <= COUPLING_CALM_RTOL,
+          f"coupling slice {kind}: first {calm} steps fused vs plain "
+          f"{rel_calm:.3e}")
+    check(rel <= max(COUPLING_SLICE_RTOL, 8 * noise),
+          f"coupling slice {kind}: fused vs plain history {rel:.3e}, the "
+          f"plain path's own rounding noise {noise:.3e}")
+    return dict(fused_ms_per_step=fused_ms, plain_ms_per_step=plain_ms)
+
+
+def profile_coupling_steps(kind, initial, X, card):
+    """Where a fused coupling train step's time goes: ``torch.profiler``
+    over one epoch of 4 steps of the trainer (after the runs above warmed
+    it up), device time summed by kernel name, and the device's idle share
+    of the host-clock wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from enflows_tpu_torch.train import optimize_whitening
+
+    flow = copy.deepcopy(initial)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        optimize_whitening(X, flow, adam, nbatches=4, nepochs=1,
+                           use_fused="coupling")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0) + \
+                evt.device_time_total
+    busy = sum(by_name.values())
+    if not busy:
+        print(f"[profile] coupling {kind}: no device time in the trace "
+              f"(not measured) [{card}]", flush=True)
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile] coupling {kind}, 4 fused steps of 2^17 samples: "
+          f"wall {wall_us / 4e3:.2f} ms/step, device busy "
+          f"{busy / 4e3:.2f} ms/step (idle {100 * (1 - busy / wall_us):.1f}%)"
+          f"; by kernel, ms/step: "
+          + ", ".join(f"{name[:40]} {us / 4e3:.2f} ({100 * us / busy:.1f}%)"
+                      for name, us in top)
+          + f" [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available()"
                          " is False)")
     sys.path.insert(0, HERE)
     import enflows_tpu_torch as et
+    from enflows_tpu_torch.ops import coupling as C
     from enflows_tpu_torch.ops import elementwise as EW
     from enflows_tpu_torch.ops._build import build, load_library
     from enflows_tpu_torch.train import optimize_whitening
@@ -495,15 +1041,49 @@ def main():
               f"{min(t for t, _ in runs['plain']):.3f} [{smi}]", flush=True)
         check(rel <= SLICE_RTOL, f"{k}: fused vs plain history {rel:.3e}")
 
+    # The coupling-flow path: B4 and B5 at the BASELINE config, the sweep,
+    # then the slice, one main-path run per stack.
+    n_b = 1 << 17
+    b4 = {k: phase_b4(et, C, k, n_b, gen, device, smi)
+          for k in ("affine", "spline")}
+    b5 = {k: phase_b5(et, C, k, n_b, gen, device, smi)
+          for k in ("affine", "spline")}
+    phase_coupling_sweep(et, C, gen, device)
+    X64 = coupling_data(et, 1 << 19, gen, device)
+    stacks = {k: baseline_stack(et, k, gen, device, last=0.0)
+              for k in ("affine", "spline")}
+    initial_stacks = {k: copy.deepcopy(m) for k, m in stacks.items()}
+    coupling_launches = {}
+    for k, stack in stacks.items():
+        hist, coupling_launches[k] = coupling_slice(C, EW, k, stack, X64)
+        print(f"[launches] coupling slice {k}: {coupling_launches[k]}",
+              flush=True)
+        coupling_slice_timing(k, initial_stacks[k], X64, hist, gen, smi)
+        profile_coupling_steps(k, initial_stacks[k], X64, smi)
+
     src = "enflows_tpu_torch/ops/csrc/elementwise.cu"
     pallas = "enflows_tpu/ops/pallas/elementwise.py"
-    rows = [("B1 fused_forward_and_ladj", "fwd", f"{pallas}:441", b1),
-            ("B2 fused forward backward", "bwd", f"{pallas}:641", b2),
-            ("B3 fused_negll_value_and_grad", "negll", f"{pallas}:852", b3)]
+    rows = [("B1 fused_forward_and_ladj", launches["fwd"], src,
+             f"{pallas}:441", b1),
+            ("B2 fused forward backward", launches["bwd"], src,
+             f"{pallas}:641", b2),
+            ("B3 fused_negll_value_and_grad", launches["negll"], src,
+             f"{pallas}:852", b3)]
+    csrc = "enflows_tpu_torch/ops/csrc/coupling.cu"
+    cpallas = "enflows_tpu/ops/pallas/coupling.py"
+    for k in ("affine", "spline"):
+        rows += [(f"B4 fused_coupling_forward_and_ladj ({k} BASELINE)",
+                  coupling_launches[k]["coupling_fwd"], csrc,
+                  f"{cpallas}:677", b4[k]),
+                 (f"B5 fused coupling backward ({k} BASELINE)",
+                  coupling_launches[k]["coupling_bwd"], csrc,
+                  f"{cpallas}:616", b5[k])]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[key], **vals}
-        for name, key, rep, vals in rows]}), flush=True)
+        {"name": name, "route": "cuda", "source": source, "replaces": rep,
+         "launches": n_launch, **{key: vals[key] for key in keys}}
+        for name, n_launch, source, rep, vals in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

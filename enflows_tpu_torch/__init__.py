@@ -1,19 +1,26 @@
 """enflows_tpu_torch: the PyTorch / CUDA port of enflows_tpu.
 
-This slice holds the whitening main path: the bijector algebra
-(ScaleShift, CenterStretch/CenterContract, Johnson/JohnsonInv, Householder,
+It holds the whitening main path: the bijector algebra (ScaleShift,
+CenterStretch/CenterContract, Johnson/JohnsonInv, Householder,
 Chain/compose/invert), the standard-normal base density, the
-maximum-likelihood whitening trainer and the fused chain kernels B1-B3,
-written in CUDA C++ for Hopper (``ops/csrc/elementwise.cu``) and built at
-first use. The package imports ``torch`` and never ``jax``; ``interop``
-carries weights over from the JAX package without importing it.
+maximum-likelihood whitening trainer and the fused chain kernels B1-B3
+(``ops/csrc/elementwise.cu``); and the coupling-flow training path: affine
+and rational-quadratic-spline couplings with MLP conditioners, Permute, the
+elementwise spline, and the fused coupling-stack kernels B4/B5
+(``ops/csrc/coupling.cu``). The kernels are written in CUDA C++ for Hopper
+and built at first use. The package imports ``torch`` and never ``jax``;
+``interop`` carries weights over from the JAX package without importing
+it.
 """
 
 from . import bijectors, distributions, ops, train
 from .bijectors import (
-    Bijector, Chain, CenterContract, CenterStretch, Householder, Identity,
-    Johnson, JohnsonInv, ScaleShift, compose, forward_and_ladj, invert,
-    sum_ladjs,
+    AffineCoupling, Bijector, Chain, CenterContract, CenterStretch,
+    ElementwiseRQSpline, Householder, Identity, Johnson, JohnsonInv,
+    MLPConditioner, Permute, RQSplineCoupling, ScaleShift, compose,
+    coupling_stack, forward_and_ladj, init_affine_coupling,
+    init_elementwise_rq_spline, init_rq_spline_coupling, invert,
+    spline_coupling_stack, sum_ladjs,
 )
 from .distributions import (
     FlowDistribution, std_normal_logpdf, std_normal_logpdf_sum,

@@ -2,7 +2,15 @@
 
 `elementwise`: the fused whole-chain forward+ladj (B1), its backward (B2)
 and the single-pass whitening loss+grad (B3), with their plain versions.
+`coupling`: the fused coupling-stack forward+ladj (B4) and its backward (B5),
+with the plan, the plain version and the dispatch predicate. Each module
+keeps its own launch counters, ``LAUNCHES``.
 """
+from . import coupling, elementwise
+from .coupling import (
+    coupling_forward_plain, fused_coupling_forward_and_ladj,
+    is_fusible_coupling_stack,
+)
 from .elementwise import (
     LAUNCHES, forward_and_ladj_plain, fused_forward_and_ladj,
     fused_negll_value_and_grad, is_fusible_chain, negll_plain,
@@ -10,6 +18,8 @@ from .elementwise import (
 )
 
 __all__ = [
+    "coupling", "elementwise", "coupling_forward_plain",
+    "fused_coupling_forward_and_ladj", "is_fusible_coupling_stack",
     "LAUNCHES", "forward_and_ladj_plain", "fused_forward_and_ladj",
     "fused_negll_value_and_grad", "is_fusible_chain", "negll_plain",
     "negll_value_and_grad_plain",

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles ``csrc/elementwise.cu`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``. The build happens at first
-use, into ``enflows_tpu_torch/_build/``, under a name that carries a hash of
-the source and the flags, so an edited source is rebuilt. Nothing here runs at
-import time, so the package imports on a machine with no ``nvcc``.
+One ``nvcc`` call compiles every ``csrc/*.cu`` (``elementwise.cu``: B1-B3;
+``coupling.cu``: B4, B5; both include ``stages.cuh``) for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, into ``enflows_tpu_torch/_build/``, under a name that
+carries a hash of every source and header under ``csrc/`` and of the flags, so
+an edited source is rebuilt. Nothing here runs at import time, so the package
+imports on a machine with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "ops" / "csrc" / "elementwise.cu"
+CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, y, ladj, P, Q, codes, args, n_stages, n, d, tile, grid, block,
     # smem, stream
@@ -40,6 +43,17 @@ _SIGNATURES = {
     # n_pslots, n_hh, groups, loss_part, p_part, q_part, stream
     "enf_fused_negll": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P, _P, _P],
+    # x, y, ladj, W, P, items, item floats, n_items, layers, n_layers, n, d,
+    # ldw, warps, smem, grid, shift, stream
+    "enf_coupling_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _I,
+                         _I, _I, _I, _F, _P],
+    # x, gy, gl, gx, W, Wt, P, items, item floats, n_items, layers,
+    # n_layers, rows, d, ldw, warps, smem, grid, n_pslots, scratch, cols,
+    # p_part, shift, stream
+    "enf_coupling_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
+                         _I, _I, _I, _I, _I, _I, _P, _LL, _P, _F, _P],
+    # scratch, cols, layers, n_layers, rows, nsplit, w_part, w_len, stream
+    "enf_coupling_dw": [_P, _LL, _P, _I, _LL, _I, _P, _LL, _P],
 }
 
 
@@ -54,10 +68,16 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or in /usr/local/cuda/bin)")
 
 
+def sources() -> list[Path]:
+    """The ``.cu`` files compiled into the library, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libenflows_elementwise_{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"libenflows_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, float, str]:
@@ -73,7 +93,8 @@ def build() -> tuple[Path, float, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                           *map(str, sources())],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:

@@ -1,0 +1,744 @@
+"""Fused coupling-stack kernels: plan, wrappers, plain versions, dispatch.
+
+PyTorch counterpart of ``enflows_tpu/ops/pallas/coupling.py``. Two kernels,
+hand-written in CUDA C++ for Hopper (``csrc/coupling.cu``):
+
+* **B4** ``fused_coupling_forward_and_ladj``: forward and per-sample ladj of
+  a whole coupling stack in one launch (replaces ``_fused_coupling_impl``);
+* **B5** its backward, the ``backward`` of the same ``autograd.Function``
+  (replaces ``_fused_coupling_bwd_impl``): a per-tile recompute and reverse
+  sweep, then a batch reduction of the conditioner weight gradients.
+
+Dispatch rule of every wrapper (as in ``ops/elementwise.py``): a CPU tensor
+goes to the plain version in this module (B5's plain version is autograd
+over it); a CUDA tensor launches the kernel, or raises ``ValueError`` for an
+input the kernel does not take and ``RuntimeError`` when a launch fails.
+Nothing falls back from a failed kernel to the plain version.
+
+**The plan** (``_stack_plan``, after ``coupling.py:141-286``). The state of
+a sample is kept in physical lane order as two halves, ``[0, d/2)`` and
+``[d/2, d)``; each coupling conditions on one half and updates the other.
+Permutes cost nothing at run time: each is absorbed into the next
+coupling's first-layer rows and last-layer columns, and into the per-lane
+parameter vectors of elementwise stages. ``out_map`` maps logical output
+positions to physical lanes. The conditioner layers are packed into one flat
+f32 buffer, each layer as its ``(fan_in, fan_out)`` W followed by its bias;
+the elementwise stages' parameters into one buffer of per-lane vectors
+(slot q at ``[q*d, (q+1)*d)``). Both are built by differentiable indexing,
+so autograd maps the kernels' cotangents of these buffers back onto the
+chain's Parameters, as JAX does by a vjp over ``_stack_plan``
+(``coupling.py:773-777``).
+
+The spline conditioner output is read in slab layout, as on the TPU:
+spline parameter p of half-lane j at column ``p * d/2 + j``. On the card
+this is also the layout the kernel reads best: the thread of lane j reads
+its 3K-1 parameters at a stride of d/2 floats, and the 32 threads of a warp
+read 32 consecutive floats for each p, in shared memory and in the
+backward's device-memory scratch alike.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..bijectors.coupling import (ACTIVATIONS, AffineCoupling,
+                                  MLPConditioner, Permute)
+from ..bijectors.spline import (_DERIV_SHIFT, _MIN_BIN, _MIN_DERIV,
+                                RQSplineCoupling, softplus)
+from .elementwise import (_APPLY, _CODE, ELEMENTWISE_KINDS,
+                          _check_cuda_input, _ints, _raise_on, _sm_count,
+                          _stages)
+
+# Kernel launches, raised by the wrappers right after every kernel of a call
+# has launched without error, and nowhere else.
+LAUNCHES = {"coupling_fwd": 0, "coupling_bwd": 0}
+
+_ACT_CODE = {"tanh": 0, "gelu": 1, "relu": 2, "silu": 3}
+_KIND_CODE = {"affine": 0, "spline": 1, "elem": 2}
+
+MAX_STAGES = 24      # ENF_CMAX_STAGES in csrc/coupling.cu
+MAX_LAYERS = 48      # ENF_CMAX_LAYERS
+_KC = 8              # ENF_KC: weight rows per shared-memory chunk
+_PASS = 256          # ENF_PASS: output columns per matmul pass
+_SMEM_MAX = 232448   # the card's opt-in shared memory per block
+_SMEM_PER_SM = 233472
+_WARP_CHOICES = (8, 4, 2)   # a block of 32*w threads owns 4*w rows
+_DW_TILE = 64        # ENF_DW_TILE
+_BWD_CHUNK_ROWS = 1 << 16   # rows per B5 launch (bounds the scratch)
+
+
+# ------------------------------------------------------------------
+# Plan.
+
+class _Item(NamedTuple):
+    """One stage of the plan. ``kind`` is "affine", "spline" or "elem"."""
+    kind: str
+    src: int = 0            # coupling: the physical half that conditions
+    inverted: bool = False
+    mls: float = 0.0        # affine: max_log_scale
+    n_bins: int = 0         # spline
+    bound: float = 0.0      # spline
+    act: str = ""
+    layer0: int = 0         # index of the first layer in the flat list
+    n_layers: int = 0
+    a_rows: tuple = ()      # coupling: first-layer row for physical lane k
+    out_cols: tuple = ()    # coupling: last-layer column gather
+    code: int = 0           # elem: stage code of csrc/stages.cuh
+    slot: int = 0           # elem: first parameter slot
+    j_of_k: tuple = ()      # elem: logical position of physical lane k
+
+
+class _Structure(NamedTuple):
+    """The static part of the plan: what the kernel is told at launch."""
+    items: tuple
+    layers: tuple           # (fan_in, fan_out) per layer, flat
+    w_offs: tuple           # offset of each layer's W in the flat buffer
+    w_len: int
+    n_pslots: int
+    dim: int
+    out_map: tuple          # logical output position -> physical lane
+
+    @property
+    def maxw(self) -> int:
+        return max([self.dim // 2] + [w for kn in self.layers for w in kn])
+
+    @property
+    def identity_out(self) -> bool:
+        return self.out_map == tuple(range(self.dim))
+
+
+def _half_alignment(lane_map, dim):
+    """(src, a_loc, b_loc) when the logical untouched / transformed halves
+    each land on one physical half (``coupling.py:164-177``), else None."""
+    da = dim // 2
+    a_phys, b_phys = lane_map[:da], lane_map[da:]
+    if all(p < da for p in a_phys) and all(p >= da for p in b_phys):
+        return 0, list(a_phys), [p - da for p in b_phys]
+    if all(p >= da for p in a_phys) and all(p < da for p in b_phys):
+        return 1, [p - da for p in a_phys], list(b_phys)
+    return None
+
+
+def _stack_structure(chain, dim: int):
+    """The plan's static part, or None where the stack is not expressible
+    (``coupling.py:141-286``): a chain of AffineCoupling and
+    RQSplineCoupling (split d/2, an MLPConditioner with one of the four
+    activations and no compute_dtype), Permutes, and elementwise stages,
+    with at least one coupling, where every coupling finds its two logical
+    halves on the two physical halves. No tensor is touched."""
+    if dim < 2 or dim % 2:
+        return None
+    da = dim // 2
+    lane_map = list(range(dim))
+    items, layers, n_slots = [], [], 0
+    for s in _stages(chain):
+        if isinstance(s, Permute):
+            if sorted(s.perm) != list(range(dim)):
+                return None
+            lane_map = [lane_map[p] for p in s.perm]
+        elif isinstance(s, (AffineCoupling, RQSplineCoupling)):
+            cond = s.conditioner
+            if s.split != da or not isinstance(cond, MLPConditioner) \
+                    or cond.activation not in _ACT_CODE \
+                    or cond.compute_dtype is not None:
+                return None
+            align = _half_alignment(lane_map, dim)
+            if align is None:
+                return None
+            src, a_loc, b_loc = align
+            shapes = [tuple(d.W.shape) for d in cond.layers]
+            spline = isinstance(s, RQSplineCoupling)
+            P = 3 * s.n_bins - 1 if spline else 2
+            if any(len(kn) != 2 for kn in shapes) or shapes[0][0] != da \
+                    or shapes[-1][1] != da * P \
+                    or any(shapes[i][1] != shapes[i + 1][0]
+                           for i in range(len(shapes) - 1)) \
+                    or any(tuple(d.b.shape) != (kn[1],)
+                           for d, kn in zip(cond.layers, shapes)):
+                return None
+            b_inv = np.argsort(b_loc)
+            if spline:
+                # Slab layout: param p of physical half-lane b_loc[j] at
+                # column p*da + b_loc[j] takes the conditioner's column
+                # j*P + p.
+                cols = np.empty(da * P, np.int64)
+                for j in range(da):
+                    for p in range(P):
+                        cols[p * da + b_loc[j]] = j * P + p
+            else:
+                cols = np.concatenate([b_inv, da + b_inv])
+            items.append(_Item(
+                kind="spline" if spline else "affine", src=src,
+                inverted=bool(s.inverted),
+                mls=0.0 if spline else float(s.max_log_scale),
+                n_bins=int(s.n_bins) if spline else 0,
+                bound=float(s.bound) if spline else 0.0,
+                act=cond.activation, layer0=len(layers),
+                n_layers=len(shapes),
+                a_rows=tuple(int(i) for i in np.argsort(a_loc)),
+                out_cols=tuple(int(i) for i in cols)))
+            layers.extend(shapes)
+        elif isinstance(s, ELEMENTWISE_KINDS):
+            j_of_k = np.empty(dim, np.int64)
+            for j, k in enumerate(lane_map):
+                j_of_k[k] = j
+            items.append(_Item(kind="elem", code=_CODE[type(s)],
+                               slot=n_slots,
+                               j_of_k=tuple(int(j) for j in j_of_k)))
+            n_slots += len(s.fields())
+        else:
+            return None
+    if not any(it.kind != "elem" for it in items):
+        return None
+    w_offs, off = [], 0
+    for K, N in layers:
+        w_offs.append(off)
+        off += (K + 1) * N
+    return _Structure(tuple(items), tuple(layers), tuple(w_offs), off,
+                      n_slots, dim, tuple(lane_map))
+
+
+def _stack_plan(chain, st: _Structure, dtype, device):
+    """(wbuf, pbuf): the flat conditioner buffer, each layer as W (K*N)
+    then b (N) with the Permutes absorbed, and the per-lane elementwise
+    parameter buffer (n_pslots * d,), physical lane order. Differentiable
+    functions of the chain's Parameters."""
+    flat, pvecs = [], []
+    couplings = [s for s in _stages(chain)
+                 if isinstance(s, (AffineCoupling, RQSplineCoupling))]
+    elems = [s for s in _stages(chain) if isinstance(s, ELEMENTWISE_KINDS)]
+    ci = ei = 0
+    idx = lambda t: torch.tensor(t, dtype=torch.long, device=device)
+    for it in st.items:
+        if it.kind == "elem":
+            s = elems[ei]
+            ei += 1
+            jk = idx(it.j_of_k)
+            for p in s.fields().values():
+                pvecs.append(p.to(device=device, dtype=dtype)
+                             .expand(st.dim)[jk])
+            continue
+        dense = couplings[ci].conditioner.layers
+        ci += 1
+        for li, d in enumerate(dense):
+            W, b = d.W.to(dtype), d.b.to(dtype)
+            if li == 0:
+                W = W[idx(it.a_rows)]
+            if li == len(dense) - 1:
+                cols = idx(it.out_cols)
+                W, b = W[:, cols], b[cols]
+            flat += [W.reshape(-1), b]
+    wbuf = torch.cat(flat)
+    pbuf = torch.cat(pvecs) if pvecs else torch.zeros(0, dtype=dtype,
+                                                      device=device)
+    return wbuf, pbuf
+
+
+def _layer(st: _Structure, wbuf, li):
+    K, N = st.layers[li]
+    off = st.w_offs[li]
+    return (wbuf[off:off + K * N].view(K, N),
+            wbuf[off + K * N:off + (K + 1) * N])
+
+
+def _ldw(st: _Structure) -> int:
+    """Row stride of the kernels' activation buffers: the widest layer,
+    rounded up to 4 floats."""
+    return -(-st.maxw // 4) * 4
+
+
+def _smem_bytes(st: _Structure, warps: int, backward: bool) -> int:
+    """Shared memory of B4 / B5 for blocks of ``warps`` warps (4 rows per
+    warp), following the layouts in csrc/coupling.cu: B4 the state and the
+    per-element ladj terms (T x d each), two activation buffers (T x ldw)
+    and two weight chunks (KC x PASS); B5 what its reverse sweep needs of
+    each stage's input (an elementwise stage's whole input, T x d; a
+    coupling's target half, T x d/2), the state and then the running
+    cotangent (T x d), the ladj cotangents (T), the same activation buffers
+    and chunks, and the elementwise-parameter sums (n_pslots x d)."""
+    T, d, ldw = 4 * warps, st.dim, _ldw(st)
+    if backward:
+        saved = sum(d if it.kind == "elem" else d // 2 for it in st.items)
+        floats = (T * (saved + d + 1 + 2 * ldw)
+                  + 2 * _KC * _PASS + st.n_pslots * d)
+    else:
+        floats = T * (2 * d + 2 * ldw) + 2 * _KC * _PASS
+    return 4 * floats
+
+
+def _pick_warps(st: _Structure, backward: bool) -> int:
+    """The largest block (8, 4 or 2 warps) whose shared memory fits the
+    card's 227 KB per block; 0 when none does."""
+    for w in _WARP_CHOICES:
+        if _smem_bytes(st, w, backward) <= _SMEM_MAX:
+            return w
+    return 0
+
+
+def is_fusible_coupling_stack(chain, dim: int, dtype=torch.float32) -> bool:
+    """Whether B4/B5 take this stack (``coupling.py:306-319``).
+
+    The dtype is float32 (bf16 storage and bf16 conditioners are not ported)
+    and ``dim`` is even; the chain has at least one coupling; every coupling
+    splits at dim/2 and has an ``MLPConditioner`` with one of the four
+    activations and ``compute_dtype=None``; every coupling finds its halves
+    on the two physical halves after the Permutes before it; the other
+    stages are of the five elementwise kinds. In place of the TPU's tile
+    pickers and VMEM budgets, the port's own limit: at most 24 stages
+    (Permutes not counted) and 48 conditioner layers, and B5's smallest
+    block, 2 warps owning 8 rows, must fit the card's 227 KB of shared
+    memory: about 4 B * (8 * (d * (couplings / 2 + elementwise stages + 1)
+    + 2 * widest layer) + 4096 + 4 slots per elementwise stage * d)
+    (``_smem_bytes``). At d=64 with 4 couplings that admits layers up to
+    about 3200 wide; the (1024, 1024) stack runs B5 in blocks of 4 warps,
+    the BASELINE (512, 512) affine and spline stacks in blocks of 8."""
+    if dtype != torch.float32:
+        return False
+    st = _stack_structure(chain, dim)
+    if st is None or len(st.items) > MAX_STAGES \
+            or len(st.layers) > MAX_LAYERS or st.w_len >= 2 ** 31:
+        return False
+    return _pick_warps(st, backward=True) > 0
+
+
+# ------------------------------------------------------------------
+# Plain B4 (``_tile_apply`` :451-514 and ``_spline_slab_epilogue``
+# :322-415 over the whole batch): the kernel's arithmetic in torch.
+
+def _affine_epilogue(x, h, da, mls, inverted):
+    """(new target half, per-element ladj terms) of the affine update with
+    the soft clamp s = mls * tanh(h_s / mls)."""
+    sc = mls * torch.tanh(h[:, :da] / mls)
+    t = h[:, da:]
+    if inverted:
+        return (x - t) * torch.exp(-sc), -sc
+    return x * torch.exp(sc) + t, sc
+
+
+def _spline_bins(x, h, da, K, bound, inverted):
+    """The kernel's bin search: floored softmax sizes from the slab-layout
+    conditioner output, running bin edges, out-of-range lanes parked in bin
+    0 after the ``in_range`` mask (``coupling.py:341-390``). Returns
+    (in_range, masks per bin, wk, hk, x0, y0, d0, d1, softmax parts)."""
+    slab = lambda k: h[:, k * da:(k + 1) * da]
+    mw, mh = slab(0), slab(K)
+    for k in range(1, K):
+        mw = torch.maximum(mw, slab(k))
+        mh = torch.maximum(mh, slab(K + k))
+    ew = [torch.exp(slab(k) - mw) for k in range(K)]
+    eh = [torch.exp(slab(K + k) - mh) for k in range(K)]
+    zw, zh = sum(ew), sum(eh)
+    cw = (1.0 - _MIN_BIN * K) * 2.0 * bound
+    c0 = 2.0 * bound * _MIN_BIN
+    sw = [c0 + e * (cw / zw) for e in ew]
+    sh = [c0 + e * (cw / zh) for e in eh]
+    deriv = lambda kn: 1.0 if kn in (0, K) else \
+        _MIN_DERIV + softplus(slab(2 * K + kn - 1) + _DERIV_SHIFT)
+    in_range = (x > -bound) & (x < bound)
+    cx = torch.full_like(x, -bound)
+    cy = torch.full_like(x, -bound)
+    wk = hk = x0 = y0 = d0 = d1 = 0.0
+    masks = []
+    for k in range(K):
+        nx, ny = cx + sw[k], cy + sh[k]
+        lo, hi = (cy, ny) if inverted else (cx, nx)
+        m = (x >= lo) & (x < hi) if k + 1 < K else (x >= lo)
+        m = m & in_range
+        if k == 0:
+            m = m | ~in_range
+        masks.append(m)
+        oh = m.to(x.dtype)
+        wk = wk + oh * sw[k]
+        hk = hk + oh * sh[k]
+        x0 = x0 + oh * cx
+        y0 = y0 + oh * cy
+        d0 = d0 + oh * deriv(k)
+        d1 = d1 + oh * deriv(k + 1)
+        cx, cy = nx, ny
+    return (in_range, masks, wk, hk, x0, y0, d0, d1,
+            (ew, eh, zw, zh, cw))
+
+
+def _spline_solve(x, in_range, wk, hk, x0, y0, d0, d1, inverted):
+    """(xi, y before the tails, raw xi of the forward) of the selected bin:
+    the rational-quadratic form, or its stable two-root inverse with the
+    1e-6 root window and the clamp to [0, 1] (``coupling.py:391-408``)."""
+    s = hk / wk
+    t = d1 + d0 - 2.0 * s
+    if inverted:
+        dy = torch.where(in_range, x - y0, 0.5 * hk)
+        a = hk * (s - d0) + dy * t
+        b = hk * d0 - dy * t
+        c = -s * dy
+        root = torch.sqrt(torch.clamp(b * b - 4.0 * a * c, min=0.0))
+        q = -0.5 * (b + torch.where(b >= 0.0, 1.0, -1.0) * root)
+        r1 = torch.where(q != 0.0, c / torch.where(q != 0.0, q, 1.0), 0.0)
+        r2 = torch.where(a != 0.0, q / torch.where(a != 0.0, a, 1.0), r1)
+        use_r1 = (r1 >= -1e-6) & (r1 <= 1.0 + 1e-6)
+        xi_raw = torch.where(use_r1, r1, r2)
+        xi = torch.clamp(xi_raw, 0.0, 1.0)
+        return xi, x0 + xi * wk, xi_raw
+    xi_raw = torch.where(in_range, (x - x0) / wk, 0.5)
+    xi = torch.clamp(xi_raw, 0.0, 1.0)
+    y = y0 + hk * (s * xi * xi + d0 * xi * (1.0 - xi)) \
+        / (s + t * xi * (1.0 - xi))
+    return xi, y, xi_raw
+
+
+def _spline_epilogue(x, h, da, K, bound, inverted):
+    """(new target half, per-element ladj terms) of the RQ-spline update on
+    ``x: (n, da)`` from the slab-layout conditioner output
+    ``h: (n, da * (3K - 1))`` (``coupling.py:322-415``)."""
+    in_range, _, wk, hk, x0, y0, d0, d1, _ = _spline_bins(
+        x, h, da, K, bound, inverted)
+    xi, y, _ = _spline_solve(x, in_range, wk, hk, x0, y0, d0, d1, inverted)
+    s = hk / wk
+    t = d1 + d0 - 2.0 * s
+    omxi = 1.0 - xi
+    denom = s + t * xi * omxi
+    num = s * s * (d1 * xi * xi + 2.0 * s * xi * omxi + d0 * omxi * omxi)
+    ladj_fwd = torch.log(num) - 2.0 * torch.log(denom)
+    ladj = torch.where(in_range, -ladj_fwd if inverted else ladj_fwd, 0.0)
+    return torch.where(in_range, y, x), ladj
+
+
+def coupling_forward_plain(st: _Structure, wbuf, pbuf, x):
+    """Plain B4: (y in physical lane order, per-sample ladj) through the
+    plan, one stage at a time over the whole batch, in x's dtype, with the
+    conditioner matmuls in ``torch.matmul``. Differentiable: autograd over
+    it is the plain B5."""
+    d = st.dim
+    da = d // 2
+    halves = [x[:, :da], x[:, da:]]
+    ladj = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for it in st.items:
+        if it.kind == "elem":
+            kind = _BY_CODE[it.code]
+            ps = [pbuf[(it.slot + i) * d:(it.slot + i + 1) * d]
+                  for i in range(_N_PARAMS[it.code])]
+            for half in (0, 1):
+                sl = slice(half * da, (half + 1) * da)
+                halves[half], el = _APPLY[kind](halves[half],
+                                                *[p[sl] for p in ps])
+                ladj = ladj + el.expand(halves[half].shape).sum(1)
+            continue
+        act = ACTIVATIONS[it.act]
+        h = halves[it.src]
+        for li in range(it.n_layers):
+            W, b = _layer(st, wbuf, it.layer0 + li)
+            h = torch.matmul(h, W) + b
+            if li + 1 < it.n_layers:
+                h = act(h)
+        tgt = 1 - it.src
+        if it.kind == "affine":
+            new, el = _affine_epilogue(halves[tgt], h, da, it.mls,
+                                       it.inverted)
+        else:
+            new, el = _spline_epilogue(halves[tgt], h, da, it.n_bins,
+                                       it.bound, it.inverted)
+        halves[tgt] = new
+        ladj = ladj + el.sum(1)
+    return torch.cat(halves, dim=1), ladj
+
+
+_BY_CODE = {code: kind for kind, code in _CODE.items()}
+_N_PARAMS = {0: 2, 1: 3, 2: 3, 3: 4, 4: 4}     # n_params() of stages.cuh
+
+
+# ------------------------------------------------------------------
+# Hand-derived adjoints. Each returns the input cotangent and the cotangent
+# of the conditioner output, elementwise; ``ce`` is the cotangent of the
+# per-element ladj terms (the per-sample ladj cotangent, broadcast). The
+# CUDA functions of the same names in csrc/coupling.cu follow these lines;
+# the CPU tests hold them against autograd of the bodies above.
+
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def _sigmoid(u):
+    """sigma(u) from e^-|u|, the form the kernels use."""
+    e = torch.exp(-torch.abs(u))
+    return torch.where(u >= 0.0, 1.0, e) / (1.0 + e)
+
+
+def _adjoint_activation(name, pre, g):
+    """Cotangent of the pre-activation ``pre`` from that of act(pre)."""
+    if name == "tanh":
+        th = torch.tanh(pre)
+        return g * (1.0 - th * th)
+    if name == "relu":
+        return torch.where(pre > 0.0, g, 0.0)
+    if name == "silu":
+        sg = _sigmoid(pre)
+        return g * sg * (1.0 + pre * (1.0 - sg))
+    # gelu, tanh form: 0.5 p (1 + tanh(c (p + 0.044715 p^3)))
+    T = torch.tanh(_GELU_C * (pre + 0.044715 * pre * pre * pre))
+    return g * (0.5 * (1.0 + T) + 0.5 * pre * (1.0 - T * T) * _GELU_C
+                * (1.0 + 3.0 * 0.044715 * pre * pre))
+
+
+def _adjoint_affine(x, h, da, mls, inverted, cy, ce):
+    """(cx, g_h) of ``_affine_epilogue``, through the soft clamp and the
+    ladj term."""
+    th = torch.tanh(h[:, :da] / mls)
+    sc = mls * th
+    if inverted:
+        e = torch.exp(-sc)
+        y = (x - h[:, da:]) * e
+        cx = cy * e
+        g_t = -cy * e
+        g_sc = -cy * y - ce
+    else:
+        e = torch.exp(sc)
+        cx = cy * e
+        g_t = cy
+        g_sc = cy * x * e + ce
+    return cx, torch.cat([g_sc * (1.0 - th * th), g_t], dim=1)
+
+
+def _adjoint_spline(x, h, da, K, bound, inverted, cy, ce):
+    """(cx, g_h) of ``_spline_epilogue``: through the selected bin's
+    rational-quadratic form (forward), or by implicit differentiation of
+    it at the solved root (inverted), its ladj term, the running bin edges,
+    the floored softmax of widths and heights and the shifted softplus of
+    the slopes. The bin index is constant almost everywhere, so no gradient
+    flows through it; where the forward's xi is clamped to [0, 1] none
+    flows through xi either."""
+    (in_range, masks, wk, hk, x0, y0, d0, d1,
+     (ew, eh, zw, zh, cw)) = _spline_bins(x, h, da, K, bound, inverted)
+    xi, _, xi_raw = _spline_solve(x, in_range, wk, hk, x0, y0, d0, d1,
+                                  inverted)
+    s = hk / wk
+    t = d1 + d0 - 2.0 * s
+    u = xi * (1.0 - xi)
+    omxi = 1.0 - xi
+    N = s * xi * xi + d0 * u
+    D = s + t * u
+    M = d1 * xi * xi + 2.0 * s * u + d0 * omxi * omxi
+    D2 = D * D
+    y_xi = hk * ((2.0 * s * xi + d0 * (1.0 - 2.0 * xi)) * D
+                 - N * t * (1.0 - 2.0 * xi)) / D2
+    y_s = hk * (xi * xi * D - N * (1.0 - 2.0 * u)) / D2
+    y_d0 = hk * (u * D - N * u) / D2
+    y_d1 = -hk * N * u / D2
+    L_xi = (2.0 * d1 * xi + 2.0 * s * (1.0 - 2.0 * xi) - 2.0 * d0 * omxi) / M \
+        - 2.0 * t * (1.0 - 2.0 * xi) / D
+    L_s = 2.0 / s + 2.0 * u / M - 2.0 * (1.0 - 2.0 * u) / D
+    L_d0 = omxi * omxi / M - 2.0 * u / D
+    L_d1 = xi * xi / M - 2.0 * u / D
+    if inverted:
+        g_xi = cy * wk - ce * L_xi
+        lam = -g_xi / y_xi
+        cx = g_xi / y_xi
+        g_y0 = lam
+        g_hk = lam * N / D
+        g_s = lam * y_s - ce * L_s
+        g_d0 = lam * y_d0 - ce * L_d0
+        g_d1 = lam * y_d1 - ce * L_d1
+        g_x0 = cy
+        g_wk = cy * xi
+    else:
+        g_xi = cy * y_xi + ce * L_xi
+        g_xi = torch.where((xi_raw >= 0.0) & (xi_raw <= 1.0), g_xi, 0.0)
+        cx = g_xi / wk
+        g_x0 = -g_xi / wk
+        g_wk = -g_xi * xi / wk
+        g_y0 = cy
+        g_hk = cy * N / D
+        g_s = cy * y_s + ce * L_s
+        g_d0 = cy * y_d0 + ce * L_d0
+        g_d1 = cy * y_d1 + ce * L_d1
+    g_hk = g_hk + g_s / wk
+    g_wk = g_wk - g_s * s / wk
+    zero = torch.zeros_like(x)
+    cx = torch.where(in_range, cx, cy)
+    g_wk, g_hk, g_x0, g_y0, g_d0, g_d1 = (
+        torch.where(in_range, g, zero)
+        for g in (g_wk, g_hk, g_x0, g_y0, g_d0, g_d1))
+    # Bin sizes: the selected bin's size, and every size before it through
+    # the running edge x0 / y0.
+    after = torch.zeros_like(in_range)
+    g_sw, g_sh = [None] * K, [None] * K
+    for k in range(K - 1, -1, -1):
+        g_sw[k] = torch.where(masks[k], g_wk, torch.where(after, g_x0, zero))
+        g_sh[k] = torch.where(masks[k], g_hk, torch.where(after, g_y0, zero))
+        after = after | masks[k]
+    # Floored softmax: size_k = c0 + cw * p_k.
+    cols = []
+    for e_, z, g_sz in ((ew, zw, g_sw), (eh, zh, g_sh)):
+        S = sum((e_[k] / z) * g_sz[k] for k in range(K))
+        cols += [cw * (e_[k] / z) * (g_sz[k] - S) for k in range(K)]
+    # Interior slopes: deriv(kn) = MIN_DERIV + softplus(raw[kn-1] + shift).
+    for i in range(K - 1):
+        sig = _sigmoid(h[:, (2 * K + i) * da:(2 * K + i + 1) * da]
+                       + _DERIV_SHIFT)
+        g = torch.where(masks[i + 1], g_d0, zero) \
+            + torch.where(masks[i], g_d1, zero)
+        cols.append(g * sig)
+    return cx, torch.cat(cols, dim=1)
+
+
+# ------------------------------------------------------------------
+# CUDA wrappers.
+
+@functools.lru_cache(maxsize=64)
+def _plan_arrays(st: _Structure):
+    """The C arrays of the plan: 9 ints and 2 floats per stage, 6 ints per
+    layer (K, N, W offset, W^T offset, h_in and g_pre scratch columns)."""
+    si, sf = [], []
+    for it in st.items:
+        si += [_KIND_CODE[it.kind], it.src, int(it.inverted),
+               _ACT_CODE.get(it.act, 0), it.n_layers, it.layer0, it.code,
+               it.slot, it.n_bins]
+        sf += [it.mls, it.bound]
+    li, wt_off, col = [], 0, 0
+    for (K, N), w_off in zip(st.layers, st.w_offs):
+        li += [K, N, w_off, wt_off, col, col + K]
+        wt_off += K * N
+        col += K + N
+    return (_ints(si), (ctypes.c_float * max(1, len(sf)))(*sf), _ints(li),
+            col)
+
+
+def _launch_fwd(st: _Structure, x, wbuf, pbuf):
+    from ._build import load_library
+
+    lib = load_library()
+    n, d = x.shape
+    warps = _pick_warps(st, backward=False)
+    smem = _smem_bytes(st, warps, backward=False)
+    tiles = -(-n // (4 * warps))
+    grid = min(tiles, max(1, _SMEM_PER_SM // (smem + 1024))
+               * _sm_count(x.device.index))
+    y = torch.empty_like(x)
+    ladj = torch.empty(n, dtype=torch.float32, device=x.device)
+    si, sf, li, _ = _plan_arrays(st)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.enf_coupling_fwd(
+            x.data_ptr(), y.data_ptr(), ladj.data_ptr(), wbuf.data_ptr(),
+            pbuf.data_ptr(), si, sf, len(st.items), li, len(st.layers), n,
+            d, _ldw(st), warps, smem, grid, _DERIV_SHIFT, stream)
+    _raise_on(lib, err, "B4 (fused coupling forward)")
+    LAUNCHES["coupling_fwd"] += 1
+    return y, ladj
+
+
+def _transposed(st: _Structure, wbuf):
+    """Every layer's W^T (N, K), packed in layer order."""
+    return torch.cat([_layer(st, wbuf, i)[0].t().reshape(-1)
+                      for i in range(len(st.layers))])
+
+
+def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl):
+    """B5: (gx, wbuf cotangent, pbuf cotangent) for the cotangents gy (n, d)
+    in physical lane order and gl (n,). The batch goes in chunks of at most
+    ``_BWD_CHUNK_ROWS`` rows, each one launch of the sweep kernel and one of
+    the weight-gradient reduction; the per-chunk partials are summed here
+    in a fixed order."""
+    from ._build import load_library
+
+    lib = load_library()
+    n, d = x.shape
+    dev = x.device
+    warps = _pick_warps(st, backward=True)
+    smem = _smem_bytes(st, warps, backward=True)
+    si, sf, li, cols = _plan_arrays(st)
+    wt = _transposed(st, wbuf)
+    chunk = min(n, _BWD_CHUNK_ROWS)
+    scratch = torch.empty(chunk * cols, dtype=torch.float32, device=dev)
+    sms = _sm_count(dev.index)
+    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
+    tiles = sum(-(-(K + 1) // _DW_TILE) * -(-N // _DW_TILE)
+                for K, N in st.layers)
+    nsplit = max(1, min(64, -(-4 * sms // tiles)))
+    gx = torch.empty_like(x)
+    n_chunks = -(-n // chunk)
+    w_part = torch.empty(n_chunks * nsplit, st.w_len, dtype=torch.float32,
+                         device=dev)
+    grid_max = per_sm * sms
+    p_parts = []
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for c in range(n_chunks):
+            r0, r1 = c * chunk, min(n, (c + 1) * chunk)
+            rows = r1 - r0
+            grid = min(-(-rows // (4 * warps)), grid_max)
+            p_part = torch.empty(grid, st.n_pslots * d, dtype=torch.float32,
+                                 device=dev)
+            err = lib.enf_coupling_bwd(
+                x[r0:].data_ptr(), gy[r0:].data_ptr(), gl[r0:].data_ptr(),
+                gx[r0:].data_ptr(), wbuf.data_ptr(), wt.data_ptr(),
+                pbuf.data_ptr(), si, sf, len(st.items), li, len(st.layers),
+                rows, d, _ldw(st), warps, smem, grid, st.n_pslots,
+                scratch.data_ptr(), cols, p_part.data_ptr(), _DERIV_SHIFT,
+                stream)
+            _raise_on(lib, err, "B5 (fused coupling backward sweep)")
+            err = lib.enf_coupling_dw(
+                scratch.data_ptr(), cols, li, len(st.layers), rows, nsplit,
+                w_part[c * nsplit:].data_ptr(), st.w_len, stream)
+            _raise_on(lib, err, "B5 (coupling weight-gradient reduction)")
+            p_parts.append(p_part.sum(0))
+    LAUNCHES["coupling_bwd"] += 1
+    return gx, w_part.sum(0), sum(p_parts[1:], p_parts[0])
+
+
+class _FusedCoupling(torch.autograd.Function):
+    """Forward: B4. Backward: B5 (``coupling.py:719-790``)."""
+
+    @staticmethod
+    def forward(ctx, x, wbuf, pbuf, st, physical_order):
+        y, ladj = _launch_fwd(st, x, wbuf, pbuf)
+        ctx.save_for_backward(x, wbuf, pbuf)
+        ctx.st = st
+        ctx.gather = not physical_order and not st.identity_out
+        if ctx.gather:
+            y = y[:, list(st.out_map)]
+        return y, ladj
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gl):
+        x, wbuf, pbuf = ctx.saved_tensors
+        st = ctx.st
+        if ctx.gather:
+            # The forward returned y_phys[:, out_map]; the vjp of that
+            # gather gathers by the inverse permutation (coupling.py:764-767).
+            gy = gy[:, np.argsort(st.out_map).tolist()]
+        gx, gw, gp = _launch_bwd(st, x, wbuf, pbuf, gy.contiguous(),
+                                 gl.contiguous())
+        return gx, gw, gp, None, None
+
+
+def fused_coupling_forward_and_ladj(chain, x, physical_order: bool = False):
+    """(y, per-sample ladj) of a coupling stack on an (n, d) batch in one
+    pass (``enflows_tpu/ops/pallas/coupling.py:793-811``).
+
+    ``physical_order=True`` returns y with its lanes in the kernel's
+    physical order, for consumers whose reduction of y does not depend on
+    lane order (the isotropic base logpdf); otherwise y is gathered into
+    logical order. On a CUDA tensor: B4, with B5 as its backward. On a CPU
+    tensor: ``coupling_forward_plain`` through the same plan."""
+    if x.dim() != 2:
+        raise ValueError(f"fused coupling takes an (n, d) batch, got shape "
+                         f"{tuple(x.shape)}")
+    st = _stack_structure(chain, x.shape[1])
+    if st is None:
+        raise ValueError(f"chain is not a fusible coupling stack at "
+                         f"d={x.shape[1]} (see is_fusible_coupling_stack)")
+    if x.device.type == "cpu":
+        wbuf, pbuf = _stack_plan(chain, st, x.dtype, x.device)
+        y, ladj = coupling_forward_plain(st, wbuf, pbuf, x)
+        if not physical_order and not st.identity_out:
+            y = y[:, list(st.out_map)]
+        return y, ladj
+    _check_cuda_input(chain, x, is_fusible_coupling_stack)
+    wbuf, pbuf = _stack_plan(chain, st, torch.float32, x.device)
+    return _FusedCoupling.apply(x, wbuf, pbuf, st, physical_order)
+

@@ -378,7 +378,11 @@ def _chain_plan(chain, d: int, device):
     return plan, pbuf.contiguous(), qbuf.contiguous()
 
 
-def _check_cuda_input(chain, x):
+def _check_cuda_input(chain, x, fusible=None):
+    """Raise ``ValueError`` unless ``x`` is a non-empty contiguous (n, d)
+    float32 CUDA batch, ``fusible(chain, d, dtype)`` holds (default
+    ``is_fusible_chain``) and every Parameter lies on x's device."""
+    fusible = fusible or is_fusible_chain
     if x.device.type != "cuda":
         raise ValueError(f"fused kernels take CPU or CUDA tensors, got "
                          f"{x.device}")
@@ -389,9 +393,9 @@ def _check_cuda_input(chain, x):
                          f"shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("fused kernels take a contiguous batch")
-    if not is_fusible_chain(chain, x.shape[1], x.dtype):
+    if not fusible(chain, x.shape[1], x.dtype):
         raise ValueError(f"chain is not fusible at d={x.shape[1]} "
-                         f"(see is_fusible_chain)")
+                         f"(see {fusible.__name__})")
     for name, p in chain.named_parameters():
         if p.device != x.device:
             raise ValueError(f"parameter {name} is on {p.device}, the batch "

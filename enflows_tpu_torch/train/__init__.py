@@ -1,10 +1,11 @@
 from .whitening import (
     WhiteningResult, default_optimizer, make_train_step, mvnormal_negll,
-    mvnormal_negll_fused, mvnormal_negll_grad, optimize_whitening,
+    mvnormal_negll_coupling, mvnormal_negll_fused, mvnormal_negll_grad,
+    optimize_whitening,
 )
 
 __all__ = [
     "WhiteningResult", "default_optimizer", "make_train_step",
-    "mvnormal_negll", "mvnormal_negll_fused", "mvnormal_negll_grad",
-    "optimize_whitening",
+    "mvnormal_negll", "mvnormal_negll_coupling", "mvnormal_negll_fused",
+    "mvnormal_negll_grad", "optimize_whitening",
 ]

@@ -7,18 +7,23 @@ per-sample mean negative log-likelihood under the change of variables,
 
 and each step is (loss, grad, optimizer update, canonicalize). Where the
 JAX trainer runs the epoch x batch loop as a ``lax.scan`` inside ``jit``,
-this one runs an eager Python loop; on a CUDA batch with a fusible chain each
-step's loss and gradient come from one launch of the fused kernel B3
-(``ops.elementwise.fused_negll_value_and_grad``).
+this one runs an eager Python loop. On a CUDA batch with a fusible
+elementwise chain each step's loss and gradient come from one launch of the
+fused kernel B3 (``ops.elementwise.fused_negll_value_and_grad``); with a
+fusible coupling stack, from the fused coupling forward B4 and its backward
+B5 (``ops.coupling.fused_coupling_forward_and_ladj``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
 
 from ..bijectors.base import Bijector
 from ..distributions.base import std_normal_logpdf, std_normal_logpdf_sum
+from ..ops.coupling import (fused_coupling_forward_and_ladj,
+                            is_fusible_coupling_stack)
 from ..ops.elementwise import (_grads_by_name, fused_forward_and_ladj,
                                fused_negll_value_and_grad, is_fusible_chain)
 
@@ -39,11 +44,22 @@ def mvnormal_negll_fused(flow: Bijector, X: torch.Tensor) -> torch.Tensor:
     return -(std_normal_logpdf(y).sum() + ladj.sum()) / X.shape[0]
 
 
-def mvnormal_negll_grad(flow: Bijector, X: torch.Tensor):
-    """(negll, {parameter name: gradient}) by autograd
+def mvnormal_negll_coupling(flow: Bijector, X: torch.Tensor) -> torch.Tensor:
+    """negll through the fused coupling-stack forward (B4, with B5 as its
+    backward) on an (n, dim) batch; same value as ``mvnormal_negll``
+    (``enflows_tpu/train/whitening.py:63-74``). ``physical_order=True`` is
+    sound here: the isotropic base logpdf and the per-sample ladj do not
+    depend on the kernel's lane order."""
+    y, ladj = fused_coupling_forward_and_ladj(flow, X, physical_order=True)
+    return -(std_normal_logpdf_sum(y).sum() + ladj.sum()) / X.shape[0]
+
+
+def mvnormal_negll_grad(flow: Bijector, X: torch.Tensor,
+                        loss_fn: Callable = mvnormal_negll):
+    """(negll, {parameter name: gradient}) by autograd over ``loss_fn``
     (``enflows_tpu/train/whitening.py:77-79``)."""
     with torch.enable_grad():
-        negll = mvnormal_negll(flow, X)
+        negll = loss_fn(flow, X)
         grads = _grads_by_name(flow, [negll])
     return negll.detach(), grads
 
@@ -95,7 +111,7 @@ def optimize_whitening(
     nepochs: int = 100,
     opt_state: dict | None = None,
     negll_history: torch.Tensor | None = None,
-    use_fused: bool | None = None,
+    use_fused: bool | str | None = None,
     mesh=None,
     metrics=None,
     checkpoint_every: int | None = None,
@@ -113,11 +129,16 @@ def optimize_whitening(
     pass a previous result's ``optimizer_state`` (a ``state_dict()``) as
     ``opt_state`` and its ``negll_history``, which is spliced in front.
 
-    ``use_fused``: None dispatches by rule: a CUDA batch with a fusible chain
-    (``is_fusible_chain``) takes the fused kernel B3 every step; a CPU batch,
-    or a chain the kernel does not take, the plain autograd path. False
-    forces the plain path; True requires a fusible chain (on a CPU batch the
-    fused wrapper runs its plain version).
+    ``use_fused``: None dispatches by rule: a CUDA batch with a fusible
+    elementwise chain (``is_fusible_chain``) takes the fused kernel B3 every
+    step, a CUDA batch with a fusible coupling stack
+    (``is_fusible_coupling_stack``) B4 and B5 every step
+    (``enflows_tpu/train/whitening.py:178-206``, without the TPU's
+    batch-size thresholds, which were measured on a v5e); a CPU batch, or a
+    chain neither kernel takes, the plain autograd path. False forces the
+    plain path; True requires a fusible elementwise chain and "coupling" a
+    fusible coupling stack (on a CPU batch either fused wrapper runs its
+    plain version).
 
     ``mesh``, ``metrics``, ``checkpoint_every`` and ``ckpt_dir`` are not
     ported yet and raise ``NotImplementedError``.
@@ -133,18 +154,33 @@ def optimize_whitening(
     batches = samples[:batch_size * nbatches].reshape(
         nbatches, batch_size, dim).contiguous()
 
-    fusible = is_fusible_chain(initial_flow, dim, samples.dtype)
     if use_fused is None:
-        use_fused = samples.is_cuda and fusible
-    elif use_fused and not fusible:
+        if not samples.is_cuda:
+            use_fused = False
+        elif is_fusible_chain(initial_flow, dim, samples.dtype):
+            use_fused = True
+        elif is_fusible_coupling_stack(initial_flow, dim, samples.dtype):
+            use_fused = "coupling"
+        else:
+            use_fused = False
+    elif use_fused == "coupling":
+        if not is_fusible_coupling_stack(initial_flow, dim, samples.dtype):
+            raise ValueError('use_fused="coupling" needs a fusible coupling '
+                             'stack (see is_fusible_coupling_stack)')
+    elif use_fused and not is_fusible_chain(initial_flow, dim,
+                                            samples.dtype):
         raise ValueError("use_fused=True needs a fusible chain "
                          "(see is_fusible_chain)")
 
     opt = (optimizer or default_optimizer)(list(initial_flow.parameters()))
     if opt_state is not None:
         opt.load_state_dict(opt_state)
-    step = make_train_step(opt, fused_negll_value_and_grad if use_fused
-                           else mvnormal_negll_grad)
+    value_and_grad = {False: mvnormal_negll_grad,
+                      True: fused_negll_value_and_grad,
+                      "coupling": functools.partial(
+                          mvnormal_negll_grad,
+                          loss_fn=mvnormal_negll_coupling)}[use_fused]
+    step = make_train_step(opt, value_and_grad)
 
     neglls = [step(initial_flow, batches[b])
               for _ in range(nepochs) for b in range(nbatches)]

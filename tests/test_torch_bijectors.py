@@ -84,7 +84,7 @@ def test_bijector_matches_jax(kind):
     rng = np.random.default_rng(KINDS.index(kind))
     d = 3
     jb = _jax_stage(kind, d, rng)
-    tb = from_jax(jb)
+    tb = from_jax(jb, device="cpu")
     x = rng.normal(size=(257, d)) * 2.0
     yj, lj = jb.forward_and_ladj(jnp.asarray(x))
     yt, lt = tb.forward_and_ladj(torch.from_numpy(x))
@@ -103,7 +103,7 @@ def test_bijector_matches_jax(kind):
 def test_chain_protocol():
     rng = np.random.default_rng(0)
     d = 2
-    stages = [from_jax(_jax_stage(k, d, rng))
+    stages = [from_jax(_jax_stage(k, d, rng), device="cpu")
               for k in ("johnson", "center_stretch", "householder_scan")]
     c = et.compose(*stages)
     # compose applies its last argument first; Chain.of flattens and drops
@@ -131,16 +131,16 @@ def test_chain_protocol():
 
 def test_parameter_sharing():
     rng = np.random.default_rng(1)
-    cs = from_jax(_jax_stage("center_stretch", 2, rng))
+    cs = from_jax(_jax_stage("center_stretch", 2, rng), device="cpu")
     cc = et.invert(cs)
     assert cc.a is cs.a and cc.b is cs.b and cc.c is cs.c
-    j = from_jax(_jax_stage("johnson", 2, rng))
+    j = from_jax(_jax_stage("johnson", 2, rng), device="cpu")
     assert all(getattr(j.inverse(), f) is getattr(j, f)
                for f in ("gamma", "delta", "xi", "lam"))
-    h = from_jax(_jax_stage("householder_scan", 2, rng))
+    h = from_jax(_jax_stage("householder_scan", 2, rng), device="cpu")
     hi = h.inverse()
     assert hi.V is h.V and hi.inverse().V is h.V
-    h1 = from_jax(_jax_stage("householder_single", 2, rng))
+    h1 = from_jax(_jax_stage("householder_single", 2, rng), device="cpu")
     assert h1.inverse() is h1
     # ScaleShift's inverse computes 1/a from the shared Parameter at call
     # time, so a gradient through the inverse lands on the forward's a.
@@ -178,11 +178,11 @@ def test_householder_scan_function_matches_dense():
 def test_householder_canonicalize_in_place():
     rng = np.random.default_rng(3)
     Vj = jnp.asarray(rng.normal(size=(3, 4)), F64)
-    h = from_jax(ef.Householder(V=Vj))
+    h = from_jax(ef.Householder(V=Vj), device="cpu")
     V_param = h.V
     assert h.canonicalize() is h and h.V is V_param
     _close(h.V.detach(), ef.Householder(V=Vj).canonicalize().V)
-    h1 = from_jax(ef.Householder(V=Vj[0]))
+    h1 = from_jax(ef.Householder(V=Vj[0]), device="cpu")
     h1.canonicalize()
     _close(h1.V.detach(), ef.Householder(V=Vj[0]).canonicalize().V)
 
@@ -205,7 +205,7 @@ def _example_2d_model():
 @pytest.mark.parametrize("model", ["flagship", "example_2d"])
 def test_gradients_match_jax(model):
     jflow = _flagship(2) if model == "flagship" else _example_2d_model()
-    tflow = from_jax(jflow)
+    tflow = from_jax(jflow, device="cpu")
     rng = np.random.default_rng(4)
     # Away from exact zeros, where AD of sign(u)*log(|u|+s) and of the 1e-6
     # clamp differs from the analytic derivative.
@@ -237,7 +237,7 @@ def test_gradients_match_jax(model):
 
 def test_interop_round_trip():
     jflow = _flagship(3)
-    tflow = from_jax(jflow, dtype=torch.float32)
+    tflow = from_jax(jflow, dtype=torch.float32, device="cpu")
     assert all(p.dtype == torch.float32 for p in tflow.parameters())
     back = to_numpy(tflow.inverse())
     for sj, st in zip(jflow.inverse().stages, back):
@@ -248,7 +248,7 @@ def test_interop_round_trip():
 
 def test_flow_distribution_logpdf_and_sampling():
     jflow = _example_2d_model()
-    tflow = from_jax(jflow)
+    tflow = from_jax(jflow, device="cpu")
     dist = et.FlowDistribution(tflow)
     rng = np.random.default_rng(5)
     x = rng.normal(size=(50, 2))

@@ -64,7 +64,7 @@ def _data(d, n=640, seed=0):
 @pytest.mark.parametrize("d", [2, 3, 50])
 def test_b1_plain_matches_pallas(d):
     jchain = full_chain(d)
-    tchain = from_jax(jchain)
+    tchain = from_jax(jchain, device="cpu")
     x = _data(d)
     yj, lj = fused_forward_and_ladj_packed(jchain, jnp.asarray(x).reshape(-1),
                                            d)
@@ -79,7 +79,7 @@ def test_b1_plain_matches_pallas(d):
 @pytest.mark.parametrize("d", [2, 3, 50])
 def test_b2_plain_matches_pallas(d):
     jchain = full_chain(d)
-    tchain = from_jax(jchain)
+    tchain = from_jax(jchain, device="cpu")
     x = _data(d, seed=1)
 
     def loss(c, xf):
@@ -104,7 +104,7 @@ def test_b2_plain_matches_pallas(d):
 @pytest.mark.parametrize("d", [2, 3, 50])
 def test_b3_plain_matches_pallas(d):
     jchain = full_chain(d)
-    tchain = from_jax(jchain)
+    tchain = from_jax(jchain, device="cpu")
     x = _data(d, seed=2)
     vj, gj = jax_b3(jchain, jnp.asarray(x).reshape(-1), d)
     before = dict(TE.LAUNCHES)
@@ -212,14 +212,14 @@ def _replay_grad_kernel(chain, x, gy=None, gladj=None, tile=37):
 
 def _flagship_torch(d):
     from __graft_entry__ import _flagship_flow
-    return from_jax(_flagship_flow(d))
+    return from_jax(_flagship_flow(d), device="cpu")
 
 
 @pytest.mark.parametrize("chain_name,d", [("full", 2), ("full", 50),
                                           ("flagship", 2), ("flagship", 5)])
 def test_grad_kernel_replay_matches_autograd(chain_name, d):
-    tchain = (from_jax(full_chain(d)) if chain_name == "full"
-              else _flagship_torch(d))
+    tchain = (from_jax(full_chain(d), device="cpu")
+              if chain_name == "full" else _flagship_torch(d))
     # The 2D example's model: an inverted ScaleShift computes 1/a from the
     # shared Parameter, which the pull-back has to reach.
     tchain = et.Chain.of(tchain, et.ScaleShift(torch.full((d,), 1.3),
@@ -251,12 +251,13 @@ def test_grad_kernel_replay_matches_autograd(chain_name, d):
 # Dispatch and import rules.
 
 def test_fusible_predicate():
-    c2 = from_jax(full_chain(2))
+    c2 = from_jax(full_chain(2), device="cpu")
     assert TE.is_fusible_chain(c2, 2, torch.float32)
     assert not TE.is_fusible_chain(c2, 2, torch.float64)
     assert not TE.is_fusible_chain(c2, 2, torch.bfloat16)
-    assert TE.is_fusible_chain(from_jax(full_chain(128)), 128)
-    assert not TE.is_fusible_chain(from_jax(full_chain(129)), 129)
+    assert TE.is_fusible_chain(from_jax(full_chain(128), device="cpu"), 128)
+    assert not TE.is_fusible_chain(
+        from_jax(full_chain(129), device="cpu"), 129)
     ew = lambda d: et.compose(et.Johnson(torch.zeros(d), torch.ones(d),
                                          torch.zeros(d), torch.ones(d)),
                               et.ScaleShift(torch.ones(d), torch.zeros(d)))
@@ -270,7 +271,7 @@ def test_fusible_predicate():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    chain = from_jax(full_chain(2))
+    chain = from_jax(full_chain(2), device="cpu")
     with pytest.raises(ValueError):      # neither CPU nor CUDA
         TE.fused_forward_and_ladj(chain, torch.empty(4, 2, device="meta"))
     with pytest.raises(ValueError):

@@ -51,7 +51,7 @@ def test_trainer_matches_jax():
     jflow = _flagship()
     rj = jax_optimize_whitening(jnp.asarray(X), jflow, optax.adagrad(0.1),
                                 nbatches=4, nepochs=3, use_fused=False)
-    tflow = from_jax(jflow)
+    tflow = from_jax(jflow, device="cpu")
     before = dict(TE.LAUNCHES)
     rt = optimize_whitening(torch.from_numpy(X), tflow, nbatches=4,
                             nepochs=3)
@@ -73,11 +73,13 @@ def test_cpu_dispatch_takes_the_plain_path(monkeypatch):
         lambda *a: calls.append(1) or real(*a))
     X = torch.from_numpy(_data(n=800, seed=1)).float()
     jflow = _flagship()
-    r_plain = optimize_whitening(X, from_jax(jflow, dtype=torch.float32),
-                                 nbatches=2, nepochs=2)
+    r_plain = optimize_whitening(
+        X, from_jax(jflow, dtype=torch.float32, device="cpu"), nbatches=2,
+        nepochs=2)
     assert calls == []
-    r_fused = optimize_whitening(X, from_jax(jflow, dtype=torch.float32),
-                                 nbatches=2, nepochs=2, use_fused=True)
+    r_fused = optimize_whitening(
+        X, from_jax(jflow, dtype=torch.float32, device="cpu"), nbatches=2,
+        nepochs=2, use_fused=True)
     assert len(calls) == 4 and TE.LAUNCHES == {"fwd": 0, "bwd": 0,
                                                "negll": 0}
     np.testing.assert_allclose(r_fused.negll_history.numpy(),
@@ -93,8 +95,9 @@ def test_cpu_dispatch_takes_the_plain_path(monkeypatch):
 def test_trainer_resumes():
     X = torch.from_numpy(_data(n=1200, seed=2))
     jflow = _flagship()
-    full = optimize_whitening(X, from_jax(jflow), nbatches=3, nepochs=3)
-    flow = from_jax(jflow)
+    full = optimize_whitening(X, from_jax(jflow, device="cpu"), nbatches=3,
+                              nepochs=3)
+    flow = from_jax(jflow, device="cpu")
     part = optimize_whitening(X, flow, nbatches=3, nepochs=2)
     rest = optimize_whitening(X, flow, nbatches=3, nepochs=1,
                               opt_state=part.optimizer_state,
@@ -120,8 +123,9 @@ def test_trainer_example_2d_model_matches_jax():
     X = _data(n=2000, seed=3)
     rj = jax_optimize_whitening(jnp.asarray(X), jmodel, optax.adagrad(0.1),
                                 nbatches=4, nepochs=2, use_fused=False)
-    rt = optimize_whitening(torch.from_numpy(X), from_jax(jmodel),
-                            nbatches=4, nepochs=2)
+    rt = optimize_whitening(torch.from_numpy(X),
+                            from_jax(jmodel, device="cpu"), nbatches=4,
+                            nepochs=2)
     np.testing.assert_allclose(rt.negll_history.numpy(),
                                np.asarray(rj.negll_history), rtol=1e-5)
     _check_params(rj.result, rt.result, 1e-5)
