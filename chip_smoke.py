@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's two main paths once on one CUDA card: the
-whitening slice (kernels B1-B3) and the coupling-flow slice (B4, B5).
+"""Drive the PyTorch port's three main paths once on one CUDA card: the
+whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5) and
+flow-preconditioned HMC (B6).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -61,7 +62,34 @@ exception exits non-zero and prints no result:
    against itself too. That noise is measured in every run: the plain
    path on the same batches with their rows in two other orders. Then
    ``torch.profiler`` over 4 fused steps of each stack: device time by
-   kernel and the idle share.
+   kernel and the idle share;
+10. B6 (L leapfrog steps with logp_0 and logp_L in one launch,
+   ``enflows_tpu_torch/ops/csrc/leapfrog.cu``) against ``leapfrog_plain`` at
+   the BASELINE leapfrog config (8192 chains, d=50, L=64, the chain of
+   benchmarks/bench_mcmc.py:333-338): q_L, p_L, logp_0 and logp_L each
+   within 2e-4 * max|f64| + 2e-4 of the plain version run in float64, or no
+   further from it than twice the float32 plain version; timed against the
+   plain version, with leapfrog-steps/s and the bound;
+11. the B6 sweep (``LF_SWEEP``): d in {2, 5, 128} with a Householder stage,
+   d=300 elementwise only, a diagonal inverse mass, a diagonal-Gaussian
+   base, fewer chains than SMs, under the same tolerance; and the refusal
+   of a Householder chain at d=129;
+12. the HMC slice, with the launch counters set to 0 just before each run:
+   ``infer(FlowPushforwardTarget(transport), method="hmc")`` with
+   8192 chains x d=50, 200 warmup + 100 samples of L=64 on the BASELINE
+   chain (exactly one B6 launch per transition), then the d=8 example of
+   examples/fused_pushforward_hmc.py (256 chains, its mean/var base,
+   200 + 500 transitions of L=16). Each run's draws are finite, its
+   acceptance within 0.6-1.0, and its mean and sd within 0.1 (absolute /
+   relative) of Monte-Carlo truth from the generative definition (200,000
+   draws); min bulk ESS and max rhat are printed. After the BASELINE run,
+   B6 is held to the float64 plain version as in 10 where the sampler runs
+   it: from the slice's last draws, at the adapted step size and at 2/3 of
+   it (the ends of the jitter range);
+13. ms per transition of the fused sampler against the same sampler over
+   ``leapfrog_plain`` (20 warm transitions each, host clock), and
+   ``torch.profiler`` over 5 fused transitions: the card's busy time per
+   transition, and its idle share against the unprofiled transition.
 
 Tolerances: y 2e-5 and ladj 2e-4 (rtol = atol), input cotangents rtol 2e-4
 / atol 2e-5 elementwise, negll 1e-5 relative. Every parameter gradient is
@@ -95,6 +123,14 @@ SLICE_RTOL = 1e-4
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke failed: {what}")
+
+
+def reset_launches(*counters):
+    """Set every launch count to 0, once the card has finished its work."""
+    torch.cuda.synchronize()
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
 
 
 def nvidia_smi_line():
@@ -183,6 +219,14 @@ def bound_of(nbytes, flops):
                 library_ms=None)
 
 
+def hh_flops(d, k):
+    """FLOP per sample of one product with a Householder stage of k
+    reflections, at what the function needs: the least of the dense (d, d)
+    product (2 d^2) and the reflections one by one (a dot product and an
+    update, 4 d each)."""
+    return min(2 * d * d, 4 * k * d)
+
+
 def grads_ok(got, plain, plain64):
     """Every parameter gradient of the kernel against the plain version run
     in float64 on the same inputs: within G_RTOL * max|g64| + G_ATOL, or no
@@ -220,7 +264,7 @@ def phase_b1(et, EW, dim, n, gen, device, card):
         wrapper_ms = cuda_ms(lambda: EW.fused_forward_and_ladj(chain, x))
     err = max(max_abs(y, y0), max_abs(ladj, l0))
     # x read, y and ladj written; the Householder product's multiply-adds.
-    bound = bound_of(4 * n * (2 * dim + 1), 2 * n * dim * dim)
+    bound = bound_of(4 * n * (2 * dim + 1), n * hh_flops(dim, 4))
     print(f"[B1] flagship d={dim} n={n}: max|dy| {max_abs(y, y0):.3e} "
           f"max|dladj| {max_abs(ladj, l0):.3e}; kernel {ms:.4f} ms "
           f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
@@ -295,7 +339,7 @@ def phase_b2(et, EW, dim, n, gen, device, card):
     # x and gy read, gx written, gladj read; the Householder products of the
     # recompute, of dQ and of the input cotangent.
     bound = bound_of(4 * x.shape[0] * (3 * dim + 1),
-                     3 * 2 * x.shape[0] * dim * dim)
+                     3 * x.shape[0] * hh_flops(dim, 4))
     print(f"[B2] flagship d={dim} n={n} ({dropped} exact-zero rows "
           f"dropped): max|dgx| {max_abs(gx, gx0):.3e} "
           f"max|dgrad| {worst:.3e}; kernel {ms:.4f} ms, plain autograd "
@@ -325,7 +369,7 @@ def phase_b3(et, EW, dim, n, gen, device, card):
     err = max(abs(float(v) - float(v0)), worst)
     # x read once; the Householder products of the forward, dQ and the
     # input cotangent.
-    bound = bound_of(4 * x.shape[0] * dim, 3 * 2 * x.shape[0] * dim * dim)
+    bound = bound_of(4 * x.shape[0] * dim, 3 * x.shape[0] * hh_flops(dim, 4))
     print(f"[B3] flagship d={dim} n={n} ({dropped} exact-zero rows "
           f"dropped): negll {float(v):.7f} vs plain "
           f"{float(v0):.7f}, max|dgrad| {worst:.3e}; kernel {ms:.4f} ms "
@@ -851,10 +895,7 @@ def coupling_slice(C, EW, kind, stack, X):
     to 0 just before and read just after. Returns (history, launches)."""
     from enflows_tpu_torch.train import optimize_whitening
 
-    torch.cuda.synchronize()
-    for counts in (C.LAUNCHES, EW.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    reset_launches(C.LAUNCHES, EW.LAUNCHES)
     res = optimize_whitening(X, stack, adam, nbatches=4, nepochs=3)
     hist = res.negll_history.cpu()
     torch.cuda.synchronize()
@@ -964,6 +1005,289 @@ def profile_coupling_steps(kind, initial, X, card):
           + f" [{card}]", flush=True)
 
 
+# ----------------------------------------------------------------------
+# Flow-preconditioned HMC: kernel B6 (L leapfrog steps of every chain with
+# logp_0 and logp_L, enflows_tpu_torch/ops/csrc/leapfrog.cu), the fused
+# sampler and infer's declared-pushforward route.
+
+LF = dict(chains=8192, dim=50, steps=64)   # BASELINE.md:99, bench_mcmc.py:327
+LF_TOL = 2e-4
+HMC_WARMUP, HMC_SAMPLES = 200, 100
+
+
+def leapfrog_chain(et, d, gen, device):
+    """The BASELINE leapfrog chain (benchmarks/bench_mcmc.py:333-338):
+    Johnson(0, 5, 0, 5) o invert(CenterStretch(0, 1, 0)) o a 4-reflection
+    Householder, with its reflections drawn from ``gen``."""
+    vec = lambda v: torch.full((d,), v, device=device)
+    return et.compose(
+        et.Johnson(vec(0.0), vec(5.0), vec(0.0), vec(5.0)),
+        et.invert(et.CenterStretch(vec(0.0), vec(1.0), vec(0.0))),
+        et.Householder(torch.randn(4, d, generator=gen,
+                                   device=device)).canonicalize())
+
+
+def leapfrog_bound(n, d, steps, k):
+    """q and p read and written, logp_0 and logp_L written; the L + 1
+    gradients' products, forward and cotangent, with one Householder stage
+    of k reflections (``hh_flops``). The elementwise stages' arithmetic and
+    transcendentals are not counted."""
+    return bound_of(4 * (4 * n * d + 2 * n),
+                    (steps + 1) * 2 * n * hh_flops(d, k))
+
+
+def hold_leapfrog(TL, chain, q, p, eps, steps, what, **kw):
+    """B6 against leapfrog_plain on the same inputs: q_L, p_L, logp_0 and
+    logp_L each within LF_TOL * max|f64| + LF_TOL of the plain version run
+    in float64, or no further from it than twice the float32 plain version
+    is. Returns the worst |B6 - f64|."""
+    got = TL.fused_leapfrog(chain, q, p, eps, steps, **kw)
+    ref = TL.leapfrog_plain(chain, q, p, eps, steps, **kw)
+    ref64 = TL.leapfrog_plain(copy.deepcopy(chain).double(), q.double(),
+                              p.double(), eps, steps,
+                              **{k: v.double() for k, v in kw.items()})
+    torch.cuda.synchronize()
+    return max(close_to_f64(g, r, r64, LF_TOL, f"{what} {name}")
+               for g, r, r64, name in zip(got, ref, ref64,
+                                          ("q_L", "p_L", "logp_0", "logp_L")))
+
+
+def phase_b6(et, TL, gen, device, card):
+    """B6 against its plain version at the BASELINE leapfrog config, timed
+    against it."""
+    n, d, steps = LF["chains"], LF["dim"], LF["steps"]
+    chain = leapfrog_chain(et, d, gen, device)
+    q = 0.3 * torch.randn(n, d, generator=gen, device=device)
+    p = torch.randn(n, d, generator=gen, device=device)
+    eps = torch.tensor(0.05, device=device)
+    err = hold_leapfrog(TL, chain, q, p, eps, steps, "B6 BASELINE")
+    plan, pbuf, qbuf, eps_t, im, mu, iv = TL._prepare(chain, q, eps)
+    plain_ms, ms = interleaved_ms(
+        lambda: TL.leapfrog_plain(chain, q, p, eps, steps),
+        lambda: TL._launch(plan, q, p, eps_t, im, mu, iv, pbuf, qbuf, steps),
+        iters=5)
+    wrapper_ms = cuda_ms(lambda: TL.fused_leapfrog(chain, q, p, eps, steps),
+                         iters=5)
+    bound = leapfrog_bound(n, d, steps, 4)   # the chain's 4 reflections
+    tile = TL.leapfrog_tile(n, d, len(plan.codes),
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
+    print(f"[B6] BASELINE chain {n} chains x d={d} x L={steps} (tile {tile} "
+          f"chains, {-(-n // tile)} blocks): worst |B6 - f64| {err:.3e} "
+          f"(q_L, p_L, logp_0, logp_L); kernel {ms:.4f} ms (wrapper "
+          f"{wrapper_ms:.4f} ms) = {n * steps / ms / 1e3:.1f} M "
+          f"leapfrog-steps/s, plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+
+
+LF_SWEEP = [  # (d, n, stages, options); stage codes as in SWEEP
+    (2, 1001, ["j", "hh", "cs"], ()),
+    (5, 777, ["ss", "hh", "ji", "cc"], ()),
+    (128, 600, ["cs", "hh", "j"], ()),
+    (300, 500, ["ss", "ji", "cc"], ()),               # elementwise only
+    (7, 333, ["j", "hh", "~cs"], ("mass",)),          # diagonal inverse mass
+    (6, 444, ["hh", "j", "cc"], ("base",)),           # diagonal-Gaussian base
+    (3, 5, ["~hh", "ss", "hh"], ("mass", "base")),    # fewer chains than SMs
+]
+
+
+def phase_b6_sweep(et, TL, gen, device):
+    """B6 against its plain version (float32 and float64) on other chains,
+    widths, a diagonal inverse mass and a diagonal-Gaussian base
+    (tests/test_fused_leapfrog.py:138-176); and the refusal of a chain it
+    cannot take."""
+    worst = 0.0
+    for d, n, kinds, opts in LF_SWEEP:
+        chain = sweep_chain(et, d, kinds, gen, device)
+        check(TL.is_fusible_leapfrog(chain, d), f"B6 sweep d={d} fusible")
+        u = lambda lo, hi: lo + (hi - lo) * torch.rand(d, generator=gen,
+                                                       device=device)
+        kw = {}
+        if "mass" in opts:
+            kw["inv_mass_diag"] = u(0.5, 2.0)
+        if "base" in opts:
+            kw.update(base_mean=u(-0.5, 0.5), base_var=u(0.5, 1.5))
+        q = 0.3 * torch.randn(n, d, generator=gen, device=device)
+        p = torch.randn(n, d, generator=gen, device=device)
+        worst = max(worst, hold_leapfrog(TL, chain, q, p, 0.02, 8,
+                                         f"B6 sweep d={d} {kinds} {opts}",
+                                         **kw))
+    wide = sweep_chain(et, 129, ["ss", "hh"], gen, device)
+    z = torch.zeros(4, 129, device=device)
+    try:
+        TL.fused_leapfrog(wide, z, z, 0.1, 2)
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    check(refused and not TL.is_fusible_leapfrog(wide, 129),
+          "B6 took a Householder chain at d=129")
+    print(f"[B6 sweep] {len(LF_SWEEP)} chains, d in "
+          f"{sorted({d for d, _, _, _ in LF_SWEEP})}, with a diagonal mass "
+          f"and a diagonal-Gaussian base: q_L, p_L, logp_0, logp_L within "
+          f"tolerance of the float64 plain version (worst |B6 - f64| "
+          f"{worst:.3e}); d=129 with a Householder refused", flush=True)
+
+
+def phase_b6_adapted(TL, chain, q, step_size, gen, device, card):
+    """B6 against its plain version where the sampler runs it: 8192 chains
+    x d=50 x L=64 from the slice's last draws, at the adapted step size and
+    at 2/3 of it (the ends of the jitter range). Returns the worst
+    |B6 - f64|."""
+    worst, lines = 0.0, []
+    for scale in (1.0, 2.0 / 3.0):
+        eps = step_size * scale
+        p = torch.randn(q.shape, generator=gen, device=device)
+        err = hold_leapfrog(TL, chain, q, p, eps, LF["steps"],
+                            f"B6 at step size {float(eps):.4f}")
+        worst = max(worst, err)
+        lines.append(f"step size {float(eps):.4f}: worst |B6 - f64| "
+                     f"{err:.3e}")
+    print(f"[B6 adapted] {len(q)} chains x d={q.shape[1]} x L={LF['steps']} "
+          f"from the slice's last draws: {'; '.join(lines)} [{card}]",
+          flush=True)
+    return worst
+
+
+def moment_gate(name, draws, transport, base_mean, base_var, gen):
+    """Draws against Monte-Carlo truth from the generative definition
+    X = T(Z), Z ~ N(mu, diag(var)), 200,000 draws (as
+    examples/fused_pushforward_hmc.py:53-64): mean error and sd relative
+    error each below 0.1. Returns (mean error, sd relative error)."""
+    d = draws.shape[-1]
+    with torch.no_grad():
+        z = torch.randn(200_000, d, generator=gen, device=draws.device)
+        xs = transport(base_mean + torch.sqrt(base_var) * z)
+    got = draws.reshape(-1, d)
+    mean_err = float((got.mean(0) - xs.mean(0)).abs().max())
+    sd_rel = float((got.std(0) / xs.std(0) - 1).abs().max())
+    check(mean_err < 0.1 and sd_rel < 0.1,
+          f"{name}: mean err {mean_err:.4f}, sd rel err {sd_rel:.4f}")
+    return mean_err, sd_rel
+
+
+def hmc_route(et, TL, name, target, dim, num_chains, num_warmup,
+              num_samples, gen, card, **kw):
+    """The user's path: infer(target, method='hmc') on a declared
+    pushforward, with the launch counters set to 0 just before and read just
+    after. One B6 launch per transition. Returns (result, launches)."""
+    from enflows_tpu_torch.ops import coupling as C
+    from enflows_tpu_torch.ops import elementwise as EW
+
+    check(target.fused_kernel_available(dim), f"{name}: not fusible")
+    reset_launches(TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES)
+    t0 = time.perf_counter()
+    res = et.infer(target, dim=dim, key=gen, method="hmc",
+                   num_chains=num_chains, num_warmup=num_warmup,
+                   num_samples=num_samples, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**TL.LAUNCHES, **EW.LAUNCHES, **C.LAUNCHES}
+    check(launches["leapfrog"] == num_warmup + num_samples,
+          f"{name}: launches {launches}, not {num_warmup + num_samples} B6")
+    check(res.draws.shape == (num_chains, num_samples, dim)
+          and bool(torch.isfinite(res.draws).all()),
+          f"{name}: draws {tuple(res.draws.shape)}, finite "
+          f"{bool(torch.isfinite(res.draws).all())}")
+    acc = res.diagnostics["accept_prob"]
+    check(0.6 <= acc <= 1.0, f"{name}: acceptance {acc:.3f}")
+    dev = res.draws.device
+    mu = torch.zeros(dim, device=dev) if target.base_mean is None else \
+        torch.as_tensor(target.base_mean, device=dev)
+    var = torch.ones(dim, device=dev) if target.base_var is None else \
+        torch.as_tensor(target.base_var, device=dev)
+    mean_err, sd_rel = moment_gate(name, res.draws, target.transport, mu,
+                                   var, gen)
+    print(f"[hmc slice] {name}: infer(method='hmc') {num_chains} chains x "
+          f"d={dim}, {num_warmup} warmup + {num_samples} samples: B6 "
+          f"launches {launches['leapfrog']} (other kernels "
+          f"{ {k: v for k, v in launches.items() if k != 'leapfrog'} }); "
+          f"accept {acc:.3f}, step size {float(res.stats.step_size):.4f}, "
+          f"mean err {mean_err:.4f}, sd rel err {sd_rel:.4f}, min bulk ESS "
+          f"{res.diagnostics['min_bulk_ess']:.0f}, max rhat "
+          f"{float(res.diagnostics['rhat'].max()):.4f}; wall {wall:.2f} s "
+          f"with the host-side diagnostics [{card}]", flush=True)
+    return res, launches
+
+
+def example_d8(et, gen, device):
+    """examples/fused_pushforward_hmc.py:29-46: a rotate, stretch and
+    shift/scale transport at d=8 over a N(0.3, diag(linspace(0.8, 1.4)))
+    base."""
+    dim = 8
+    v = lambda val: torch.full((dim,), val, device=device)
+    lin = lambda a, b: torch.linspace(a, b, dim, device=device)
+    transport = et.compose(
+        et.ScaleShift(lin(0.5, 2.0), lin(-1.0, 1.0)),
+        et.invert(et.Johnson(v(0.0), v(4.0), v(0.0), v(4.0))),
+        et.Householder(torch.randn(4, dim, generator=gen,
+                                   device=device)).canonicalize())
+    return et.mcmc.FlowPushforwardTarget(transport, base_mean=v(0.3),
+                                         base_var=lin(0.8, 1.4))
+
+
+def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
+    """ms per transition of the fused sampler against the same sampler over
+    leapfrog_plain at the BASELINE config and the slice's adapted step size:
+    ``transitions`` warm transitions each, timed plain, fused, fused, plain
+    on the host clock ending in a synchronize; then torch.profiler over 5
+    fused transitions for the card's busy time, whose idle share is taken
+    against the unprofiled ms per transition."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from enflows_tpu_torch.mcmc.fused_hmc import _sample
+
+    n, d, steps = LF["chains"], LF["dim"], LF["steps"]
+    q0 = 0.1 * torch.randn(n, d, generator=gen, device=device)
+
+    def run(leapfrog, count):
+        g = torch.Generator(device=device).manual_seed(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _sample(leapfrog, chain, g, q0, None, None, num_warmup=0,
+                num_samples=count, num_steps=steps, jitter_steps=True,
+                initial_step_size=step_size, target_accept=0.8)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / count
+
+    sides = {"plain": TL.leapfrog_plain, "fused": TL.fused_leapfrog}
+    for lf in sides.values():
+        run(lf, 2)
+    times = {k: [] for k in sides}
+    for k in ("plain", "fused", "fused", "plain"):
+        times[k].append(run(sides[k], transitions))
+    fused_ms, plain_ms = min(times["fused"]), min(times["plain"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms = run(TL.fused_leapfrog, 5)
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0) + \
+                evt.device_time_total
+    busy_ms = sum(by_name.values()) / 1e3 / 5
+    b6_ms = sum(us for k, us in by_name.items() if "leapfrog" in k) / 1e3 / 5
+    # The idle share is the busy time against the unprofiled transition:
+    # the profiler's own host overhead lengthens its wall clock.
+    profile_line = (
+        f"profiler over 5 fused transitions: device busy {busy_ms:.3f} "
+        f"ms/transition (B6 {b6_ms:.3f} ms), idle "
+        f"{100 * (1 - busy_ms / fused_ms):.1f}% of the unprofiled "
+        f"{fused_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% of the "
+        f"profiled wall {wall_ms:.3f} ms)" if busy_ms else
+        "profiler: no device time in the trace (not measured)")
+    print(f"[hmc timing] {n} chains x d={d} x L={steps}, {transitions} warm "
+          f"transitions each (host clock): fused {fused_ms:.3f} ms/transition "
+          f"= {n * steps / fused_ms / 1e3:.1f} M leapfrog-steps/s, plain "
+          f"{plain_ms:.3f} ms/transition; {profile_line} [{card}]",
+          flush=True)
+    return dict(fused_ms_per_transition=fused_ms,
+                plain_ms_per_transition=plain_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available()"
@@ -972,6 +1296,7 @@ def main():
     import enflows_tpu_torch as et
     from enflows_tpu_torch.ops import coupling as C
     from enflows_tpu_torch.ops import elementwise as EW
+    from enflows_tpu_torch.ops import leapfrog as TL
     from enflows_tpu_torch.ops._build import build, load_library
     from enflows_tpu_torch.train import optimize_whitening
 
@@ -1009,9 +1334,7 @@ def main():
     models = {"example_2d": model_2d,
               "flagship": flagship_flow(et, 2, gen, device)}
     initial = {k: copy.deepcopy(m) for k, m in models.items()}
-    torch.cuda.synchronize()
-    for k in EW.LAUNCHES:
-        EW.LAUNCHES[k] = 0
+    reset_launches(EW.LAUNCHES)
     hists = {k: train_and_evaluate(et, EW, k, m, X)
              for k, m in models.items()}
     torch.cuda.synchronize()
@@ -1061,6 +1384,25 @@ def main():
         coupling_slice_timing(k, initial_stacks[k], X64, hist, gen, smi)
         profile_coupling_steps(k, initial_stacks[k], X64, smi)
 
+    # Flow-preconditioned HMC: B6 at the BASELINE leapfrog config, the B6
+    # sweep, then the slice through infer, one main-path run per target.
+    b6 = phase_b6(et, TL, gen, device, smi)
+    phase_b6_sweep(et, TL, gen, device)
+    d_lf = LF["dim"]
+    target = et.mcmc.FlowPushforwardTarget(
+        leapfrog_chain(et, d_lf, gen, device).inverse())
+    res, hmc_launches = hmc_route(
+        et, TL, "BASELINE chain", target, d_lf, LF["chains"], HMC_WARMUP,
+        HMC_SAMPLES, torch.Generator(device=device).manual_seed(3), smi,
+        num_steps=LF["steps"])
+    b6["max_abs_err"] = max(b6["max_abs_err"], phase_b6_adapted(
+        TL, target.whiten, res.draws[:, -1].contiguous(), res.stats.step_size,
+        gen, device, smi))
+    hmc_route(et, TL, "examples/fused_pushforward_hmc.py", example_d8(
+        et, gen, device), 8, 256, 200, 500,
+        torch.Generator(device=device).manual_seed(4), smi)
+    hmc_timing(TL, target.whiten, res.stats.step_size, gen, device, smi)
+
     src = "enflows_tpu_torch/ops/csrc/elementwise.cu"
     pallas = "enflows_tpu/ops/pallas/elementwise.py"
     rows = [("B1 fused_forward_and_ladj", launches["fwd"], src,
@@ -1078,6 +1420,10 @@ def main():
                  (f"B5 fused coupling backward ({k} BASELINE)",
                   coupling_launches[k]["coupling_bwd"], csrc,
                   f"{cpallas}:616", b5[k])]
+    rows.append((f"B6 fused_leapfrog (BASELINE {LF['chains']} x {d_lf} x "
+                 f"{LF['steps']})", hmc_launches["leapfrog"],
+                 "enflows_tpu_torch/ops/csrc/leapfrog.cu",
+                 "enflows_tpu/ops/pallas/leapfrog.py:157", b6))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [

@@ -7,13 +7,16 @@ maximum-likelihood whitening trainer and the fused chain kernels B1-B3
 (``ops/csrc/elementwise.cu``); and the coupling-flow training path: affine
 and rational-quadratic-spline couplings with MLP conditioners, Permute, the
 elementwise spline, and the fused coupling-stack kernels B4/B5
-(``ops/csrc/coupling.cu``). The kernels are written in CUDA C++ for Hopper
-and built at first use. The package imports ``torch`` and never ``jax``;
+(``ops/csrc/coupling.cu``); and flow-preconditioned HMC: batch-first HMC
+with Stan warmup, flow-preconditioned and declared-pushforward targets,
+convergence diagnostics, the fused leapfrog kernel B6
+(``ops/csrc/leapfrog.cu``) and ``infer``'s HMC routes. The kernels are
+written in CUDA C++ for Hopper and built at first use. The package imports ``torch`` and never ``jax``;
 ``interop`` carries weights over from the JAX package without importing
 it.
 """
 
-from . import bijectors, distributions, ops, train
+from . import bijectors, distributions, mcmc, ops, train
 from .bijectors import (
     AffineCoupling, Bijector, Chain, CenterContract, CenterStretch,
     ElementwiseRQSpline, Householder, Identity, Johnson, JohnsonInv,
@@ -25,6 +28,7 @@ from .bijectors import (
 from .distributions import (
     FlowDistribution, std_normal_logpdf, std_normal_logpdf_sum,
 )
+from .infer import InferenceResult, infer, summarize_draws
 from .train import WhiteningResult, mvnormal_negll, optimize_whitening
 
 __version__ = "0.1.0"

@@ -17,6 +17,7 @@ from .bijectors.householder import Householder
 from .bijectors.johnson import Johnson, JohnsonInv
 from .bijectors.scale_shift import ScaleShift
 from .bijectors.spline import ElementwiseRQSpline, RQSplineCoupling
+from .mcmc.logdensity import FlowPushforwardTarget
 
 _KINDS = {cls.__name__: cls for cls in (ScaleShift, CenterStretch,
                                         CenterContract, Johnson, JohnsonInv,
@@ -35,15 +36,22 @@ def from_jax(bijector, device="cuda", dtype=None):
     """This package's module for a JAX ``Chain`` or single bijector:
     ScaleShift, CenterStretch, CenterContract, Johnson, JohnsonInv,
     Householder, AffineCoupling, RQSplineCoupling, Permute,
-    ElementwiseRQSpline, or an ``MLPConditioner``. Each leaf is read as
-    numpy and becomes an ``nn.Parameter`` on ``device`` (the card unless
-    the caller asks for the CPU) in ``dtype`` (default: the leaf's)."""
+    ElementwiseRQSpline, or an ``MLPConditioner``; or for a JAX
+    ``mcmc.FlowPushforwardTarget`` (its transport converted, its base mean
+    and variance as tensors). Each leaf is read as numpy and becomes an
+    ``nn.Parameter`` on ``device`` (the card unless the caller asks for the
+    CPU) in ``dtype`` (default: the leaf's)."""
 
     def tensor(leaf):
         t = torch.as_tensor(np.array(leaf))
         return t.to(device=device, dtype=dtype or t.dtype)
 
     kind = type(bijector).__name__
+    if kind == "FlowPushforwardTarget":
+        return FlowPushforwardTarget(
+            from_jax(bijector.transport, device, dtype),
+            *(None if v is None else tensor(v)
+              for v in (bijector.base_mean, bijector.base_var)))
     if kind == "Chain":
         return Chain([from_jax(s, device, dtype) for s in bijector.stages])
     if kind == "Householder":

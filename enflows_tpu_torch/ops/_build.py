@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` (``elementwise.cu``: B1-B3;
-``coupling.cu``: B4, B5; both include ``stages.cuh``) for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at first use, into ``enflows_tpu_torch/_build/``, under a name that
-carries a hash of every source and header under ``csrc/`` and of the flags, so
-an edited source is rebuilt. Nothing here runs at import time, so the package
-imports on a machine with no ``nvcc``.
+Every ``csrc/*.cu`` (``elementwise.cu``: B1-B3; ``coupling.cu``: B4, B5;
+``leapfrog.cu``: B6; all include ``stages.cuh``) is compiled for ``sm_90a`` by
+its own ``nvcc`` process, all started together, and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``. The
+build happens at first use, into ``enflows_tpu_torch/_build/``, under a name
+that carries a hash of every source and header under ``csrc/`` and of the
+flags, so an edited source is rebuilt. Nothing here runs at import time, so
+the package imports on a machine with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -23,26 +24,27 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, y, ladj, P, Q, codes, args, n_stages, n, d, tile, grid, block,
+    # x, y, ladj, P, Qt, codes, args, n_stages, n, d, tile, grid, block,
     # smem, stream
     "enf_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
                       _I, _P],
-    # x, gy, gladj, gx, P, Q, codes, args, n_stages, n, d, tile, grid, block,
-    # smem, n_pslots, n_hh, groups, p_part, q_part, stream
-    "enf_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _P, _P, _P],
-    # x, P, Q, codes, args, n_stages, n, d, tile, grid, block, smem,
+    # x, gy, gladj, gx, P, Q, Qt, codes, args, n_stages, n, d, tile, grid,
+    # block, smem, n_pslots, n_hh, groups, p_part, q_part, stream
+    "enf_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # x, P, Q, Qt, codes, args, n_stages, n, d, tile, grid, block, smem,
     # n_pslots, n_hh, groups, loss_part, p_part, q_part, stream
-    "enf_fused_negll": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P, _P, _P, _P],
+    "enf_fused_negll": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P, _P, _P, _P],
     # x, y, ladj, W, P, items, item floats, n_items, layers, n_layers, n, d,
     # ldw, warps, smem, grid, shift, stream
     "enf_coupling_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _I,
@@ -54,6 +56,9 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P, _LL, _P, _F, _P],
     # scratch, cols, layers, n_layers, rows, nsplit, w_part, w_len, stream
     "enf_coupling_dw": [_P, _LL, _P, _I, _LL, _I, _P, _LL, _P],
+    # q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, Q, Qt, codes, args,
+    # n_stages, n, d, tile, num_steps, grid, block, smem, stream
+    "enf_fused_leapfrog": [_P] * 15 + [_I, _LL, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -74,7 +79,7 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"libenflows_kernels_{h.hexdigest()[:16]}.so"
@@ -84,27 +89,38 @@ def build() -> tuple[Path, float, str]:
     """Compile the library if it is not built yet. Returns its path, the
     seconds the build took (0.0 if it was already there) and nvcc's
     ``-Xptxas -v`` report (registers, shared memory, spills per kernel).
-    Raises ``RuntimeError`` with nvcc's output when the build fails."""
+    Raises ``RuntimeError`` with nvcc's output when a step fails."""
     so = library_path()
     log = so.with_suffix(".log")
     if so.exists():
         return so, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                           *map(str, sources())],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr}\n{proc.stdout}")
-    report = proc.stderr + proc.stdout
-    log.write_text(report)
-    os.replace(tmp, so)
-    return so, seconds, report
+    srcs = sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(srcs, objs)]
+        outs = [proc.communicate() for proc in procs]
+        report = "".join(err + out for out, err in outs)
+        failed = [f"{src.name} (exit {proc.returncode})"
+                  for src, proc in zip(srcs, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               f"{report}")
+        lib = Path(tmp) / so.name
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{proc.stderr}\n{proc.stdout}")
+        log.write_text(report)
+        os.replace(lib, so)
+    return so, time.perf_counter() - t0, report
 
 
 @functools.cache

@@ -12,13 +12,11 @@
 // whole samples, staged in shared memory, and masks the ragged last tile by
 // bounds checks.
 //
-// The chain arrives at run time (Pallas traced one kernel per chain):
-//   plan.code[k]  stage kind (SS, CC, CS, JF, JI, HH below);
-//   plan.arg[k]   elementwise stage: its first parameter slot in P, where
-//                 slot q holds a (d,) vector at P[q*d .. q*d+d);
-//                 Householder stage: the index of its (d, d) Q in Q.
-// A Householder stage is y = x Q^T (Q = product of reflections, built by
-// the caller); it adds nothing to the ladj.
+// The chain arrives at run time as a Plan (stages.cuh; Pallas traced one
+// kernel per chain); parameter slot q holds a (d,) vector at
+// P[q*d .. q*d+d). A Householder stage is y = x Q^T (Q = product of
+// reflections, built by the caller, which also passes Qt = Q^T for the
+// forward product); it adds nothing to the ladj.
 //
 // The stage adjoints are derived by hand (the TPU kernels called jax.vjp on
 // the stage bodies at trace time). stage_bwd follows the torch functions
@@ -43,28 +41,6 @@
 
 #include "stages.cuh"
 
-#define ENF_MAX_STAGES 32
-
-struct Plan {
-  int n_stages;
-  int code[ENF_MAX_STAGES];
-  int arg[ENF_MAX_STAGES];
-};
-
-// out[s, j] = sum_k in[s, k] * Q[j, k] over the tile's ne = ns * d elements.
-__device__ __forceinline__ void householder_apply(const float* in, float* out,
-                                                  const float* __restrict__ Q,
-                                                  int ne, int d) {
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const int s = e / d, j = e - s * d;
-    const float* row = in + s * d;
-    const float* qrow = Q + (size_t)j * d;
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) acc = fmaf(row[k], __ldg(qrow + k), acc);
-    out[e] = acc;
-  }
-}
-
 // B1: replaces _fused_packed_impl (ops/pallas/elementwise.py:441-507).
 // Bound: device memory, 8 B per element plus 4 B per sample of ladj, and
 // the transcendentals of the stage bodies. Design: each element is read and
@@ -76,7 +52,7 @@ __global__ void fused_fwd_kernel(const float* __restrict__ x,
                                  float* __restrict__ y,
                                  float* __restrict__ ladj,
                                  const float* __restrict__ P,
-                                 const float* __restrict__ Q, Plan plan,
+                                 const float* __restrict__ Qt, Plan plan,
                                  long long n, int d, int tile) {
   extern __shared__ float smem[];
   const int TD = tile * d;
@@ -99,7 +75,7 @@ __global__ void fused_fwd_kernel(const float* __restrict__ x,
       const int code = plan.code[k], arg = plan.arg[k];
       if (code == HH) {
         __syncthreads();
-        householder_apply(t, o, Q + (size_t)arg * d * d, ne, d);
+        householder_apply(t, o, Qt + (size_t)arg * d * d, ne, d);
         __syncthreads();
         float* sw = t;
         t = o;
@@ -153,7 +129,8 @@ __global__ void fused_grad_kernel(const float* __restrict__ x,
                                   const float* __restrict__ gladj,
                                   float* __restrict__ gx,
                                   const float* __restrict__ P,
-                                  const float* __restrict__ Q, Plan plan,
+                                  const float* __restrict__ Q,
+                                  const float* __restrict__ Qt, Plan plan,
                                   long long n, int d, int tile, int n_pslots,
                                   int n_hh, int groups,
                                   float* __restrict__ loss_part,
@@ -188,7 +165,7 @@ __global__ void fused_grad_kernel(const float* __restrict__ x,
       float* out = ins + (size_t)(k + 1) * TD;
       if (code == HH) {
         __syncthreads();
-        householder_apply(in, out, Q + (size_t)arg * dd, ne, d);
+        householder_apply(in, out, Qt + (size_t)arg * dd, ne, d);
         __syncthreads();
       } else {
         for (int e = threadIdx.x; e < ne; e += blockDim.x) {
@@ -229,13 +206,7 @@ __global__ void fused_grad_kernel(const float* __restrict__ x,
         __syncthreads();
         // The input cotangent ct[s, k] = sum_j cy[s, j] Q[j, k] replaces
         // this stage's input, which nothing needs any more.
-        for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-          const int s = e / d, kk = e - s * d;
-          float acc = 0.f;
-          for (int j = 0; j < d; ++j)
-            acc = fmaf(cy[s * d + j], __ldg(Qk + (size_t)j * d + kk), acc);
-          in[e] = acc;
-        }
+        householder_apply(cy, in, Qk, ne, d);
         __syncthreads();
         cy = in;
       } else {
@@ -281,17 +252,6 @@ __global__ void fused_grad_kernel(const float* __restrict__ x,
   }
 }
 
-static int make_plan(Plan* plan, const int* codes, const int* args,
-                     int n_stages) {
-  if (n_stages < 0 || n_stages > ENF_MAX_STAGES) return 1;
-  plan->n_stages = n_stages;
-  for (int k = 0; k < ENF_MAX_STAGES; ++k) {
-    plan->code[k] = k < n_stages ? codes[k] : 0;
-    plan->arg[k] = k < n_stages ? args[k] : 0;
-  }
-  return 0;
-}
-
 // C interface. Each function launches on `stream`, does not synchronize, and
 // returns cudaGetLastError() after the launch (0 on success).
 extern "C" const char* enf_error_string(int err) {
@@ -299,7 +259,7 @@ extern "C" const char* enf_error_string(int err) {
 }
 
 extern "C" int enf_fused_fwd(const float* x, float* y, float* ladj,
-                             const float* P, const float* Q,
+                             const float* P, const float* Qt,
                              const int* codes, const int* args, int n_stages,
                              long long n, int d, int tile, int grid,
                              int block, int smem, void* stream) {
@@ -309,14 +269,15 @@ extern "C" int enf_fused_fwd(const float* x, float* y, float* ladj,
       fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   fused_fwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      x, y, ladj, P, Q, plan, n, d, tile);
+      x, y, ladj, P, Qt, plan, n, d, tile);
   return (int)cudaGetLastError();
 }
 
 template <bool NEGLL>
 static int launch_grad(const float* x, const float* gy, const float* gladj,
                        float* gx, const float* P, const float* Q,
-                       const int* codes, const int* args, int n_stages,
+                       const float* Qt, const int* codes, const int* args,
+                       int n_stages,
                        long long n, int d, int tile, int grid, int block,
                        int smem, int n_pslots, int n_hh, int groups,
                        float* loss_part, float* p_part, float* q_part,
@@ -328,31 +289,35 @@ static int launch_grad(const float* x, const float* gy, const float* gladj,
       smem);
   if (err != cudaSuccess) return (int)err;
   fused_grad_kernel<NEGLL><<<grid, block, smem, (cudaStream_t)stream>>>(
-      x, gy, gladj, gx, P, Q, plan, n, d, tile, n_pslots, n_hh, groups,
+      x, gy, gladj, gx, P, Q, Qt, plan, n, d, tile, n_pslots, n_hh, groups,
       loss_part, p_part, q_part);
   return (int)cudaGetLastError();
 }
 
 extern "C" int enf_fused_bwd(const float* x, const float* gy,
                              const float* gladj, float* gx, const float* P,
-                             const float* Q, const int* codes,
-                             const int* args, int n_stages, long long n,
+                             const float* Q, const float* Qt,
+                             const int* codes, const int* args, int n_stages,
+                             long long n,
                              int d, int tile, int grid, int block, int smem,
                              int n_pslots, int n_hh, int groups,
                              float* p_part, float* q_part, void* stream) {
-  return launch_grad<false>(x, gy, gladj, gx, P, Q, codes, args, n_stages,
-                            n, d, tile, grid, block, smem, n_pslots, n_hh,
-                            groups, nullptr, p_part, q_part, stream);
+  return launch_grad<false>(x, gy, gladj, gx, P, Q, Qt, codes, args,
+                            n_stages, n, d, tile, grid, block, smem,
+                            n_pslots, n_hh, groups, nullptr, p_part, q_part,
+                            stream);
 }
 
 extern "C" int enf_fused_negll(const float* x, const float* P,
-                               const float* Q, const int* codes,
-                               const int* args, int n_stages, long long n,
+                               const float* Q, const float* Qt,
+                               const int* codes, const int* args,
+                               int n_stages, long long n,
                                int d, int tile, int grid, int block,
                                int smem, int n_pslots, int n_hh, int groups,
                                float* loss_part, float* p_part,
                                float* q_part, void* stream) {
-  return launch_grad<true>(x, nullptr, nullptr, nullptr, P, Q, codes, args,
-                           n_stages, n, d, tile, grid, block, smem, n_pslots,
-                           n_hh, groups, loss_part, p_part, q_part, stream);
+  return launch_grad<true>(x, nullptr, nullptr, nullptr, P, Q, Qt, codes,
+                           args, n_stages, n, d, tile, grid, block, smem,
+                           n_pslots, n_hh, groups, loss_part, p_part, q_part,
+                           stream);
 }

@@ -49,7 +49,7 @@ ELEMENTWISE_KINDS = (ScaleShift, CenterStretch, CenterContract, Johnson,
                      JohnsonInv)
 FUSIBLE_KINDS = ELEMENTWISE_KINDS + (Householder,)
 
-MAX_STAGES = 32              # ENF_MAX_STAGES in csrc/elementwise.cu
+MAX_STAGES = 32              # ENF_MAX_STAGES in csrc/stages.cuh
 MAX_HOUSEHOLDER_DIM = 128    # d limit of a chain with a Householder stage
 MAX_DIM = 2048               # d limit of an elementwise-only chain
 
@@ -418,6 +418,12 @@ def _raise_on(lib, err: int, kernel: str):
                            f"{err} ({msg})")
 
 
+def _transposed(qbuf):
+    """Q^T of each stacked Householder matrix, contiguous: the kernels'
+    forward product x Q^T reads it (csrc/stages.cuh, householder_apply)."""
+    return qbuf.detach().transpose(1, 2).contiguous()
+
+
 def _launch_fwd(plan: _Plan, x, pbuf, qbuf):
     from ._build import load_library
 
@@ -427,11 +433,12 @@ def _launch_fwd(plan: _Plan, x, pbuf, qbuf):
     ladj = torch.empty(n, dtype=torch.float32, device=x.device)
     tile = max(1, min(_FWD_TILE_MAX, _FWD_SMEM // (12 * d)))
     grid = min(-(-n // tile), 8 * _sm_count(x.device.index))
+    qt = _transposed(qbuf)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_fused_fwd(
             x.data_ptr(), y.data_ptr(), ladj.data_ptr(), pbuf.data_ptr(),
-            qbuf.data_ptr(), _ints(plan.codes), _ints(plan.args),
+            qt.data_ptr(), _ints(plan.codes), _ints(plan.args),
             len(plan.codes), n, d, tile, grid, _BLOCK, 12 * tile * d, stream)
     _raise_on(lib, err, "B1 (fused forward)")
     LAUNCHES["fwd"] += 1
@@ -454,6 +461,7 @@ def _launch_grad(plan: _Plan, x, pbuf, qbuf, gy=None, gladj=None):
     f32 = dict(dtype=torch.float32, device=x.device)
     p_part = torch.empty(grid, plan.n_pslots * d, **f32)
     q_part = torch.zeros(grid, plan.n_hh, groups, d, d, **f32)
+    qt = _transposed(qbuf)
     common = (_ints(plan.codes), _ints(plan.args), len(plan.codes), n, d,
               tile, grid, _BLOCK, smem, plan.n_pslots, plan.n_hh, groups)
     with torch.cuda.device(x.device):
@@ -461,15 +469,16 @@ def _launch_grad(plan: _Plan, x, pbuf, qbuf, gy=None, gladj=None):
         if negll:
             loss_part = torch.empty(grid, **f32)
             err = lib.enf_fused_negll(
-                x.data_ptr(), pbuf.data_ptr(), qbuf.data_ptr(), *common,
+                x.data_ptr(), pbuf.data_ptr(), qbuf.data_ptr(),
+                qt.data_ptr(), *common,
                 loss_part.data_ptr(), p_part.data_ptr(), q_part.data_ptr(),
                 stream)
         else:
             gx = torch.empty_like(x)
             err = lib.enf_fused_bwd(
                 x.data_ptr(), gy.data_ptr(), gladj.data_ptr(), gx.data_ptr(),
-                pbuf.data_ptr(), qbuf.data_ptr(), *common, p_part.data_ptr(),
-                q_part.data_ptr(), stream)
+                pbuf.data_ptr(), qbuf.data_ptr(), qt.data_ptr(), *common,
+                p_part.data_ptr(), q_part.data_ptr(), stream)
     _raise_on(lib, err, "B3 (fused negll)" if negll else "B2 (fused bwd)")
     LAUNCHES["negll" if negll else "bwd"] += 1
     # Per-block partials summed here, deterministically (elementwise.py:742,
