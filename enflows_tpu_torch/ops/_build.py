@@ -45,17 +45,17 @@ _SIGNATURES = {
     # n_pslots, n_hh, groups, loss_part, p_part, q_part, stream
     "enf_fused_negll": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P, _P, _P, _P],
-    # x, y, ladj, W, P, items, item floats, n_items, layers, n_layers, n, d,
-    # ldw, warps, smem, grid, shift, stream
+    # x, y, ladj, Wk, P, items, item floats, n_items, layers, n_layers, n,
+    # d, ldh, tm, scratch, stage inputs, smem, grid, shift, stream
     "enf_coupling_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _I,
-                         _I, _I, _I, _F, _P],
-    # x, gy, gl, gx, W, Wt, P, items, item floats, n_items, layers,
-    # n_layers, rows, d, ldw, warps, smem, grid, n_pslots, scratch, cols,
-    # p_part, shift, stream
-    "enf_coupling_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
-                         _I, _I, _I, _I, _I, _I, _P, _LL, _P, _F, _P],
-    # scratch, cols, layers, n_layers, rows, nsplit, w_part, w_len, stream
-    "enf_coupling_dw": [_P, _LL, _P, _I, _LL, _I, _P, _LL, _P],
+                         _I, _P, _P, _I, _I, _F, _P],
+    # x, gy, gl, gx, Wk, P, items, item floats, n_items, layers, n_layers,
+    # rows, d, ldh, tm, smem, grid, n_pslots, scratch, stage inputs, p_part,
+    # shift, stream
+    "enf_coupling_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
+                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P],
+    # scratch, layers, n_layers, rows, nsplit, w_part, w_len, smem, stream
+    "enf_coupling_dw": [_P, _P, _I, _LL, _I, _P, _LL, _I, _P],
     # q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, Q, Qt, codes, args,
     # n_stages, n, d, tile, num_steps, grid, block, smem, stream
     "enf_fused_leapfrog": [_P] * 15 + [_I, _LL, _I, _I, _I, _I, _I, _I, _P],

@@ -29,12 +29,27 @@ so autograd maps the kernels' cotangents of these buffers back onto the
 chain's Parameters, as JAX does by a vjp over ``_stack_plan``
 (``coupling.py:773-777``).
 
-The spline conditioner output is read in slab layout, as on the TPU:
-spline parameter p of half-lane j at column ``p * d/2 + j``. On the card
-this is also the layout the kernel reads best: the thread of lane j reads
-its 3K-1 parameters at a stride of d/2 floats, and the 32 threads of a warp
-read 32 consecutive floats for each p, in shared memory and in the
-backward's device-memory scratch alike.
+The last layer's columns are **lane-grouped**: the physical half-lanes
+go in groups of G (``_lanes_per_slab``), and group s holds the P
+parameters (2 affine, 3K-1 spline) of its Gs lanes at ``s*G*P + p*Gs + jj``.
+The kernels compute that layer one group (one N-slab) at a time and run
+the group's epilogue before the next, so the widest output a block holds
+is one slab (at most ``_SLAB_COLS`` columns), not 32 x (3K-1). The plain
+epilogues read the slab layout of the TPU (parameter p of half-lane j at
+``p * d/2 + j``) straight from the matmul: the plain version gathers the
+last layer's W and b columns into that layout once per call
+(``_slab_cols``), which costs nothing per row. With d/2 <= 92 the affine
+layout is [scales, shifts], as before, and no gather is made.
+
+**The kernels' padded plan** (``_padded``): every layer's K and N padded
+to multiples of 8 (the TF32 ``mma.sync`` m16n8k8 shape) with zero rows and
+columns, each slab of the last layer to a multiple of 8 columns; W and W^T
+packed in the B-operand fragment order of that instruction (``_pack``)
+and rounded to TF32, the biases beside them. It is a gather of the plan
+above, so the Parameters are never padded, and the weight gradients come
+back through the inverse gather. ``coupling_forward_plain(padded=True)``
+runs the plain version on the padded plan; the CPU tests hold it to the
+unpadded one in float64.
 """
 from __future__ import annotations
 
@@ -64,12 +79,15 @@ _KIND_CODE = {"affine": 0, "spline": 1, "elem": 2}
 
 MAX_STAGES = 24      # ENF_CMAX_STAGES in csrc/coupling.cu
 MAX_LAYERS = 48      # ENF_CMAX_LAYERS
-_KC = 8              # ENF_KC: weight rows per shared-memory chunk
-_PASS = 256          # ENF_PASS: output columns per matmul pass
+_RING = 3            # ENF_RING: weight ring stages of one 8-row k-step
+_SLAB_COLS = 184     # widest last-layer slab (fits the 64-row ring)
+# Row tiles of B4/B5: rows per block -> output columns per register pass
+# (16 warps; ENF_NF = 8 n8-tiles per warp per pass).
+_PASS_COLS = {64: 512, 16: 1024}
 _SMEM_MAX = 232448   # the card's opt-in shared memory per block
 _SMEM_PER_SM = 233472
-_WARP_CHOICES = (8, 4, 2)   # a block of 32*w threads owns 4*w rows
-_DW_TILE = 64        # ENF_DW_TILE
+_DW_TILE = 128       # ENF_DW_TILE: dW output tile (rows and columns)
+_DW_SMEM = 4 * 3 * 2 * 32 * 136   # its ring: 3 stages of two 32 x 136 tiles
 _BWD_CHUNK_ROWS = 1 << 16   # rows per B5 launch (bounds the scratch)
 
 
@@ -89,6 +107,7 @@ class _Item(NamedTuple):
     n_layers: int = 0
     a_rows: tuple = ()      # coupling: first-layer row for physical lane k
     out_cols: tuple = ()    # coupling: last-layer column gather
+    lanes: int = 0          # coupling: half-lanes per last-layer slab
     code: int = 0           # elem: stage code of csrc/stages.cuh
     slot: int = 0           # elem: first parameter slot
     j_of_k: tuple = ()      # elem: logical position of physical lane k
@@ -105,12 +124,27 @@ class _Structure(NamedTuple):
     out_map: tuple          # logical output position -> physical lane
 
     @property
-    def maxw(self) -> int:
-        return max([self.dim // 2] + [w for kn in self.layers for w in kn])
-
-    @property
     def identity_out(self) -> bool:
         return self.out_map == tuple(range(self.dim))
+
+
+def _n_params(it) -> int:
+    """Conditioner outputs per half-lane of a coupling item."""
+    return 2 if it.kind == "affine" else 3 * it.n_bins - 1
+
+
+def _lanes_per_slab(da: int, P: int) -> int:
+    """G: half-lanes per last-layer slab, as many as keep a slab of G * P
+    columns within ``_SLAB_COLS`` (at least 1, at most all d/2)."""
+    return min(da, max(1, _SLAB_COLS // P))
+
+
+def _grouped_col(jp, p, da, P, G):
+    """Column of parameter p of physical half-lane jp in the lane-grouped
+    layout: slab s = jp // G holds the P parameters of its Gs lanes at
+    ``s*G*P + p*Gs + jj``."""
+    s, jj = divmod(jp, G)
+    return s * G * P + p * min(G, da - s * G) + jj
 
 
 def _half_alignment(lane_map, dim):
@@ -162,17 +196,15 @@ def _stack_structure(chain, dim: int):
                     or any(tuple(d.b.shape) != (kn[1],)
                            for d, kn in zip(cond.layers, shapes)):
                 return None
-            b_inv = np.argsort(b_loc)
-            if spline:
-                # Slab layout: param p of physical half-lane b_loc[j] at
-                # column p*da + b_loc[j] takes the conditioner's column
-                # j*P + p.
-                cols = np.empty(da * P, np.int64)
-                for j in range(da):
-                    for p in range(P):
-                        cols[p * da + b_loc[j]] = j * P + p
-            else:
-                cols = np.concatenate([b_inv, da + b_inv])
+            # Lane-grouped layout: param p of physical half-lane b_loc[j]
+            # takes the conditioner's column j*P + p (spline) or p*da + j
+            # (affine: scales, then shifts).
+            G = _lanes_per_slab(da, P)
+            cols = np.empty(da * P, np.int64)
+            for j in range(da):
+                for p in range(P):
+                    cols[_grouped_col(b_loc[j], p, da, P, G)] = \
+                        j * P + p if spline else p * da + j
             items.append(_Item(
                 kind="spline" if spline else "affine", src=src,
                 inverted=bool(s.inverted),
@@ -182,7 +214,7 @@ def _stack_structure(chain, dim: int):
                 act=cond.activation, layer0=len(layers),
                 n_layers=len(shapes),
                 a_rows=tuple(int(i) for i in np.argsort(a_loc)),
-                out_cols=tuple(int(i) for i in cols)))
+                out_cols=tuple(int(i) for i in cols), lanes=G))
             layers.extend(shapes)
         elif isinstance(s, ELEMENTWISE_KINDS):
             j_of_k = np.empty(dim, np.int64)
@@ -240,44 +272,198 @@ def _stack_plan(chain, st: _Structure, dtype, device):
     return wbuf, pbuf
 
 
-def _layer(st: _Structure, wbuf, li):
-    K, N = st.layers[li]
-    off = st.w_offs[li]
+def _ceil8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def _pack(M):
+    """The entries of an (R, C) matrix (R, C multiples of 8) in the order
+    the B operand of ``mma.sync.m16n8k8.tf32`` is read: per 8-row k-step,
+    per 8-column n-tile, 64 floats, where lane (n % 8) * 4 + k % 4 holds
+    rows k and k + 4 of column n as one float2. A warp reads a fragment as
+    256 contiguous bytes; a pass of n-tiles at one k-step is contiguous."""
+    R, C = M.shape
+    k = np.arange(R)[:, None]
+    n = np.arange(C)[None, :]
+    pos = (((k // 8) * (C // 8) + n // 8) * 64
+           + ((n % 8) * 4 + k % 4) * 2 + (k % 8) // 4)
+    out = np.empty(R * C, M.dtype)
+    out[pos.reshape(-1)] = M.reshape(-1)
+    return out
+
+
+class _Padded(NamedTuple):
+    """The kernels' view of a plan (see the module docstring)."""
+    kn: tuple          # (Kp, Np) per layer
+    slabs: tuple       # per item (G, slab width, n slabs); zeros for elem
+    nat_offs: tuple    # per layer: W (Kp x Np) then b (Np), natural layout
+    nat_len: int
+    nat_idx: np.ndarray    # natural position -> wbuf index; w_len = zero
+    k_offs: tuple      # per layer: packed W, packed W^T, bias offsets
+    k_idx: np.ndarray      # kernel-buffer position -> wbuf index
+    n_packed: int      # leading floats of the kernel buffer: W and W^T
+    grad_idx: np.ndarray   # wbuf index -> natural position
+    scr_cols: tuple    # per layer: scratch column base of h_in, g_pre
+    cols: int          # scratch floats per row
+    widest: int        # widest padded layer input or hidden layer output
+    ldh: int           # row stride of the kernels' activation buffer
+
+
+
+@functools.lru_cache(maxsize=64)
+def _padded(st: _Structure) -> _Padded:
+    da = st.dim // 2
+    kn = list(st.layers)
+    slabs, last_of = [], {}
+    for it in st.items:
+        if it.kind == "elem":
+            slabs.append((0, 0, 0))
+            continue
+        P, G = _n_params(it), it.lanes
+        sw, ns = _ceil8(G * P), -(-da // G)
+        slabs.append((G, sw, ns))
+        for li in range(it.n_layers):
+            K, N = st.layers[it.layer0 + li]
+            kn[it.layer0 + li] = (_ceil8(K), _ceil8(N))
+        last = it.layer0 + it.n_layers - 1
+        kn[last] = (kn[last][0], ns * sw)
+        last_of[last] = (G, P, sw)
+    zero = st.w_len
+    nat_idx, nat_offs, off = [], [], 0
+    grad_idx = np.empty(st.w_len, np.int64)
+    for l, ((K, N), (Kp, Np)) in enumerate(zip(st.layers, kn)):
+        col = np.full(Np, -1, np.int64)   # padded column -> plan column
+        if l in last_of:
+            G, P, sw = last_of[l]
+            for j in range(da):
+                s, jj = divmod(j, G)
+                for p in range(P):
+                    col[s * sw + p * G + jj] = _grouped_col(j, p, da, P, G)
+        else:
+            col[:N] = np.arange(N)
+        ok = col >= 0
+        W = np.full((Kp, Np), zero, np.int64)
+        W[:K, ok] = st.w_offs[l] + np.arange(K)[:, None] * N + col[ok]
+        b = np.full(Np, zero, np.int64)
+        b[ok] = st.w_offs[l] + K * N + col[ok]
+        pos = off + np.arange(Kp * Np).reshape(Kp, Np)
+        grad_idx[W[:K, ok].reshape(-1)] = pos[:K, ok].reshape(-1)
+        grad_idx[b[ok]] = off + Kp * Np + np.nonzero(ok)[0]
+        nat_offs.append(off)
+        nat_idx += [W.reshape(-1), b]
+        off += (Kp + 1) * Np
+    nat_idx = np.concatenate(nat_idx)
+    packs, packs_t, biases, k_offs = [], [], [], []
+    n_w = sum(Kp * Np for Kp, Np in kn)
+    o_w, o_b = 0, 2 * n_w
+    for l, (Kp, Np) in enumerate(kn):
+        M = nat_idx[nat_offs[l]:nat_offs[l] + Kp * Np].reshape(Kp, Np)
+        packs.append(_pack(M))
+        packs_t.append(_pack(M.T))
+        biases.append(nat_idx[nat_offs[l] + Kp * Np:nat_offs[l]
+                              + (Kp + 1) * Np])
+        k_offs.append((o_w, n_w + o_w, o_b))
+        o_w += Kp * Np
+        o_b += Np
+    scr, c = [], 0
+    for Kp, Np in kn:
+        scr.append(c)
+        c += Kp + Np
+    widest = max([Kp for Kp, _ in kn]
+                 + [Np for l, (_, Np) in enumerate(kn) if l not in last_of])
+    # The activation buffer also holds B5's slabs; a row stride of 4 mod 8
+    # floats makes the A-fragment reads of mma.sync conflict-free.
+    ldh = max([widest] + [s[1] for s in slabs]) + 4
+    return _Padded(tuple(kn), tuple(slabs), tuple(nat_offs), off, nat_idx,
+                   tuple(k_offs), np.concatenate(packs + packs_t + biases),
+                   2 * n_w, grad_idx, tuple(scr), c, widest, ldh)
+
+
+def _layer(st: _Structure, wbuf, li, pp: _Padded = None):
+    """(W, b) of layer li: from the plan, or with ``pp`` from the natural
+    padded buffer (``_padded_buffer``)."""
+    K, N = pp.kn[li] if pp else st.layers[li]
+    off = pp.nat_offs[li] if pp else st.w_offs[li]
     return (wbuf[off:off + K * N].view(K, N),
             wbuf[off + K * N:off + (K + 1) * N])
 
 
-def _ldw(st: _Structure) -> int:
-    """Row stride of the kernels' activation buffers: the widest layer,
-    rounded up to 4 floats."""
-    return -(-st.maxw // 4) * 4
+@functools.lru_cache(maxsize=64)
+def _index(st: _Structure, name: str, device) -> torch.Tensor:
+    """One of ``_padded(st)``'s index arrays as a tensor on ``device``, made
+    once: copying the kernel buffer's index from the host took longer than
+    B4 itself."""
+    return torch.as_tensor(getattr(_padded(st), name), device=device)
 
 
-def _smem_bytes(st: _Structure, warps: int, backward: bool) -> int:
-    """Shared memory of B4 / B5 for blocks of ``warps`` warps (4 rows per
-    warp), following the layouts in csrc/coupling.cu: B4 the state and the
-    per-element ladj terms (T x d each), two activation buffers (T x ldw)
-    and two weight chunks (KC x PASS); B5 what its reverse sweep needs of
-    each stage's input (an elementwise stage's whole input, T x d; a
-    coupling's target half, T x d/2), the state and then the running
-    cotangent (T x d), the ladj cotangents (T), the same activation buffers
-    and chunks, and the elementwise-parameter sums (n_pslots x d)."""
-    T, d, ldw = 4 * warps, st.dim, _ldw(st)
+def _gather(st: _Structure, wbuf, name: str):
+    """wbuf at the index ``name`` of the padded plan, where index len(wbuf)
+    reads a zero."""
+    ext = torch.cat([wbuf, wbuf.new_zeros(1)])
+    return ext[_index(st, name, wbuf.device)]
+
+
+def _padded_buffer(st: _Structure, wbuf):
+    """The natural padded buffer: per layer W (Kp x Np) then b (Np)."""
+    return _gather(st, wbuf, "nat_idx")
+
+
+@functools.lru_cache(maxsize=256)
+def _slab_cols(st: _Structure, item: int, padded: bool, device):
+    """Index that gathers the slab layout (parameter p of half-lane j at
+    p * d/2 + j, what the plain epilogues read) from the columns of a
+    coupling's last layer, lane-grouped or padded, as a tensor on
+    ``device``; None where the two layouts agree (the affine stacks with
+    d/2 <= 92, unpadded)."""
+    it = st.items[item]
+    da, P, G = st.dim // 2, _n_params(it), it.lanes
+    sw = _padded(st).slabs[item][1]
+    col = (lambda j, p: (j // G) * sw + p * G + j % G) if padded else \
+        (lambda j, p: _grouped_col(j, p, da, P, G))
+    cols = [col(j, p) for p in range(P) for j in range(da)]
+    last = it.layer0 + it.n_layers - 1
+    width = (_padded(st).kn if padded else st.layers)[last][1]
+    if cols == list(range(width)):
+        return None
+    return torch.tensor(cols, dtype=torch.long, device=device)
+
+
+def _smem_bytes(st: _Structure, tm: int, backward: bool) -> int:
+    """Shared memory of B4 / B5 for a row tile of ``tm`` rows, following
+    csrc/coupling.cu: the weight ring (3 stages of 8 rows x the pass width;
+    in B4 it also holds each last-layer slab between passes), the
+    activation buffer (tm x ldh); B4 the state and the per-element ladj
+    terms (tm x d each); B5 what its reverse sweep needs of each stage's
+    input (an elementwise stage's whole input, tm x d; a coupling's target
+    half, tm x d/2), the state and then the running cotangent (tm x d), the
+    ladj cotangents (tm) and the elementwise-parameter sums (n_pslots x d)."""
+    d, ldh = st.dim, _padded(st).ldh
+    ring = _RING * 8 * _PASS_COLS[tm]
     if backward:
         saved = sum(d if it.kind == "elem" else d // 2 for it in st.items)
-        floats = (T * (saved + d + 1 + 2 * ldw)
-                  + 2 * _KC * _PASS + st.n_pslots * d)
+        floats = ring + tm * (saved + d + 1 + ldh) + st.n_pslots * d
     else:
-        floats = T * (2 * d + 2 * ldw) + 2 * _KC * _PASS
+        floats = ring + tm * (2 * d + ldh)
     return 4 * floats
 
 
-def _pick_warps(st: _Structure, backward: bool) -> int:
-    """The largest block (8, 4 or 2 warps) whose shared memory fits the
-    card's 227 KB per block; 0 when none does."""
-    for w in _WARP_CHOICES:
-        if _smem_bytes(st, w, backward) <= _SMEM_MAX:
-            return w
+def _tile_fits(st: _Structure, tm: int, backward: bool) -> bool:
+    """Whether the row tile ``tm`` takes the stack: every padded layer
+    input and hidden output within one register pass, every slab (with its
+    4-float pad) within the ring, and the shared memory within 227 KB."""
+    pp = _padded(st)
+    slab = max(s[1] for s in pp.slabs)
+    return (pp.widest <= _PASS_COLS[tm]
+            and tm * (slab + 4) <= _RING * 8 * _PASS_COLS[tm]
+            and _smem_bytes(st, tm, backward) <= _SMEM_MAX)
+
+
+def _pick_tile(st: _Structure, backward: bool) -> int:
+    """Rows per block of B4 / B5: 64 where that fits, else 16; 0 when
+    neither does."""
+    for tm in _PASS_COLS:
+        if _tile_fits(st, tm, backward):
+            return tm
     return 0
 
 
@@ -290,21 +476,25 @@ def is_fusible_coupling_stack(chain, dim: int, dtype=torch.float32) -> bool:
     activations and ``compute_dtype=None``; every coupling finds its halves
     on the two physical halves after the Permutes before it; the other
     stages are of the five elementwise kinds. In place of the TPU's tile
-    pickers and VMEM budgets, the port's own limit: at most 24 stages
-    (Permutes not counted) and 48 conditioner layers, and B5's smallest
-    block, 2 warps owning 8 rows, must fit the card's 227 KB of shared
-    memory: about 4 B * (8 * (d * (couplings / 2 + elementwise stages + 1)
-    + 2 * widest layer) + 4096 + 4 slots per elementwise stage * d)
-    (``_smem_bytes``). At d=64 with 4 couplings that admits layers up to
-    about 3200 wide; the (1024, 1024) stack runs B5 in blocks of 4 warps,
-    the BASELINE (512, 512) affine and spline stacks in blocks of 8."""
+    pickers and VMEM budgets, the port's own limits: at most 24 stages
+    (Permutes not counted) and 48 conditioner layers, and one of the two
+    row tiles of B4 and B5 must take the stack (``_tile_fits``). A tile of
+    64 rows holds a layer's whole output in registers, 512 columns, so it
+    takes d/2 and hidden widths up to 512 (padded to multiples of 8) while
+    its shared memory fits 227 KB: about 4 B * (12288 + 64 * (d *
+    (couplings / 2 + elementwise stages + 1) + widest layer + 4)) for B5.
+    A tile of 16 rows takes widths up to 1024. The spline's last layer is
+    computed in slabs of G = 184 // (3K - 1) half-lanes, so K <= 61. The
+    BASELINE (512, 512) affine and spline stacks run in 64-row tiles, the
+    (1024, 1024) stack in 16-row tiles; (4096,) is refused."""
     if dtype != torch.float32:
         return False
     st = _stack_structure(chain, dim)
     if st is None or len(st.items) > MAX_STAGES \
             or len(st.layers) > MAX_LAYERS or st.w_len >= 2 ** 31:
         return False
-    return _pick_warps(st, backward=True) > 0
+    return _pick_tile(st, backward=True) > 0 \
+        and _pick_tile(st, backward=False) > 0
 
 
 # ------------------------------------------------------------------
@@ -408,16 +598,22 @@ def _spline_epilogue(x, h, da, K, bound, inverted):
     return torch.where(in_range, y, x), ladj
 
 
-def coupling_forward_plain(st: _Structure, wbuf, pbuf, x):
+def coupling_forward_plain(st: _Structure, wbuf, pbuf, x,
+                           padded: bool = False):
     """Plain B4: (y in physical lane order, per-sample ladj) through the
     plan, one stage at a time over the whole batch, in x's dtype, with the
     conditioner matmuls in ``torch.matmul``. Differentiable: autograd over
-    it is the plain B5."""
+    it is the plain B5. ``padded=True`` runs the same function on the
+    kernels' padded plan: zero-padded activations, padded W and b, the
+    last layer's padded slabs."""
     d = st.dim
     da = d // 2
+    pp = _padded(st) if padded else None
+    if padded:
+        wbuf = _padded_buffer(st, wbuf)
     halves = [x[:, :da], x[:, da:]]
     ladj = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    for it in st.items:
+    for i, it in enumerate(st.items):
         if it.kind == "elem":
             kind = _BY_CODE[it.code]
             ps = [pbuf[(it.slot + i) * d:(it.slot + i + 1) * d]
@@ -430,11 +626,19 @@ def coupling_forward_plain(st: _Structure, wbuf, pbuf, x):
             continue
         act = ACTIVATIONS[it.act]
         h = halves[it.src]
+        if padded:
+            h = torch.nn.functional.pad(h, (0, pp.kn[it.layer0][0] - da))
         for li in range(it.n_layers):
-            W, b = _layer(st, wbuf, it.layer0 + li)
-            h = torch.matmul(h, W) + b
+            W, b = _layer(st, wbuf, it.layer0 + li, pp)
             if li + 1 < it.n_layers:
-                h = act(h)
+                h = act(torch.matmul(h, W) + b)
+                continue
+            # The last layer's columns in slab layout: a gather of W and b,
+            # whose cost does not grow with the batch.
+            cols = _slab_cols(st, i, padded, h.device)
+            if cols is not None:
+                W, b = W[:, cols], b[cols]
+            h = torch.matmul(h, W) + b
         tgt = 1 - it.src
         if it.kind == "affine":
             new, el = _affine_epilogue(halves[tgt], h, da, it.mls,
@@ -589,112 +793,173 @@ def _adjoint_spline(x, h, da, K, bound, inverted, cy, ce):
 
 @functools.lru_cache(maxsize=64)
 def _plan_arrays(st: _Structure):
-    """The C arrays of the plan: 9 ints and 2 floats per stage, 6 ints per
-    layer (K, N, W offset, W^T offset, h_in and g_pre scratch columns)."""
+    """The C arrays of the plan: 12 ints and 2 floats per stage (the last
+    three ints: G, slab width, slabs), 7 ints per padded layer (Kp, Np, the
+    packed W, packed W^T and bias offsets in the kernel buffer, the scratch
+    column base, the offset in the natural padded buffer)."""
+    pp = _padded(st)
     si, sf = [], []
-    for it in st.items:
+    for it, slab in zip(st.items, pp.slabs):
         si += [_KIND_CODE[it.kind], it.src, int(it.inverted),
                _ACT_CODE.get(it.act, 0), it.n_layers, it.layer0, it.code,
-               it.slot, it.n_bins]
+               it.slot, it.n_bins, *slab]
         sf += [it.mls, it.bound]
-    li, wt_off, col = [], 0, 0
-    for (K, N), w_off in zip(st.layers, st.w_offs):
-        li += [K, N, w_off, wt_off, col, col + K]
-        wt_off += K * N
-        col += K + N
-    return (_ints(si), (ctypes.c_float * max(1, len(sf)))(*sf), _ints(li),
-            col)
+    li = []
+    for l, (Kp, Np) in enumerate(pp.kn):
+        li += [Kp, Np, *pp.k_offs[l], pp.scr_cols[l], pp.nat_offs[l]]
+    return _ints(si), (ctypes.c_float * max(1, len(sf)))(*sf), _ints(li)
 
 
-def _launch_fwd(st: _Structure, x, wbuf, pbuf):
+def _round_tf32(t):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = t.view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _kernel_weights(st: _Structure, wbuf):
+    """The kernel buffer: every layer's W and W^T, padded and packed in
+    fragment order and rounded to TF32, then the padded biases (f32)."""
+    pp = _padded(st)
+    wk = _gather(st, wbuf.detach(), "k_idx")
+    wk[:pp.n_packed] = _round_tf32(wk[:pp.n_packed])
+    return wk
+
+
+def _grid(tiles: int, smem: int, device) -> int:
+    """Persistent grid: the tiles, or as many blocks as fit on the card."""
+    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
+    return min(tiles, per_sm * _sm_count(device.index))
+
+
+def _sv_row(st: _Structure) -> int:
+    """Floats per row of the stage inputs B5's sweep keeps: an elementwise
+    stage's whole input, a coupling's target half."""
+    return sum(st.dim if it.kind == "elem" else st.dim // 2
+               for it in st.items)
+
+
+def _launch_fwd(st: _Structure, x, wbuf, pbuf, save: bool = False):
+    """B4: (y, ladj, saved). With ``save``, B4 also writes what B5 needs
+    (every layer's input and pre-activation, every stage's input) for the
+    whole batch, and ``saved`` holds it with the kernel buffer for
+    ``_launch_bwd``; otherwise ``saved`` is None."""
     from ._build import load_library
 
     lib = load_library()
     n, d = x.shape
-    warps = _pick_warps(st, backward=False)
-    smem = _smem_bytes(st, warps, backward=False)
-    tiles = -(-n // (4 * warps))
-    grid = min(tiles, max(1, _SMEM_PER_SM // (smem + 1024))
-               * _sm_count(x.device.index))
+    tm = _pick_tile(st, backward=False)
+    smem = _smem_bytes(st, tm, backward=False)
     y = torch.empty_like(x)
     ladj = torch.empty(n, dtype=torch.float32, device=x.device)
-    si, sf, li, _ = _plan_arrays(st)
+    wk = _kernel_weights(st, wbuf)
+    saved = None
+    if save:
+        saved = (torch.empty(n * _padded(st).cols, dtype=torch.float32,
+                             device=x.device),
+                 torch.empty(n * _sv_row(st), dtype=torch.float32,
+                             device=x.device), wk)
+    si, sf, li = _plan_arrays(st)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_coupling_fwd(
-            x.data_ptr(), y.data_ptr(), ladj.data_ptr(), wbuf.data_ptr(),
+            x.data_ptr(), y.data_ptr(), ladj.data_ptr(), wk.data_ptr(),
             pbuf.data_ptr(), si, sf, len(st.items), li, len(st.layers), n,
-            d, _ldw(st), warps, smem, grid, _DERIV_SHIFT, stream)
+            d, _padded(st).ldh, tm, saved[0].data_ptr() if save else None,
+            saved[1].data_ptr() if save else None, smem,
+            _grid(-(-n // tm), smem, x.device), _DERIV_SHIFT, stream)
     _raise_on(lib, err, "B4 (fused coupling forward)")
     LAUNCHES["coupling_fwd"] += 1
-    return y, ladj
+    return y, ladj, saved
 
 
-def _transposed(st: _Structure, wbuf):
-    """Every layer's W^T (N, K), packed in layer order."""
-    return torch.cat([_layer(st, wbuf, i)[0].t().reshape(-1)
-                      for i in range(len(st.layers))])
+def _dw_tiles(pp: _Padded) -> int:
+    return sum(-(-Kp // _DW_TILE) * -(-Np // _DW_TILE) for Kp, Np in pp.kn)
 
 
-def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl):
+def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None):
     """B5: (gx, wbuf cotangent, pbuf cotangent) for the cotangents gy (n, d)
-    in physical lane order and gl (n,). The batch goes in chunks of at most
-    ``_BWD_CHUNK_ROWS`` rows, each one launch of the sweep kernel and one of
-    the weight-gradient reduction; the per-chunk partials are summed here
-    in a fixed order."""
+    in physical lane order and gl (n,). Given B4's ``saved`` rows, the whole
+    batch is one launch of the sweep, which then skips its recompute of the
+    forward; otherwise the batch goes in chunks of at most
+    ``_BWD_CHUNK_ROWS`` rows, each recomputed. Each chunk is one launch of
+    the sweep kernel and one of the weight-gradient reduction over fixed
+    row splits; the partials are summed here in a fixed order and gathered
+    from the padded layout back onto the plan."""
     from ._build import load_library
 
     lib = load_library()
     n, d = x.shape
     dev = x.device
-    warps = _pick_warps(st, backward=True)
-    smem = _smem_bytes(st, warps, backward=True)
-    si, sf, li, cols = _plan_arrays(st)
-    wt = _transposed(st, wbuf)
-    chunk = min(n, _BWD_CHUNK_ROWS)
-    scratch = torch.empty(chunk * cols, dtype=torch.float32, device=dev)
+    pp = _padded(st)
+    tm = _pick_tile(st, backward=True)
+    smem = _smem_bytes(st, tm, backward=True)
+    si, sf, li = _plan_arrays(st)
+    if saved is None:
+        wk = _kernel_weights(st, wbuf)
+        chunk = min(n, _BWD_CHUNK_ROWS)
+        scratch = torch.empty(chunk * pp.cols, dtype=torch.float32,
+                              device=dev)
+    else:
+        scratch, svs, wk = saved
+        chunk = n
     sms = _sm_count(dev.index)
-    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
-    tiles = sum(-(-(K + 1) // _DW_TILE) * -(-N // _DW_TILE)
-                for K, N in st.layers)
-    nsplit = max(1, min(64, -(-4 * sms // tiles)))
+    nsplit = max(1, min(64, -(-4 * sms // _dw_tiles(pp))))
     gx = torch.empty_like(x)
     n_chunks = -(-n // chunk)
-    w_part = torch.empty(n_chunks * nsplit, st.w_len, dtype=torch.float32,
+    w_part = torch.empty(n_chunks * nsplit, pp.nat_len, dtype=torch.float32,
                          device=dev)
-    grid_max = per_sm * sms
     p_parts = []
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         for c in range(n_chunks):
             r0, r1 = c * chunk, min(n, (c + 1) * chunk)
             rows = r1 - r0
-            grid = min(-(-rows // (4 * warps)), grid_max)
+            grid = _grid(-(-rows // tm), smem, dev)
             p_part = torch.empty(grid, st.n_pslots * d, dtype=torch.float32,
                                  device=dev)
             err = lib.enf_coupling_bwd(
                 x[r0:].data_ptr(), gy[r0:].data_ptr(), gl[r0:].data_ptr(),
-                gx[r0:].data_ptr(), wbuf.data_ptr(), wt.data_ptr(),
-                pbuf.data_ptr(), si, sf, len(st.items), li, len(st.layers),
-                rows, d, _ldw(st), warps, smem, grid, st.n_pslots,
-                scratch.data_ptr(), cols, p_part.data_ptr(), _DERIV_SHIFT,
-                stream)
+                gx[r0:].data_ptr(), wk.data_ptr(), pbuf.data_ptr(), si, sf,
+                len(st.items), li, len(st.layers), rows, d, pp.ldh, tm, smem,
+                grid, st.n_pslots, scratch.data_ptr(),
+                None if saved is None else svs.data_ptr(), p_part.data_ptr(),
+                _DERIV_SHIFT, stream)
             _raise_on(lib, err, "B5 (fused coupling backward sweep)")
             err = lib.enf_coupling_dw(
-                scratch.data_ptr(), cols, li, len(st.layers), rows, nsplit,
-                w_part[c * nsplit:].data_ptr(), st.w_len, stream)
+                scratch.data_ptr(), li, len(st.layers), rows, nsplit,
+                w_part[c * nsplit:].data_ptr(), pp.nat_len, _DW_SMEM, stream)
             _raise_on(lib, err, "B5 (coupling weight-gradient reduction)")
             p_parts.append(p_part.sum(0))
     LAUNCHES["coupling_bwd"] += 1
-    return gx, w_part.sum(0), sum(p_parts[1:], p_parts[0])
+    gw = w_part.sum(0)[_index(st, "grad_idx", dev)]
+    return gx, gw, sum(p_parts[1:], p_parts[0])
+
+
+def _rows_fit(st: _Structure, x) -> bool:
+    """Whether B4 should write B5's rows for this batch: when they take at
+    most half of the memory the card has free (the driver's free memory
+    plus what PyTorch's allocator holds unused). The other half is a
+    margin for the rest of the step (the gradients, the optimizer, the
+    caller's tensors), not a measured optimum."""
+    need = 4 * x.shape[0] * (_padded(st).cols + _sv_row(st))
+    free, _ = torch.cuda.mem_get_info(x.device)
+    unused = torch.cuda.memory_reserved(x.device) \
+        - torch.cuda.memory_allocated(x.device)
+    return need <= (free + unused) // 2
 
 
 class _FusedCoupling(torch.autograd.Function):
-    """Forward: B4. Backward: B5 (``coupling.py:719-790``)."""
+    """Forward: B4. Backward: B5 (``coupling.py:719-790``). ``save``: True
+    or False to have B4 write B5's rows (B5 then skips its recompute) or
+    not; None decides by ``_rows_fit``. Rows are written only when a
+    gradient is wanted."""
 
     @staticmethod
-    def forward(ctx, x, wbuf, pbuf, st, physical_order):
-        y, ladj = _launch_fwd(st, x, wbuf, pbuf)
+    def forward(ctx, x, wbuf, pbuf, st, physical_order, save):
+        save = any(ctx.needs_input_grad[:3]) and (
+            _rows_fit(st, x) if save is None else save)
+        y, ladj, ctx.saved = _launch_fwd(st, x, wbuf, pbuf, save)
         ctx.save_for_backward(x, wbuf, pbuf)
         ctx.st = st
         ctx.gather = not physical_order and not st.identity_out
@@ -712,8 +977,9 @@ class _FusedCoupling(torch.autograd.Function):
             # gather gathers by the inverse permutation (coupling.py:764-767).
             gy = gy[:, np.argsort(st.out_map).tolist()]
         gx, gw, gp = _launch_bwd(st, x, wbuf, pbuf, gy.contiguous(),
-                                 gl.contiguous())
-        return gx, gw, gp, None, None
+                                 gl.contiguous(), ctx.saved)
+        ctx.saved = None
+        return gx, gw, gp, None, None, None
 
 
 def fused_coupling_forward_and_ladj(chain, x, physical_order: bool = False):
@@ -740,5 +1006,5 @@ def fused_coupling_forward_and_ladj(chain, x, physical_order: bool = False):
         return y, ladj
     _check_cuda_input(chain, x, is_fusible_coupling_stack)
     wbuf, pbuf = _stack_plan(chain, st, torch.float32, x.device)
-    return _FusedCoupling.apply(x, wbuf, pbuf, st, physical_order)
+    return _FusedCoupling.apply(x, wbuf, pbuf, st, physical_order, None)
 

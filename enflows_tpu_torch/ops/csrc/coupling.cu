@@ -1,6 +1,6 @@
 // Fused coupling-stack kernels for Hopper (sm_90a): B4 forward+ladj of a
-// whole coupling stack, B5 its backward (a per-tile sweep and a batch
-// reduction of the conditioner weight gradients).
+// whole coupling stack, B5 its backward (a per-tile recompute and reverse
+// sweep, and a batch reduction of the conditioner weight gradients).
 //
 // Replace the Pallas TPU kernels of enflows_tpu/ops/pallas/coupling.py:
 //   B4 coupling_fwd_kernel  <- _fused_coupling_impl (:677-716; kernel
@@ -9,54 +9,95 @@
 //   B5 coupling_bwd_kernel + coupling_dw_kernel <- _fused_coupling_bwd_impl
 //      (:616-674; kernel _build_coupling_bwd_kernel :595)
 //
-// The stack arrives as a plan built by enflows_tpu_torch/ops/coupling.py
-// (``_stack_structure``, ``_stack_plan``): per stage its kind (affine,
-// spline or elementwise), the physical half that conditions, the flags, the
-// activation and its conditioner layers; per layer (K, N) and the offsets of
-// its W (K, N) row-major followed by its bias (N) in one flat f32 buffer,
-// Permutes already absorbed into the first-layer rows and last-layer
-// columns. The state of a sample stays in physical lane order as two halves
-// [0, d/2) and [d/2, d). The spline conditioner output is in slab layout:
-// parameter p of half-lane j at column p * d/2 + j. Elementwise stages take
-// per-lane parameter vectors, slot q at P[q*d .. q*d+d), and run the stage
-// bodies of stages.cuh that B1-B3 use.
+// The stack arrives as the padded plan of enflows_tpu_torch/ops/coupling.py
+// (``_padded``, ``_plan_arrays``): per stage its kind (affine, spline or
+// elementwise), the physical half that conditions, the flags, the
+// activation, its conditioner layers and its last-layer slabs; per layer
+// (Kp, Np), K and N padded to multiples of 8 with zeros, and the offsets of
+// its W and W^T (packed in the B-fragment order of mma.sync, rounded to
+// TF32) and its bias in one kernel buffer, Permutes already absorbed. The
+// state of a sample stays in physical lane order as two halves [0, d/2) and
+// [d/2, d). The last layer is lane-grouped: slab s (width SW, a multiple of
+// 8) holds parameter p of its half-lane jj at column s * SW + p * G + jj.
+// Elementwise stages take per-lane parameter vectors, slot q at
+// P[q*d .. q*d+d), and run the stage bodies of stages.cuh that B1-B3 use.
 //
-// What bounds them on an H100: the conditioner products. At the BASELINE
-// config (d=64, 4 couplings, (512, 512) hidden, n=2^17) the forward is
-// 2.49 M (affine) / 5.24 M (spline, K=8) multiply-adds x 2 FLOP per sample:
-// 326 / 687 GFLOP, 4.9 / 10.3 ms at the 67 TFLOP/s f32 rate outside the
-// tensor cores. The bytes (x, y, ladj and the weights once, ~72 MB affine)
-// take ~0.02 ms. B5 does the products twice more (dh and dW), 9.7 / 20.5 ms,
-// plus a recompute of the forward that this design chooses to pay. In this
-// first version every product runs in f32 FMAs on the CUDA cores (no tensor
-// cores, no TF32), so f32 FMA throughput is the roof.
+// Precision. Every conditioner product runs on the tensor cores in TF32
+// with f32 accumulation: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
+// That is the counterpart of the reference's DEFAULT-precision matmuls, one
+// bf16 pass of the MXU (TF32 keeps 10 mantissa bits to bf16's 7). Weights
+// are rounded to TF32 once by the wrapper and activations once where they
+// are written, so B4's inner loop converts nothing; B5 keeps each
+// pre-activation cotangent in f32 in its scratch, so that db is an f32 sum
+// as in the plain version, and rounds it where a product reads it. Biases,
+// activations, epilogues, adjoints and ladj stay in f32. wgmma would reach
+// further toward the 495 TFLOP/s roof, but its TF32 form wants both
+// operands K-major in shared memory in its own swizzled layouts and a
+// warpgroup-wide asynchronous protocol; mma.sync takes A from any
+// shared-memory layout the block already keeps and B as packed fragments,
+// which is what a first tensor-core design of a kernel this long (every
+// stage kind, slabs, interleaved elementwise stages) can hold right. wgmma
+// is the next step.
 //
-// Design. The weights (5.0 MB affine, 10.5 MB spline) do not fit in a
-// block's 227 KB of shared memory but do fit in the 50 MB L2, so a block owns
-// a tile of T = 4 * warps rows and keeps the tile's state, its per-element
-// ladj terms and two activation buffers (T x widest layer) in shared memory,
-// and streams each layer's weights from L2 through a double-buffered
-// shared-memory chunk of KC rows x PASS columns with cp.async. Each warp owns
-// 4 rows and each lane 8 columns (stride 32) of a PASS-wide output slab: a
-// 4 x 8 register tile, activations read as shared-memory broadcasts, weights
-// as conflict-free rows. Epilogues and elementwise stages run elementwise on
-// the tile; the per-sample ladj is a shared-memory sum. One launch runs the
-// whole stack; the ragged last tile computes on zero rows and stores nothing
-// for them.
+// What bounds them on an H100 (BASELINE: d=64, 4 couplings, (512, 512)
+// gelu conditioners, n=2^17):
+//   * the TF32 product rate: B4 does 326 / 687 GFLOP (affine / spline, K=8),
+//     0.66 / 1.39 ms at 495 TFLOP/s; B5 twice that for dh and dW plus the
+//     recompute. Design: mma.sync on tiles of 64 rows x 512 columns per
+//     pass, 16 warps each owning 32 x 64 (a 2 x 8 grid of m16n8 tiles, 64
+//     accumulators in registers), so each A fragment read from shared
+//     memory feeds 8 products and each B fragment 2; 16 warps rather than
+//     8 of 32 x 128 hide more of the shared-memory and L2 latency and stay
+//     under 128 registers.
+//   * the L2 weight reads: the weights (5.0 / 10.5 MB) fit the 50 MB L2 but
+//     not a block's shared memory, so every row tile streams them once.
+//     Design: 64-row tiles (2^17/64 x 5.0 MB = 10.2 GB affine, 21.5 GB
+//     spline; a 32-row tile would read twice that), weights packed so one
+//     k-step of a pass is one contiguous run, copied by 16-byte cp.async
+//     into a ring of 3 stages with one barrier per 8-deep k-step.
+//   * the scratch bytes of B5: each layer's input and pre-activation
+//     cotangent per row (34.3 / 45.1 KB per row) go to device memory for
+//     the dW reduction. Design: the scratch is layer-major, each layer's
+//     h_in (rows x Kp) and g_pre (rows x Np) contiguous; the dW kernel's
+//     blocks are ordered so that the output tiles of one layer and one row
+//     split are launched together and walk the same rows in step, so that
+//     a row read from device memory by one tile can still be in L2 when
+//     its neighbours read it. The row splits are not sized to L2 (at
+//     BASELINE a split of one 512-wide layer is ~90 MB), and how often
+//     device memory is really read is not measured: every tile reading
+//     its own columns is 2.6x the scratch at BASELINE, once is 1x.
 //
-// B5 (a) recomputes each tile's forward, keeping in shared memory what the
-// reverse sweep needs of each stage's input (a coupling's target half, an
-// elementwise stage's whole input) and writing each conditioner layer's
-// input h_in and pre-activation to a device-memory scratch; then sweeps the
-// hand-derived
-// adjoints in reverse (dh = g_pre W^T in the same register-tiled product),
-// overwriting each pre-activation with its cotangent g_pre, and writes gx.
-// (b) coupling_dw_kernel reduces dW = sum_n h_in^T g_pre and db = sum_n g_pre
-// over fixed row splits, 64 x 64 output tiles per block; the splits (and the
-// wrapper's row chunks) are summed by the caller in a fixed order. No
-// atomics anywhere: results are deterministic for a given grid. The
-// elementwise-parameter cotangents are per-block sums (each lane owned by
-// one thread), summed by the caller.
+// B4. A block owns a tile of TM rows (64; 16 where a layer is wider than
+// 512 or shared memory does not fit) and keeps in shared memory the state
+// S (TM x d), the per-element ladj terms (TM x d), one activation buffer H
+// (TM x ldh) and the weight ring. A coupling copies its src half into H
+// (zero-padded to Kp, rounded to TF32); each hidden layer accumulates its
+// whole output in registers, then bias and activation are written back
+// into H in place after a barrier; the last layer runs slab by slab into
+// the ring (free between passes) and the slab's epilogue updates the target
+// half of S at once. Persistent grid-stride loop over tiles; the ragged
+// last tile computes on zero rows and stores nothing for them.
+//
+// B5 (a) recomputes each tile's forward the same way, keeping in shared
+// memory what the reverse sweep needs of each stage's input (a coupling's
+// target half, an elementwise stage's whole input) and writing every
+// layer's input h_in and pre-activation to the scratch. In training B4
+// writes those rows itself (given a scratch and a stage-input buffer for
+// the whole batch), and the sweep reads the stage inputs back instead of
+// recomputing: a fraction of a millisecond more in B4 for a third of B5
+// at BASELINE, for 34 / 45 KB per row held until the backward. The reverse
+// sweep
+// reads each slab of the conditioner output back, runs the hand-derived
+// adjoint in place, writes g_pre, then accumulates dh = g_pre W^T over the
+// slabs in registers (the same tile product on the packed W^T), applies the
+// activation's adjoint against the stored pre-activation and walks down the
+// layers. (b) coupling_dw_kernel forms dW = h_in^T g_pre on the tensor
+// cores in 128 x 128 output tiles (8 warps of 64 x 32) over fixed row
+// splits, and db = sum g_pre as column sums in the blocks of the first row
+// of tiles. The splits and the wrapper's chunks are summed by the caller in
+// a fixed order. No atomics anywhere: results are deterministic for a given
+// grid. The elementwise-parameter cotangents are per-block sums (each lane
+// owned by one thread), summed by the caller.
 //
 // The adjoints follow the torch functions _adjoint_activation,
 // _adjoint_affine and _adjoint_spline of enflows_tpu_torch/ops/coupling.py
@@ -68,10 +109,12 @@
 
 #define ENF_CMAX_STAGES 24
 #define ENF_CMAX_LAYERS 48
-#define ENF_KC 8          // weight rows per shared-memory chunk
-#define ENF_PASS 256      // output columns per register-tiled pass
-#define ENF_DW_TILE 64    // dW output tile (rows and columns)
-#define ENF_DW_RB 32      // batch rows per dW step
+#define ENF_RING 3        // weight ring stages, one 8-row k-step each
+#define ENF_WARPS 16      // warps per block of B4 / B5's sweep
+#define ENF_NF 8          // n8 tiles per warp per pass
+#define ENF_DW_TILE 128   // dW output tile (rows and columns)
+#define ENF_DW_RB 32      // batch rows per dW ring stage
+#define ENF_DW_LD 136     // row stride of a dW stage tile (8 mod 32)
 
 #define ENF_MIN_BIN 1e-3f
 #define ENF_MIN_DERIV 1e-3f
@@ -80,14 +123,16 @@
 enum { K_AFFINE = 0, K_SPLINE = 1, K_ELEM = 2 };
 enum { A_TANH = 0, A_GELU = 1, A_RELU = 2, A_SILU = 3 };
 
-// Item fields: kind, src, inverted, act, n_layers, layer0, code, slot, n_bins.
-// Layer fields: K, N, W offset, W^T offset, h_in column, g_pre column.
+// Item fields: kind, src, inverted, act, n_layers, layer0, code, slot,
+// n_bins, G (half-lanes per slab), SW (slab width), slabs.
+// Layer fields: Kp, Np, packed W offset, packed W^T offset, bias offset,
+// scratch column base (h_in, then g_pre at + Kp), natural dW offset.
 struct CPlan {
   int n_items;
   int n_layers;
-  int item[ENF_CMAX_STAGES][9];
+  int item[ENF_CMAX_STAGES][12];
   float itemf[ENF_CMAX_STAGES][2];  // max_log_scale, bound
-  int layer[ENF_CMAX_LAYERS][6];
+  int layer[ENF_CMAX_LAYERS][7];
 };
 
 // ------------------------------------------------------------------
@@ -122,22 +167,32 @@ __device__ __forceinline__ float act_bwd(int a, float pre, float g) {
 }
 
 // ------------------------------------------------------------------
-// The register-tiled product of a tile: out[r, n] = act(sum_k in[r, k]
-// W[k, n] + b[n]) for the T = 4 * warps rows of the block.
-//   in:  shared, row stride lda, K columns;
-//   W:   (K, N) row-major in device memory (L2-resident), b: (N) or null;
-//   out: shared, row stride ldo; act < 0 for none;
-//   wc:  2 * KC * PASS floats of shared memory for the weight chunks;
-//   pre_g, post_g: optional device-memory rows (stride ldg) that receive the
-//   pre-activation and the activated value, for the first nvalid rows.
-// Ends with a __syncthreads(), so out is visible to the whole block.
+// The TF32 tile product.
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
+// Round to TF32, to nearest with ties away from zero (the wrapper rounds
+// the weights the same way).
+__device__ __forceinline__ float tf32r(float v) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(v));
+  return __uint_as_float(u);
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// 16-byte copy to shared memory; src_bytes 0 fills zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes = 16) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int sz = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(sz));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -149,91 +204,148 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void load_chunk(float* wc,
-                                           const float* __restrict__ W,
-                                           int K, int N, int k0, int n0) {
-  for (int i = threadIdx.x; i < ENF_KC * ENF_PASS; i += blockDim.x) {
-    const int kk = i / ENF_PASS, c = i % ENF_PASS;
-    const int k = k0 + kk, n = n0 + c;
-    const bool v = k < K && n < N;
-    cp_async4(wc + i, v ? W + (size_t)k * N + n : W, v);
+// The block's geometry: ENF_WARPS warps in WM x WN, each owning MF m16
+// tiles of rows and up to ENF_NF n8 tiles of a pass (n-tile j * WN + wn,
+// so that a narrow pass still spreads over every warp).
+template <int MF, int WM>
+struct Geo {
+  static constexpr int TM = 16 * MF * WM;     // rows per block
+  static constexpr int WN = ENF_WARPS / WM;
+  static constexpr int PASS = WN * ENF_NF * 8;  // columns per pass
+  static constexpr int RING = ENF_RING * 8 * PASS;  // floats
+};
+
+template <int MF>
+struct Acc {
+  float v[MF][ENF_NF][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < MF; ++m)
+#pragma unroll
+      for (int j = 0; j < ENF_NF; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[m][j][q] = 0.f;
   }
-  cp_async_commit();
+};
+
+// acc += A (TM x 8*ksteps, shared memory, row stride lda = 4 mod 8) times
+// the k-steps [kk0, kk0 + ksteps) and n-tiles [nt0, nt0 + ntiles) of a
+// fragment-packed matrix Bp with ntot n-tiles per k-step (ntiles <= PASS/8).
+// The B fragments stream through the ring: each k-step of the pass is one
+// contiguous run of ntiles * 256 bytes, copied by 16-byte cp.async, ENF_RING
+// stages deep, one barrier per stage. A stage holds PASS/8 tiles: one
+// k-step of a full pass, up to 8 of a narrow one (the affine last layer's
+// 8 tiles, the first layer's dh), so a narrow pass does not pay a barrier
+// for every 8-deep step. Starts and ends with the ring free (ends with a
+// barrier, so the caller may overwrite A or the ring).
+// acc += A (TM x 8*ksteps, shared memory, row stride lda = 4 mod 8) times
+// the k-steps [kk0, kk0 + ksteps) and n-tiles [nt0, nt0 + ntiles) of a
+// fragment-packed matrix Bp with ntot n-tiles per k-step (ntiles <= PASS/8).
+// The B fragments stream through the ring: each k-step of the pass is one
+// contiguous run of ntiles * 256 bytes, copied by 16-byte cp.async, ENF_RING
+// stages deep, one barrier per k-step. Starts and ends with the ring free
+// (ends with a barrier, so the caller may overwrite A or the ring).
+template <int MF, int WM>
+__device__ void tile_product(Acc<MF>& acc, const float* A, int lda,
+                             int ksteps, const float* __restrict__ Bp,
+                             int ntot, int kk0, int nt0, int ntiles,
+                             float* ring) {
+  using G = Geo<MF, WM>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / G::WN, wn = warp % G::WN;
+  const int g = lane >> 2, t = lane & 3;
+  const int pieces = ntiles * 16;
+  auto load = [&](int kk) {
+    const float* src = Bp + ((size_t)(kk0 + kk) * ntot + nt0) * 64;
+    float* dst = ring + (kk % ENF_RING) * 8 * G::PASS;
+    for (int i = threadIdx.x; i < pieces; i += blockDim.x)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  };
+#pragma unroll
+  for (int s = 0; s < ENF_RING - 1; ++s) {
+    if (s < ksteps) load(s);
+    cp_async_commit();
+  }
+  const float* arow = A + (wm * MF * 16 + g) * lda + t;
+  for (int kk = 0; kk < ksteps; ++kk) {
+    cp_async_wait<ENF_RING - 2>();
+    __syncthreads();  // stage kk landed; stage kk - 1 is read by everyone
+    if (kk + ENF_RING - 1 < ksteps) load(kk + ENF_RING - 1);
+    cp_async_commit();
+    const float* bs = ring + (kk % ENF_RING) * 8 * G::PASS + lane * 2;
+    unsigned a[MF][4];
+#pragma unroll
+    for (int m = 0; m < MF; ++m) {
+      const float* p = arow + m * 16 * lda + kk * 8;
+      a[m][0] = __float_as_uint(p[0]);
+      a[m][1] = __float_as_uint(p[8 * lda]);
+      a[m][2] = __float_as_uint(p[4]);
+      a[m][3] = __float_as_uint(p[8 * lda + 4]);
+    }
+#pragma unroll
+    for (int j = 0; j < ENF_NF; ++j) {
+      const int tile = j * G::WN + wn;
+      if (tile < ntiles) {
+        const float2 b = *reinterpret_cast<const float2*>(bs + tile * 64);
+#pragma unroll
+        for (int m = 0; m < MF; ++m) mma_tf32(acc.v[m][j], a[m], b.x, b.y);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
-__device__ void tile_matmul(const float* in, int lda, int K,
-                            const float* __restrict__ W,
-                            const float* __restrict__ b, int N, float* out,
-                            int ldo, int act, float* wc, float* pre_g,
-                            float* post_g, size_t ldg, int nvalid) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 4;
-  const int nch = (K + ENF_KC - 1) / ENF_KC;
-  for (int n0 = 0; n0 < N; n0 += ENF_PASS) {
-    float acc[4][8];
+// f(r, c, v) for every accumulator of the first ntiles n-tiles: row r of
+// the tile, column c of the pass.
+template <int MF, int WM, class F>
+__device__ __forceinline__ void for_acc(Acc<MF>& acc, int ntiles, F f) {
+  using G = Geo<MF, WM>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / G::WN, wn = warp % G::WN;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int m = 0; m < MF; ++m)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-    load_chunk(wc, W, K, N, 0, n0);
-    for (int ch = 0; ch < nch; ++ch) {
-      if (ch + 1 < nch) {
-        load_chunk(wc + ((ch + 1) & 1) * ENF_KC * ENF_PASS, W, K, N,
-                   (ch + 1) * ENF_KC, n0);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* w = wc + (ch & 1) * ENF_KC * ENF_PASS + lane;
-      const int k0 = ch * ENF_KC;
-      const int kmax = min(ENF_KC, K - k0);
-      if (kmax == ENF_KC) {
-#pragma unroll
-        for (int kk = 0; kk < ENF_KC; ++kk) {
-          float a[4], wv[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = in[(r0 + i) * lda + k0 + kk];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) wv[c] = w[kk * ENF_PASS + c * 32];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], wv[c], acc[i][c]);
-        }
-      } else {
-        for (int kk = 0; kk < kmax; ++kk) {
-          float a[4], wv[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = in[(r0 + i) * lda + k0 + kk];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) wv[c] = w[kk * ENF_PASS + c * 32];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], wv[c], acc[i][c]);
-        }
-      }
-      __syncthreads();  // the next chunk load overwrites this buffer
+    for (int j = 0; j < ENF_NF; ++j) {
+      const int tile = j * G::WN + wn;
+      if (tile >= ntiles) continue;
+      const int r = (wm * MF + m) * 16 + g, c = tile * 8 + 2 * t;
+      f(r, c, acc.v[m][j][0]);
+      f(r, c + 1, acc.v[m][j][1]);
+      f(r + 8, c, acc.v[m][j][2]);
+      f(r + 8, c + 1, acc.v[m][j][3]);
     }
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int n = n0 + c * 32 + lane;
-      if (n >= N) continue;
-      const float bias = b ? __ldg(b + n) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + i;
-        const float v = acc[i][c] + bias;
-        const float o = act >= 0 ? act_fwd(act, v) : v;
-        out[r * ldo + n] = o;
-        if (r < nvalid) {
-          if (pre_g) pre_g[r * ldg + n] = v;
-          if (post_g) post_g[r * ldg + n] = o;
-        }
-      }
-    }
+}
+
+// The first nvalid rows of src (shared memory, row stride lds) -> dst
+// (device memory, row stride ldd) in 16-byte stores (w, both strides
+// multiples of 4, both bases 16-byte aligned). No barrier.
+__device__ __forceinline__ void store_rows(float* dst, size_t ldd,
+                                           const float* src, int lds, int w,
+                                           int nvalid) {
+  const int q = w / 4;
+  for (int i = threadIdx.x; i < nvalid * q; i += blockDim.x) {
+    const int r = i / q, c = (i - r * q) * 4;
+    *reinterpret_cast<float4*>(dst + r * ldd + c) =
+        *reinterpret_cast<const float4*>(src + r * lds + c);
   }
+}
+
+// dst (TM x w, row stride ldd) <- the first nvalid rows of src (row stride
+// lds), zeros below, by 16-byte cp.async (w, ldd, lds multiples of 4 and
+// both bases 16-byte aligned). Ends with a barrier.
+template <int TM>
+__device__ void load_rows(float* dst, int ldd, const float* src, size_t lds,
+                          int w, int nvalid) {
+  const int q = w / 4;
+  for (int i = threadIdx.x; i < TM * q; i += blockDim.x) {
+    const int r = i / q, c = (i - r * q) * 4;
+    const bool ok = r < nvalid;
+    cp_async16(dst + r * ldd + c, ok ? src + r * lds + c : src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 }
 
@@ -485,105 +597,169 @@ __device__ float spline_bwd(float x, const float* h, int da, int j, int K,
 }
 
 // ------------------------------------------------------------------
-// One coupling's conditioner forward on the tile: the src half of S (row
-// stride d) through every layer, ping-ponging between H0 and H1. Returns the
-// buffer holding the output. With scratch rows given (B5), writes each
-// layer's input h_in and pre-activation there.
-__device__ const float* conditioner_fwd(const CPlan& plan, const int* it,
-                                        const float* S, int d, float* H0,
-                                        float* H1, int ldw, float* wc,
-                                        const float* __restrict__ W,
-                                        float* scr, size_t cols, int nvalid) {
-  const int src = it[1], act = it[3], nl = it[4], l0 = it[5];
-  const int da = d / 2;
-  if (scr) {
-    const int col = plan.layer[l0][4];
-    for (int e = threadIdx.x; e < nvalid * da; e += blockDim.x) {
-      const int r = e / da, k = e - r * da;
-      scr[r * cols + col + k] = S[r * d + src * da + k];
+// One coupling on the tile, shared by B4 and B5's recompute.
+
+// The scratch rows of one tile (B5); base null in B4. Layer arrays are
+// layer-major: the array at column base cb, `width` wide, starts at
+// base + rows * cb.
+struct ScrRows {
+  float* base;
+  long long rows, r0;
+  int nvalid;
+  __device__ __forceinline__ float* at(int cb, int width) const {
+    return base + rows * cb + r0 * width;
+  }
+};
+
+// The conditioner from the src half of S, then the last layer slab by slab
+// into O (the ring, free between passes) with each slab's epilogue on the
+// target half of S (and the ladj terms into Lel, when given). With scratch
+// rows, every layer's input and pre-activation go to the scratch for the
+// valid rows; `epi` false skips the epilogue (B5's last stage).
+template <int MF, int WM>
+__device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
+                                  const float* itf, float* S, float* Lel,
+                                  int d, float* H, int ldh, float* ring,
+                                  const float* __restrict__ Wk,
+                                  const ScrRows& scr, bool epi, float shift) {
+  constexpr int TM = Geo<MF, WM>::TM;
+  const int da = d / 2, src = it[1], act = it[3], nl = it[4], l0 = it[5];
+  const bool save = scr.base != nullptr;
+  {
+    const int Kp = plan.layer[l0][0];
+    float* hin = save ? scr.at(plan.layer[l0][5], Kp) : nullptr;
+    for (int e = threadIdx.x; e < TM * Kp; e += blockDim.x) {
+      const int r = e / Kp, k = e - r * Kp;
+      const float v = k < da ? tf32r(S[r * d + src * da + k]) : 0.f;
+      H[r * ldh + k] = v;
+      if (save && r < scr.nvalid) hin[(size_t)r * Kp + k] = v;
     }
   }
-  const float* in = S + src * da;
-  int lda = d;
-  for (int l = 0; l < nl; ++l) {
-    const int* L = plan.layer[l0 + l];
-    const int K = L[0], N = L[1], woff = L[2];
-    float* out = (l & 1) ? H1 : H0;
-    const bool last = l + 1 == nl;
-    float* pre_g = scr ? scr + L[5] : nullptr;
-    float* post_g = (scr && !last) ? scr + plan.layer[l0 + l + 1][4] : nullptr;
-    tile_matmul(in, lda, K, W + woff, W + woff + (size_t)K * N, N, out, ldw,
-                last ? -1 : act, wc, pre_g, post_g, cols, nvalid);
-    in = out;
-    lda = ldw;
-  }
-  return in;
-}
-
-// The epilogue of a coupling on the tile: reads the target half of `in`
-// (row stride d) and the conditioner output h (row stride ldw), writes the
-// new target half to `out` and, if L is not null, adds the ladj terms there.
-__device__ void epilogue_fwd(const int* it, const float* itf, const float* in,
-                             float* out, float* L, const float* h, int ldw,
-                             int T, int d, float shift) {
-  const int da = d / 2, tgt = 1 - it[1], K = it[8];
-  const bool inv = it[2] != 0, spline = it[0] == K_SPLINE;
-  for (int e = threadIdx.x; e < T * da; e += blockDim.x) {
-    const int r = e / da, j = e - r * da;
-    const int idx = r * d + tgt * da + j;
-    float el;
-    const float y =
-        spline ? spline_fwd(in[idx], h + r * ldw, da, j, K, itf[1], inv,
-                            shift, &el)
-               : affine_fwd(in[idx], h + r * ldw, da, j, itf[0], inv, &el);
-    out[idx] = y;
-    if (L) L[idx] += el;
-  }
   __syncthreads();
+  Acc<MF> acc;
+  for (int l = 0; l + 1 < nl; ++l) {  // hidden layers, in place in H
+    const int* L = plan.layer[l0 + l];
+    const int Kp = L[0], Np = L[1];
+    const float* b = Wk + L[4];
+    acc.zero();
+    tile_product<MF, WM>(acc, H, ldh, Kp / 8, Wk + L[2], Np / 8, 0, 0,
+                         Np / 8, ring);
+    // Bias in the accumulator epilogue; the activation in a second pass
+    // over H, with the accumulators dead (computed while they are live, the
+    // activation's registers spill). B5's rows: the pre-activation and the
+    // activated value to the scratch, in 16-byte stores.
+    for_acc<MF, WM>(acc, Np / 8,
+                    [&](int r, int c, float v) { H[r * ldh + c] = v + b[c]; });
+    __syncthreads();
+    float* pre = save ? scr.at(L[5] + Kp, Np) : nullptr;
+    float* post = save ? scr.at(plan.layer[l0 + l + 1][5], Np) : nullptr;
+    const int q = Np / 4;
+    for (int i = threadIdx.x; i < TM * q; i += blockDim.x) {
+      const int r = i / q, c = (i - r * q) * 4;
+      float4* h = reinterpret_cast<float4*>(H + r * ldh + c);
+      float4 v = *h;
+      const bool out = save && r < scr.nvalid;
+      if (out) *reinterpret_cast<float4*>(pre + (size_t)r * Np + c) = v;
+      v.x = tf32r(act_fwd(act, v.x));
+      v.y = tf32r(act_fwd(act, v.y));
+      v.z = tf32r(act_fwd(act, v.z));
+      v.w = tf32r(act_fwd(act, v.w));
+      *h = v;
+      if (out) *reinterpret_cast<float4*>(post + (size_t)r * Np + c) = v;
+    }
+    __syncthreads();
+  }
+  const int* L = plan.layer[l0 + nl - 1];
+  const int Kp = L[0], Np = L[1], G = it[9], SW = it[10], nslab = it[11];
+  const int ldo = SW + 4, tgt = 1 - src, K = it[8];
+  const bool inv = it[2] != 0, spline = it[0] == K_SPLINE;
+  const float* b = Wk + L[4];
+  float* pre = save ? scr.at(L[5] + Kp, Np) : nullptr;
+  float* O = ring;
+  for (int s = 0; s < nslab; ++s) {
+    acc.zero();
+    tile_product<MF, WM>(acc, H, ldh, Kp / 8, Wk + L[2], Np / 8, 0,
+                         s * SW / 8, SW / 8, ring);
+    for_acc<MF, WM>(acc, SW / 8, [&](int r, int c, float v) {
+      O[r * ldo + c] = v + b[s * SW + c];
+    });
+    __syncthreads();
+    if (save) {
+      store_rows(pre + s * SW, Np, O, ldo, SW, scr.nvalid);
+      if (!epi) __syncthreads();  // the next pass refills the ring
+    }
+    if (!epi) continue;
+    const int j0 = s * G, gs = min(G, da - j0);
+    for (int e = threadIdx.x; e < TM * gs; e += blockDim.x) {
+      const int r = e / gs, jj = e - r * gs;
+      const int idx = r * d + tgt * da + j0 + jj;
+      float el;
+      const float y =
+          spline ? spline_fwd(S[idx], O + r * ldo, G, jj, K, itf[1], inv,
+                              shift, &el)
+                 : affine_fwd(S[idx], O + r * ldo, G, jj, itf[0], inv, &el);
+      S[idx] = y;
+      if (Lel) Lel[idx] += el;
+    }
+    __syncthreads();
+  }
 }
 
 // ------------------------------------------------------------------
 // B4: replaces _fused_coupling_impl (ops/pallas/coupling.py:677-716).
-// Shared memory, in floats: S (T x d) the state, Lel (T x d) the per-element
-// ladj terms, H0 and H1 (T x ldw), the weight chunks (2 x KC x PASS).
-// Grid-stride loop over tiles of T = blockDim / 8 rows.
-__global__ void __launch_bounds__(256)
+// Shared memory, in floats: the ring (Geo::RING), S (TM x d) the state, Lel
+// (TM x d) the per-element ladj terms, H (TM x ldh). Persistent grid-stride
+// loop over tiles of TM rows.
+template <int MF, int WM>
+__global__ void __launch_bounds__(32 * ENF_WARPS, 1)
     coupling_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
                         float* __restrict__ ladj,
-                        const float* __restrict__ W,
+                        const float* __restrict__ Wk,
                         const float* __restrict__ P,
                         const __grid_constant__ CPlan plan, long long n,
-                        int d, int ldw, float shift) {
+                        int d, int ldh, float* scratch, float* svs,
+                        float shift) {
+  using Gm = Geo<MF, WM>;
+  constexpr int TM = Gm::TM;
   extern __shared__ __align__(16) float smem[];
-  const int T = blockDim.x / 8;
-  float* S = smem;
-  float* Lel = S + T * d;
-  float* H0 = Lel + T * d;
-  float* H1 = H0 + T * ldw;
-  float* wc = H1 + T * ldw;
-  const long long ntiles = (n + T - 1) / T;
+  float* ring = smem;
+  float* S = ring + Gm::RING;
+  float* Lel = S + TM * d;
+  float* H = Lel + TM * d;
+  const int da = d / 2;
+  const long long ntiles = (n + TM - 1) / TM;
   for (long long ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
-    const long long r0 = ti * T;
-    const int ns = (int)min((long long)T, n - r0);
-    for (int e = threadIdx.x; e < T * d; e += blockDim.x) {
+    const long long r0 = ti * TM;
+    const int ns = (int)min((long long)TM, n - r0);
+    const ScrRows scr{scratch, n, r0, ns};
+    for (int e = threadIdx.x; e < TM * d; e += blockDim.x) {
       S[e] = e < ns * d ? x[r0 * d + e] : 0.f;
       Lel[e] = 0.f;
     }
     __syncthreads();
-    for (int i = 0; i < plan.n_items; ++i) {
+    for (int i = 0, coff = 0; i < plan.n_items; ++i) {
       const int* it = plan.item[i];
+      if (svs) {  // the stage's input as B5's sweep keeps it
+        const bool el = it[0] == K_ELEM;
+        const int w = el ? d : da, c0 = el ? 0 : (1 - it[1]) * da;
+        float* dst = svs + n * coff + r0 * w;
+        for (int e = threadIdx.x; e < ns * w; e += blockDim.x) {
+          const int r = e / w;
+          dst[e] = S[r * d + c0 + e - r * w];
+        }
+        coff += w;
+      }
       if (it[0] == K_ELEM) {
         const int code = it[6], slot = it[7];
-        for (int e = threadIdx.x; e < T * d; e += blockDim.x) {
+        for (int e = threadIdx.x; e < TM * d; e += blockDim.x) {
           float el;
           S[e] = stage_fwd(code, S[e], P, slot, d, e % d, &el);
           Lel[e] += el;
         }
         __syncthreads();
       } else {
-        const float* h = conditioner_fwd(plan, it, S, d, H0, H1, ldw, wc, W,
-                                         nullptr, 0, 0);
-        epilogue_fwd(it, plan.itemf[i], S, S, Lel, h, ldw, T, d, shift);
+        coupling_fwd_tile<MF, WM>(plan, it, plan.itemf[i], S, Lel, d, H, ldh,
+                                  ring, Wk, scr, true, shift);
       }
     }
     for (int e = threadIdx.x; e < ns * d; e += blockDim.x) y[r0 * d + e] = S[e];
@@ -597,58 +773,68 @@ __global__ void __launch_bounds__(256)
 }
 
 // B5 (a): replaces the recompute + in-tile vjp of _fused_coupling_bwd_impl
-// (ops/pallas/coupling.py:616-674). For the `rows` rows of one chunk:
-// gx from gy (physical lane order) and gl; every conditioner layer's input
-// h_in and pre-activation cotangent g_pre into `scr` (rows x cols, the
-// columns of layer l at layer[l][4] and layer[l][5]); per-block sums of the
-// elementwise-parameter cotangents into p_part (grid, n_pslots * d).
-// Shared memory, in floats: SV what the reverse sweep needs of each stage's
-// input (an elementwise stage's whole input, T x d; a coupling's target
-// half, T x d/2: its conditioner's values are in the scratch), SC (T x d)
-// the state during the recompute and then the running cotangent, G (T) the
-// ladj cotangents, H0 and H1 (T x ldw), the weight chunks (2 x KC x PASS),
+// (ops/pallas/coupling.py:616-674). For the `rows` rows of one chunk: gx
+// from gy (physical lane order) and gl; every conditioner layer's input
+// h_in and pre-activation cotangent g_pre into the layer-major scratch; per
+// block sums of the elementwise-parameter cotangents into p_part (grid,
+// n_pslots * d). Shared memory, in floats: the ring, SV what the reverse
+// sweep needs of each stage's input (an elementwise stage's whole input,
+// TM x d; a coupling's target half, TM x d/2), SC (TM x d) the state during
+// the recompute and then the running cotangent, GL (TM) the ladj
+// cotangents, H (TM x ldh; in the reverse sweep it also holds each slab),
 // PACC (n_pslots x d).
-__global__ void __launch_bounds__(256)
+template <int MF, int WM>
+__global__ void __launch_bounds__(32 * ENF_WARPS, 1)
     coupling_bwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ gy,
                         const float* __restrict__ gl,
-                        float* __restrict__ gx, const float* __restrict__ W,
-                        const float* __restrict__ Wt,
+                        float* __restrict__ gx, const float* __restrict__ Wk,
                         const float* __restrict__ P,
                         const __grid_constant__ CPlan plan, long long rows,
-                        int d, int ldw, int n_pslots, float* scratch,
-                        long long cols, float* __restrict__ p_part,
-                        float shift) {
+                        int d, int ldh, int n_pslots, float* scratch,
+                        const float* __restrict__ svs,
+                        float* __restrict__ p_part, float shift) {
+  using Gm = Geo<MF, WM>;
+  constexpr int TM = Gm::TM;
   extern __shared__ __align__(16) float smem[];
-  const int T = blockDim.x / 8;
   const int da = d / 2;
-  const int TD = T * d;
+  const int TD = TM * d;
   const int ni = plan.n_items;
   int sv_len = 0;
-  for (int i = 0; i < ni; ++i) sv_len += plan.item[i][0] == K_ELEM ? TD : T * da;
-  float* SV = smem;
+  for (int i = 0; i < ni; ++i)
+    sv_len += plan.item[i][0] == K_ELEM ? TD : TM * da;
+  float* ring = smem;
+  float* SV = ring + Gm::RING;
   float* SC = SV + sv_len;
-  float* G = SC + TD;
-  float* H0 = G + T;
-  float* H1 = H0 + T * ldw;
-  float* wc = H1 + T * ldw;
-  float* PACC = wc + 2 * ENF_KC * ENF_PASS;
+  float* GL = SC + TD;
+  float* H = GL + TM;
+  float* PACC = H + TM * ldh;
   for (int q = threadIdx.x; q < n_pslots * d; q += blockDim.x) PACC[q] = 0.f;
+  Acc<MF> acc;
 
-  const long long ntiles = (rows + T - 1) / T;
+  const long long ntiles = (rows + TM - 1) / TM;
   for (long long ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
-    const long long r0 = ti * T;
-    const int ns = (int)min((long long)T, rows - r0);
-    float* scr = scratch + r0 * cols;
+    const long long r0 = ti * TM;
+    const int ns = (int)min((long long)TM, rows - r0);
+    const ScrRows scr{scratch, rows, r0, ns};
     for (int e = threadIdx.x; e < TD; e += blockDim.x)
       SC[e] = e < ns * d ? x[r0 * d + e] : 0.f;
-    for (int r = threadIdx.x; r < T; r += blockDim.x)
-      G[r] = r < ns ? gl[r0 + r] : 0.f;
+    for (int r = threadIdx.x; r < TM; r += blockDim.x)
+      GL[r] = r < ns ? gl[r0 + r] : 0.f;
     __syncthreads();
 
-    // Forward: what the reverse sweep needs of each stage's input saved to
-    // SV; the conditioners' rows to the scratch.
-    for (int i = 0, off = 0; i < ni; ++i) {
+    // The stage inputs B4 stored, or the forward: what the reverse sweep
+    // needs of each stage's input saved to SV, the conditioners' rows to
+    // the scratch.
+    for (int i = 0, off = 0, coff = 0; svs && i < ni; ++i) {
+      const int w = plan.item[i][0] == K_ELEM ? d : da;
+      const float* src = svs + rows * coff + r0 * w;
+      for (int e = threadIdx.x; e < TM * w; e += blockDim.x)
+        SV[off + e] = e < ns * w ? src[e] : 0.f;
+      off += TM * w;
+      coff += w;
+    }
+    for (int i = 0, off = 0; !svs && i < ni; ++i) {
       const int* it = plan.item[i];
       float* sv = SV + off;
       if (it[0] == K_ELEM) {
@@ -662,16 +848,13 @@ __global__ void __launch_bounds__(256)
         off += TD;
       } else {
         const int tgt = 1 - it[1];
-        for (int e = threadIdx.x; e < T * da; e += blockDim.x) {
+        for (int e = threadIdx.x; e < TM * da; e += blockDim.x) {
           const int r = e / da, j = e - r * da;
           sv[e] = SC[r * d + tgt * da + j];
         }
-        const float* h = conditioner_fwd(plan, it, SC, d, H0, H1, ldw, wc,
-                                         W, scr, (size_t)cols, ns);
-        if (i + 1 < ni)
-          epilogue_fwd(it, plan.itemf[i], SC, SC, nullptr, h, ldw, T, d,
-                       shift);
-        off += T * da;
+        coupling_fwd_tile<MF, WM>(plan, it, plan.itemf[i], SC, nullptr, d, H,
+                                  ldh, ring, Wk, scr, i + 1 < ni, shift);
+        off += TM * da;
       }
     }
 
@@ -683,79 +866,113 @@ __global__ void __launch_bounds__(256)
     // Reverse sweep of the hand-derived adjoints.
     for (int i = ni - 1, off = sv_len; i >= 0; --i) {
       const int* it = plan.item[i];
-      off -= it[0] == K_ELEM ? TD : T * da;
+      off -= it[0] == K_ELEM ? TD : TM * da;
       const float* cur = SV + off;
       if (it[0] == K_ELEM) {
         // One thread per lane, rows in order: each PACC entry has one owner.
         const int code = it[6], slot = it[7], np = n_params(code);
         for (int k = threadIdx.x; k < d; k += blockDim.x) {
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          float a4[4] = {0.f, 0.f, 0.f, 0.f};
           for (int r = 0; r < ns; ++r) {
             float g[4];
             CY[r * d + k] = stage_bwd(code, cur[r * d + k], P, slot, d, k,
-                                      CY[r * d + k], G[r], g);
-            for (int q = 0; q < np; ++q) acc[q] += g[q];
+                                      CY[r * d + k], GL[r], g);
+            for (int q = 0; q < np; ++q) a4[q] += g[q];
           }
-          for (int q = 0; q < np; ++q) PACC[(slot + q) * d + k] += acc[q];
+          for (int q = 0; q < np; ++q) PACC[(slot + q) * d + k] += a4[q];
         }
         __syncthreads();
         continue;
       }
       const int src = it[1], tgt = 1 - src, act = it[3], nl = it[4],
-                l0 = it[5], K = it[8];
+                l0 = it[5], K = it[8], G = it[9], SW = it[10],
+                nslab = it[11];
       const bool inv = it[2] != 0, spline = it[0] == K_SPLINE;
-      // The conditioner output (last layer's pre-activation) from the
-      // scratch into H0.
-      {
-        const int* L = plan.layer[l0 + nl - 1];
-        const int N = L[1], col = L[5];
-        for (int e = threadIdx.x; e < T * N; e += blockDim.x) {
-          const int r = e / N, c = e - r * N;
-          H0[r * ldw + c] = r < ns ? scr[r * cols + col + c] : 0.f;
+      const int ldo = SW + 4;
+      const int* LL = plan.layer[l0 + nl - 1];
+      const int KpL = LL[0], NpL = LL[1];
+      float* gL = scr.at(LL[5] + KpL, NpL);
+      float* O = H;
+      // Each slab: the conditioner output from the scratch, the adjoint in
+      // place, its cotangent back to the scratch in f32 (db sums it).
+      for (int s = 0; s < nslab; ++s) {
+        load_rows<TM>(O, ldo, gL + s * SW, NpL, SW, ns);
+        const int j0 = s * G, gs = min(G, da - j0);
+        for (int e = threadIdx.x; e < TM * gs; e += blockDim.x) {
+          const int r = e / gs, jj = e - r * gs;
+          const int idx = r * d + tgt * da + j0 + jj;
+          float* h = O + r * ldo;
+          const float xv = cur[r * da + j0 + jj];
+          CY[idx] = spline ? spline_bwd(xv, h, G, jj, K, plan.itemf[i][1],
+                                        inv, shift, CY[idx], GL[r], h)
+                           : affine_bwd(xv, h, G, jj, plan.itemf[i][0], inv,
+                                        CY[idx], GL[r], h);
         }
+        __syncthreads();
+        store_rows(gL + s * SW, NpL, O, ldo, SW, ns);
+        __syncthreads();
       }
-      __syncthreads();
-      for (int e = threadIdx.x; e < T * da; e += blockDim.x) {
-        const int r = e / da, j = e - r * da;
-        const int idx = r * d + tgt * da + j;
-        const float* h = H0 + r * ldw;
-        float* gh = H1 + r * ldw;
-        CY[idx] = spline ? spline_bwd(cur[e], h, da, j, K,
-                                      plan.itemf[i][1], inv, shift, CY[idx],
-                                      G[r], gh)
-                         : affine_bwd(cur[e], h, da, j, plan.itemf[i][0],
-                                      inv, CY[idx], G[r], gh);
-      }
-      __syncthreads();
-      // Back through the layers: g (T x N_l) holds g_pre of layer l.
-      float* g = H1;
-      float* o = H0;
-      for (int l = nl - 1; l >= 0; --l) {
-        const int* L = plan.layer[l0 + l];
-        const int Kl = L[0], Nl = L[1];
-        for (int e = threadIdx.x; e < ns * Nl; e += blockDim.x) {
-          const int r = e / Nl, c = e - r * Nl;
-          scr[r * cols + L[5] + c] = g[r * ldw + c];
+      // dh = g_pre W^T of the last layer, accumulated over the slabs, on
+      // g_pre rounded to TF32 (tile_product's first barrier orders it).
+      acc.zero();
+      for (int s = 0; s < nslab; ++s) {
+        load_rows<TM>(O, ldo, gL + s * SW, NpL, SW, ns);
+        for (int e = threadIdx.x; e < TM * SW; e += blockDim.x) {
+          const int r = e / SW, c = e - r * SW;
+          O[r * ldo + c] = tf32r(O[r * ldo + c]);
         }
-        tile_matmul(g, ldw, Nl, Wt + L[3], nullptr, Kl, o, ldw, -1, wc,
-                    nullptr, nullptr, 0, 0);
-        if (l > 0) {
-          const int pcol = plan.layer[l0 + l - 1][5];
-          for (int e = threadIdx.x; e < T * Kl; e += blockDim.x) {
-            const int r = e / Kl, c = e - r * Kl;
-            const float pre = r < ns ? scr[r * cols + pcol + c] : 0.f;
-            o[r * ldw + c] = act_bwd(act, pre, o[r * ldw + c]);
+        tile_product<MF, WM>(acc, O, ldo, SW / 8, Wk + LL[3], KpL / 8,
+                             s * SW / 8, 0, KpL / 8, ring);
+      }
+      // Down the layers: acc holds the cotangent of layer l's input.
+      for (int l = nl - 1;; --l) {
+        const int Kp = plan.layer[l0 + l][0];
+        if (l == 0) {
+          for_acc<MF, WM>(acc, Kp / 8, [&](int r, int c, float v) {
+            if (c < da) CY[r * d + src * da + c] += v;
+          });
+          __syncthreads();
+          break;
+        }
+        const int* Lp = plan.layer[l0 + l - 1];  // its Np is Kp
+        float* gp = scr.at(Lp[5] + Lp[0], Kp);   // its pre-activation
+        // The cotangent into H, then the adjoint in a pass over H with the
+        // accumulators dead, reading the pre-activation in 16-byte loads,
+        // four per thread in flight; g_pre over it in the scratch in f32,
+        // and rounded to TF32 into H for the product.
+        for_acc<MF, WM>(acc, Kp / 8,
+                        [&](int r, int c, float v) { H[r * ldh + c] = v; });
+        __syncthreads();
+        const int q = Kp / 4, total = TM * q;
+        for (int i0 = threadIdx.x; i0 < total; i0 += 4 * blockDim.x) {
+          float4 p[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int i = i0 + u * blockDim.x, r = i / q, c = (i - r * q) * 4;
+            p[u] = i < total && r < ns
+                       ? __ldcg(reinterpret_cast<const float4*>(
+                             gp + (size_t)r * Kp + c))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
           }
-        } else {
-          for (int e = threadIdx.x; e < T * da; e += blockDim.x) {
-            const int r = e / da, c = e - r * da;
-            CY[r * d + src * da + c] += o[r * ldw + c];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int i = i0 + u * blockDim.x, r = i / q, c = (i - r * q) * 4;
+            if (i >= total) break;
+            float4* h = reinterpret_cast<float4*>(H + r * ldh + c);
+            float4 g = *h;
+            g.x = act_bwd(act, p[u].x, g.x);
+            g.y = act_bwd(act, p[u].y, g.y);
+            g.z = act_bwd(act, p[u].z, g.z);
+            g.w = act_bwd(act, p[u].w, g.w);
+            if (r < ns)
+              *reinterpret_cast<float4*>(gp + (size_t)r * Kp + c) = g;
+            *h = make_float4(tf32r(g.x), tf32r(g.y), tf32r(g.z), tf32r(g.w));
           }
         }
         __syncthreads();
-        float* sw = g;
-        g = o;
-        o = sw;
+        acc.zero();
+        tile_product<MF, WM>(acc, H, ldh, Kp / 8, Wk + Lp[3], Lp[0] / 8, 0, 0,
+                             Lp[0] / 8, ring);
       }
     }
 
@@ -766,76 +983,118 @@ __global__ void __launch_bounds__(256)
     p_part[(size_t)blockIdx.x * n_pslots * d + q] = PACC[q];
 }
 
-// B5 (b): dW = sum_r h_in[r]^T g_pre[r] and db = sum_r g_pre[r] for every
-// layer, over the `rows` scratch rows of one chunk, split into nsplit fixed
-// row ranges (blockIdx.y). A block owns a 64 x 64 tile of a layer's
-// (K + 1) x N block (row K is the bias, whose input is 1), and writes it to
-// w_part[split * w_len + W offset + k * N + n]: the same flat layout as the
-// weights, since each bias follows its W. Each thread holds a 4 x 4 tile.
+// B5 (b): dW = sum_r h_in[r]^T g_pre[r] on the tensor cores and db =
+// sum_r g_pre[r] for every layer, over the `rows` scratch rows of one
+// chunk, split into nsplit fixed row ranges (blockIdx.y). A block owns a
+// 128 x 128 tile of a layer's (Kp, Np) dW; 8 warps of 64 x 32 (4 x 4 m16n8
+// tiles). 32 rows of h_in and of g_pre per ring stage (3 stages, 16-byte
+// cp.async, rows of 136 floats so both fragments read conflict-free). h_in
+// is TF32 already; g_pre is f32 and rounded as its fragments are read, so
+// that the blocks of the first row of tiles sum it in f32 for db.
+// Writes w_part[split * w_len + natural offset + k * Np + n], b after W.
+// blockIdx.x runs over the tiles of every layer, so the blocks resident
+// together are the tiles of one split, which stream the same rows.
 __global__ void __launch_bounds__(256)
-    coupling_dw_kernel(const float* __restrict__ scratch, long long cols,
+    coupling_dw_kernel(const float* __restrict__ scratch,
                        const __grid_constant__ CPlan plan, long long rows,
                        int nsplit, float* __restrict__ w_part,
                        long long w_len) {
-  __shared__ float A[ENF_DW_RB][ENF_DW_TILE];
-  __shared__ float B[ENF_DW_RB][ENF_DW_TILE];
-  int t = blockIdx.x, l = 0, tn_count = 1;
+  extern __shared__ __align__(16) float sm[];
+  constexpr int LD = ENF_DW_LD, RB = ENF_DW_RB;
+  constexpr int STAGE = 2 * RB * LD;
+  int t = blockIdx.x, l = 0, tn = 1;
   for (; l < plan.n_layers; ++l) {
-    const int K = plan.layer[l][0], N = plan.layer[l][1];
-    tn_count = (N + ENF_DW_TILE - 1) / ENF_DW_TILE;
-    const int tiles = (K + 1 + ENF_DW_TILE - 1) / ENF_DW_TILE * tn_count;
+    const int Kp = plan.layer[l][0], Np = plan.layer[l][1];
+    tn = (Np + ENF_DW_TILE - 1) / ENF_DW_TILE;
+    const int tiles = (Kp + ENF_DW_TILE - 1) / ENF_DW_TILE * tn;
     if (t < tiles) break;
     t -= tiles;
   }
   if (l >= plan.n_layers) return;
   const int* L = plan.layer[l];
-  const int K = L[0], N = L[1], woff = L[2], chin = L[4], cg = L[5];
-  const int k0 = (t / tn_count) * ENF_DW_TILE;
-  const int n0 = (t % tn_count) * ENF_DW_TILE;
+  const int Kp = L[0], Np = L[1];
+  const int m0 = (t / tn) * ENF_DW_TILE, n0 = (t % tn) * ENF_DW_TILE;
+  const float* hin = scratch + rows * L[5];
+  const float* gp = scratch + rows * (L[5] + Kp);
   const int s = blockIdx.y;
   const long long rb = rows * s / nsplit, re = rows * (s + 1) / nsplit;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
+  const bool bias = m0 == 0 && threadIdx.x < ENF_DW_TILE;
+  const long long nst = (re - rb + RB - 1) / RB;
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
-  for (long long r = rb; r < re; r += ENF_DW_RB) {
-    for (int i = threadIdx.x; i < ENF_DW_RB * ENF_DW_TILE; i += blockDim.x) {
-      const int rr = i / ENF_DW_TILE, c = i % ENF_DW_TILE;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  float colsum = 0.f;
+  auto load = [&](long long st) {
+    float* As = sm + (st % ENF_RING) * STAGE;
+    float* Bs = As + RB * LD;
+    const long long r = rb + st * RB;
+    for (int i = threadIdx.x; i < RB * 32; i += blockDim.x) {
+      const int rr = i >> 5, c = (i & 31) * 4;
       const long long row = r + rr;
       const bool ok = row < re;
-      const int k = k0 + c, nn = n0 + c;
-      const float* srow = scratch + row * cols;
-      A[rr][c] = ok ? (k < K ? srow[chin + k] : (k == K ? 1.f : 0.f)) : 0.f;
-      B[rr][c] = ok && nn < N ? srow[cg + nn] : 0.f;
+      const bool ka = ok && m0 + c < Kp, kb = ok && n0 + c < Np;
+      cp_async16(As + rr * LD + c, ka ? hin + row * Kp + m0 + c : hin,
+                 ka ? 16 : 0);
+      cp_async16(Bs + rr * LD + c, kb ? gp + row * Np + n0 + c : gp,
+                 kb ? 16 : 0);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < ENF_DW_RB; ++rr) {
-      float a[4], b[4];
+  };
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[rr][ty + 16 * i];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) b[jj] = B[rr][tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(a[i], b[jj], acc[i][jj]);
-    }
-    __syncthreads();
+  for (int st = 0; st < ENF_RING - 1; ++st) {
+    if (st < nst) load(st);
+    cp_async_commit();
   }
-  float* out = w_part + (size_t)s * w_len + woff;
+  for (long long st = 0; st < nst; ++st) {
+    cp_async_wait<ENF_RING - 2>();
+    __syncthreads();
+    if (st + ENF_RING - 1 < nst) load(st + ENF_RING - 1);
+    cp_async_commit();
+    const float* As = sm + (st % ENF_RING) * STAGE;
+    const float* Bs = As + RB * LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty + 16 * i;
-    if (k > K) continue;
+    for (int ks = 0; ks < RB; ks += 8) {
+      const float* a0 = As + (ks + tq) * LD + wm * 64 + g;
+      const float* a4 = a0 + 4 * LD;
+      const float* b0 = Bs + (ks + tq) * LD + wn * 32 + g;
+      const float* b4 = b0 + 4 * LD;
+      unsigned a[4][4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int nn = n0 + tx + 16 * jj;
-      if (nn < N) out[(size_t)k * N + nn] = acc[i][jj];
+      for (int i = 0; i < 4; ++i) {
+        a[i][0] = __float_as_uint(a0[i * 16]);
+        a[i][1] = __float_as_uint(a0[i * 16 + 8]);
+        a[i][2] = __float_as_uint(a4[i * 16]);
+        a[i][3] = __float_as_uint(a4[i * 16 + 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float bx = tf32r(b0[j * 8]), by = tf32r(b4[j * 8]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], a[i], bx, by);
+      }
     }
+    if (bias)
+      for (int rr = 0; rr < RB; ++rr) colsum += Bs[rr * LD + threadIdx.x];
   }
+  cp_async_wait<0>();
+  float* out = w_part + (size_t)s * w_len + L[6];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + wm * 64 + i * 16 + g + (q >> 1) * 8;
+        const int nn = n0 + wn * 32 + j * 8 + 2 * tq + (q & 1);
+        if (m < Kp && nn < Np) out[(size_t)m * Np + nn] = acc[i][j][q];
+      }
+  if (bias && n0 + (int)threadIdx.x < Np)
+    out[(size_t)Kp * Np + n0 + threadIdx.x] = colsum;
 }
 
 // ------------------------------------------------------------------
@@ -845,97 +1104,161 @@ __global__ void __launch_bounds__(256)
 
 static int make_cplan(CPlan* p, const int* si, const float* sf, int n_items,
                       const int* li, int n_layers) {
-  if (n_items < 1 || n_items > ENF_CMAX_STAGES || n_layers < 0 ||
+  if (n_items < 1 || n_items > ENF_CMAX_STAGES || n_layers < 1 ||
       n_layers > ENF_CMAX_LAYERS)
     return 1;
   *p = CPlan{};
   p->n_items = n_items;
   p->n_layers = n_layers;
+  for (int l = 0; l < n_layers; ++l) {
+    for (int f = 0; f < 7; ++f) p->layer[l][f] = li[l * 7 + f];
+    if (p->layer[l][0] < 8 || p->layer[l][0] % 8 || p->layer[l][1] < 8 ||
+        p->layer[l][1] % 8)
+      return 1;
+  }
   for (int i = 0; i < n_items; ++i) {
-    for (int f = 0; f < 9; ++f) p->item[i][f] = si[i * 9 + f];
+    for (int f = 0; f < 12; ++f) p->item[i][f] = si[i * 12 + f];
     p->itemf[i][0] = sf[i * 2];
     p->itemf[i][1] = sf[i * 2 + 1];
     const int* it = p->item[i];
-    if (it[0] != K_ELEM && (it[4] < 1 || it[5] < 0 || it[5] + it[4] > n_layers))
+    if (it[0] != K_ELEM &&
+        (it[4] < 1 || it[5] < 0 || it[5] + it[4] > n_layers || it[9] < 1 ||
+         it[10] < 8 || it[10] % 8 || it[11] < 1 ||
+         it[10] * it[11] != p->layer[it[5] + it[4] - 1][1]))
       return 1;
   }
-  for (int l = 0; l < n_layers; ++l)
-    for (int f = 0; f < 6; ++f) p->layer[l][f] = li[l * 6 + f];
   return 0;
 }
 
-static bool block_ok(int warps) {
-  return warps == 2 || warps == 4 || warps == 8;
+// Whether the row tile takes the plan: every layer input and hidden output
+// within one pass, every slab within the ring and the activation buffer.
+template <int MF, int WM>
+static bool tile_ok(const CPlan& p, int d, int ldh) {
+  using G = Geo<MF, WM>;
+  if (d < 2 || d % 2 || ldh % 8 != 4) return false;
+  for (int i = 0; i < p.n_items; ++i) {
+    const int* it = p.item[i];
+    if (it[0] == K_ELEM) continue;
+    if (p.layer[it[5]][0] < d / 2) return false;
+    if (G::TM * (it[10] + 4) > G::RING || it[10] + 4 > ldh) return false;
+    for (int l = it[5]; l < it[5] + it[4]; ++l) {
+      if (p.layer[l][0] > G::PASS || p.layer[l][0] + 4 > ldh) return false;
+      if (l + 1 < it[5] + it[4] &&
+          (p.layer[l][1] > G::PASS || p.layer[l][1] != p.layer[l + 1][0]))
+        return false;
+    }
+  }
+  return true;
 }
 
-extern "C" int enf_coupling_fwd(const float* x, float* y, float* ladj,
-                                const float* W, const float* P,
-                                const int* si, const float* sf, int n_items,
-                                const int* li, int n_layers, long long n,
-                                int d, int ldw, int warps, int smem, int grid,
-                                float shift, void* stream) {
-  CPlan plan;
-  if (make_cplan(&plan, si, sf, n_items, li, n_layers) || !block_ok(warps) ||
-      d < 2 || d % 2)
-    return (int)cudaErrorInvalidValue;
-  const int T = 4 * warps;
+template <int MF, int WM>
+static int launch_fwd(const float* x, float* y, float* ladj, const float* Wk,
+                      const float* P, const CPlan& plan, long long n, int d,
+                      int ldh, float* scratch, float* svs, int smem, int grid,
+                      float shift, cudaStream_t stream) {
+  using G = Geo<MF, WM>;
   const long long need =
-      4LL * ((long long)T * (2 * d + 2 * ldw) + 2 * ENF_KC * ENF_PASS);
-  if (need > smem) return (int)cudaErrorInvalidValue;
+      4LL * (G::RING + (long long)G::TM * (2 * d + ldh));
+  if (!tile_ok<MF, WM>(plan, d, ldh) || need > smem)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      coupling_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      coupling_fwd_kernel<MF, WM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  coupling_fwd_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
-      x, y, ladj, W, P, plan, n, d, ldw, shift);
+  coupling_fwd_kernel<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
+      x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs, shift);
   return (int)cudaGetLastError();
 }
 
-extern "C" int enf_coupling_bwd(const float* x, const float* gy,
-                                const float* gl, float* gx, const float* W,
-                                const float* Wt, const float* P,
+extern "C" int enf_coupling_fwd(const float* x, float* y, float* ladj,
+                                const float* Wk, const float* P,
                                 const int* si, const float* sf, int n_items,
-                                const int* li, int n_layers, long long rows,
-                                int d, int ldw, int warps, int smem, int grid,
-                                int n_pslots, float* scratch, long long cols,
-                                float* p_part, float shift, void* stream) {
+                                const int* li, int n_layers, long long n,
+                                int d, int ldh, int tm, float* scratch,
+                                float* svs, int smem, int grid, float shift,
+                                void* stream) {
   CPlan plan;
-  if (make_cplan(&plan, si, sf, n_items, li, n_layers) || !block_ok(warps) ||
-      d < 2 || d % 2)
+  if (make_cplan(&plan, si, sf, n_items, li, n_layers))
     return (int)cudaErrorInvalidValue;
-  const int T = 4 * warps;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tm == 64)
+    return launch_fwd<2, 2>(x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs,
+                            smem, grid, shift, s);
+  if (tm == 16)
+    return launch_fwd<1, 1>(x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs,
+                            smem, grid, shift, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int MF, int WM>
+static int launch_bwd(const float* x, const float* gy, const float* gl,
+                      float* gx, const float* Wk, const float* P,
+                      const CPlan& plan, long long rows, int d, int ldh,
+                      int smem, int grid, int n_pslots, float* scratch,
+                      const float* svs, float* p_part, float shift,
+                      cudaStream_t stream) {
+  using G = Geo<MF, WM>;
   long long sv_row = 0;  // floats of SV per row
-  for (int i = 0; i < n_items; ++i)
+  for (int i = 0; i < plan.n_items; ++i)
     sv_row += plan.item[i][0] == K_ELEM ? d : d / 2;
   const long long need =
-      4LL * ((long long)T * (sv_row + d + 1 + 2 * ldw) +
-             2 * ENF_KC * ENF_PASS + (long long)n_pslots * d);
-  if (need > smem) return (int)cudaErrorInvalidValue;
+      4LL * (G::RING + (long long)G::TM * (sv_row + d + 1 + ldh) +
+             (long long)n_pslots * d);
+  if (!tile_ok<MF, WM>(plan, d, ldh) || need > smem)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      coupling_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      coupling_bwd_kernel<MF, WM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  coupling_bwd_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
-      x, gy, gl, gx, W, Wt, P, plan, rows, d, ldw, n_pslots, scratch, cols,
+  coupling_bwd_kernel<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
+      x, gy, gl, gx, Wk, P, plan, rows, d, ldh, n_pslots, scratch, svs,
       p_part, shift);
   return (int)cudaGetLastError();
 }
 
-extern "C" int enf_coupling_dw(const float* scratch, long long cols,
-                               const int* li, int n_layers, long long rows,
-                               int nsplit, float* w_part, long long w_len,
+extern "C" int enf_coupling_bwd(const float* x, const float* gy,
+                                const float* gl, float* gx, const float* Wk,
+                                const float* P, const int* si,
+                                const float* sf, int n_items, const int* li,
+                                int n_layers, long long rows, int d, int ldh,
+                                int tm, int smem, int grid, int n_pslots,
+                                float* scratch, const float* svs,
+                                float* p_part, float shift, void* stream) {
+  CPlan plan;
+  if (make_cplan(&plan, si, sf, n_items, li, n_layers))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tm == 64)
+    return launch_bwd<2, 2>(x, gy, gl, gx, Wk, P, plan, rows, d, ldh, smem,
+                            grid, n_pslots, scratch, svs, p_part, shift, s);
+  if (tm == 16)
+    return launch_bwd<1, 1>(x, gy, gl, gx, Wk, P, plan, rows, d, ldh, smem,
+                            grid, n_pslots, scratch, svs, p_part, shift, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int enf_coupling_dw(const float* scratch, const int* li,
+                               int n_layers, long long rows, int nsplit,
+                               float* w_part, long long w_len, int smem,
                                void* stream) {
   CPlan plan = CPlan{};
-  if (n_layers < 1 || n_layers > ENF_CMAX_LAYERS || nsplit < 1)
+  if (n_layers < 1 || n_layers > ENF_CMAX_LAYERS || nsplit < 1 ||
+      smem < 4 * ENF_RING * 2 * ENF_DW_RB * ENF_DW_LD)
     return (int)cudaErrorInvalidValue;
   plan.n_layers = n_layers;
   int tiles = 0;
   for (int l = 0; l < n_layers; ++l) {
-    for (int f = 0; f < 6; ++f) plan.layer[l][f] = li[l * 6 + f];
-    const int K = plan.layer[l][0], N = plan.layer[l][1];
-    tiles += (K + ENF_DW_TILE) / ENF_DW_TILE *
-             ((N + ENF_DW_TILE - 1) / ENF_DW_TILE);
+    for (int f = 0; f < 7; ++f) plan.layer[l][f] = li[l * 7 + f];
+    const int Kp = plan.layer[l][0], Np = plan.layer[l][1];
+    if (Kp % 8 || Np % 8) return (int)cudaErrorInvalidValue;
+    tiles += (Kp + ENF_DW_TILE - 1) / ENF_DW_TILE *
+             ((Np + ENF_DW_TILE - 1) / ENF_DW_TILE);
   }
+  cudaError_t err = cudaFuncSetAttribute(
+      coupling_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(tiles, nsplit);
-  coupling_dw_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      scratch, cols, plan, rows, nsplit, w_part, w_len);
+  coupling_dw_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
+      scratch, plan, rows, nsplit, w_part, w_len);
   return (int)cudaGetLastError();
 }

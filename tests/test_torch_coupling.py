@@ -238,6 +238,44 @@ def test_gradients_match_jax(kind):
                                    atol=GRAD_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("padded", [False, True])
+def test_fused_plan_matches_jax_where_slabs_split(padded):
+    """The fused coupling plan at d=40 with K=8 bins, where the last layer
+    is lane-grouped into slabs of 8, 8 and 4 half-lanes: the plain version
+    through the plan (``padded``: through the kernels' padded plan) against
+    JAX's jnp forward and gradients, float64."""
+    from enflows_tpu_torch.ops import coupling as TC
+
+    dim = 40
+    jc = _perturb(jax_spline_stack(_key(30), dim, 2, (24,), n_bins=8,
+                                   bound=3.0, dtype=F64), seed=31, scale=0.05)
+    tc = from_jax(jc, device="cpu")
+    st = TC._stack_structure(tc, dim)
+    assert TC._padded(st).slabs[0] == (8, 184, 3)
+    x = _spline_inputs(np.random.default_rng(32), 100, dim, bound=3.0)
+
+    def jloss(c, xx):
+        y, l = c.forward_and_ladj(xx)
+        return jnp.sum(jnp.sin(y)) + jnp.sum(l * l)
+
+    yj, lj = _jfwd(jc, jnp.asarray(x))
+    gc, gxj = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jc, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wbuf, pbuf = TC._stack_plan(tc, st, torch.float64, "cpu")
+    y, l = TC.coupling_forward_plain(st, wbuf, pbuf, xt, padded=padded)
+    y = y[:, list(st.out_map)]
+    _close(y, yj)
+    _close(l, lj)
+    params = dict(tc.named_parameters())
+    gs = torch.autograd.grad(torch.sin(y).sum() + (l * l).sum(),
+                             [xt, *params.values()])
+    _close(gs[0], gxj, GRAD_TOL)
+    for (name, g), gj in zip(zip(params, gs[1:]),
+                             _leaves_by_name(gc, tc).values()):
+        np.testing.assert_allclose(_np(g), _np(gj), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+
+
 def test_inverses_share_parameters():
     tc = from_jax(_mixed_chain(6), device="cpu")
     inv = tc.inverse()

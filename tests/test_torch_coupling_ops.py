@@ -2,20 +2,25 @@
 
 On a CPU tensor ``fused_coupling_forward_and_ladj`` runs its plain version
 through the same plan as the kernels (Permutes absorbed into the
-conditioner weights, elementwise parameters per physical lane, the spline
-output in slab layout). It is held in float32 against JAX's jnp path, and in
-two tests against JAX's Pallas kernel in interpret mode, at the tolerances
-of tests/test_coupling.py: y 3e-5, ladj 3e-4 (rtol = atol), gradients 2e-4.
+conditioner weights, elementwise parameters per physical lane, the last
+layer's columns lane-grouped). It is held in float32 against JAX's jnp
+path, and in two tests against JAX's Pallas kernel in interpret mode, at
+the tolerances of tests/test_coupling.py: y 3e-5, ladj 3e-4 (rtol = atol),
+gradients 2e-4.
 A parameter gradient is a sum over the batch whose f32 rounding in either
 framework scales with its largest entries (up to ~800 here), so each leaf
 is held within 2e-4 * (1 + max|g_jax|); gx is held elementwise.
 
 The CUDA kernels cannot run here. What they compute beyond the plan is
-checked instead: the hand-derived adjoints that csrc/coupling.cu implements
-(``_adjoint_*``) against autograd in float64, and a pure-torch replay of
-B5's algorithm (tiles, stored stage inputs, the scratch of layer inputs and
-pre-activations, the reverse sweep, the chunked and split weight-gradient
-reduction) against autograd of the plain path.
+checked instead: the kernels' padded plan (K and N padded to multiples of
+8, padded last-layer slabs) against the plan in float64 to 1e-12, its
+packing into the B-fragment order of the TF32 tensor-core product, the
+hand-derived adjoints that csrc/coupling.cu implements (``_adjoint_*``)
+against autograd in float64, and a pure-torch replay of B5's algorithm on
+the padded plan (tiles, stored stage inputs, the layer-major scratch of
+layer inputs and pre-activations, the slab-by-slab reverse sweep, the
+chunked and split weight-gradient reduction and its gather back onto the
+plan) against autograd of the plain path.
 """
 import os
 import subprocess
@@ -279,53 +284,100 @@ def test_epilogue_adjoints(kind, inverted):
 
 
 # ------------------------------------------------------------------
-# A pure-torch replay of csrc/coupling.cu's B5.
+# The kernels' padded plan, and a pure-torch replay of csrc/coupling.cu's B5
+# on it.
+
+def _ragged_stack(kind):
+    """float64 torch stacks whose last layer runs in several slabs, the last
+    one narrower: a K=8 spline at d=40 (G=8: slabs of 8, 8 and 4 half-lanes)
+    and an affine one at d=200 (G=92: 92 and 8)."""
+    g = torch.Generator().manual_seed(7)
+    if kind == "ragged spline":
+        c = et.spline_coupling_stack(g, 40, 2, (24,), n_bins=8, bound=3.0,
+                                     activation="relu", device="cpu")
+    else:
+        c = et.coupling_stack(g, 200, 2, (12,), device="cpu")
+    c = c.double()
+    with torch.no_grad():
+        for p in c.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g,
+                                      dtype=torch.float64))
+    return c
+
+
+def _stack64(kind, inverted=False):
+    """(torch stack in float64, d) for the plan tests."""
+    if kind.startswith("ragged"):
+        c = _ragged_stack(kind)
+        d = 40 if kind == "ragged spline" else 200
+    else:
+        c = from_jax(_jax_stack(kind, dtype=jnp.float64), device="cpu")
+        d = DIM
+    return (c.inverse() if inverted else c), d
+
+
+def _slab_index(G, P, gs):
+    """Columns of a padded slab in the plain epilogues' layout for its gs
+    half-lanes: parameter p of lane jj at p * G + jj."""
+    return [p * G + jj for p in range(P) for jj in range(gs)]
+
 
 def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=8, chunk=50, nsplit=3):
-    """(gx, wbuf cotangent, pbuf cotangent) the way B5 computes them:
-    per chunk of rows, per tile, the forward with every stage's input kept
-    and every conditioner layer's input and pre-activation written to a
-    scratch; the reverse sweep of the hand-derived adjoints, overwriting
-    each pre-activation with its cotangent; then per layer dW = h_in^T
-    g_pre and db = sum g_pre over `nsplit` fixed row ranges of the chunk,
-    and the partials summed in order."""
+    """(gx, wbuf cotangent, pbuf cotangent) the way B5 computes them on the
+    padded plan: per chunk of rows, per tile, the forward with every stage's
+    input kept and every padded layer's input and pre-activation written to
+    a layer-major scratch, the last layer slab by slab; the reverse sweep of
+    the hand-derived adjoints slab by slab, overwriting each pre-activation
+    with its cotangent; then per layer dW = h_in^T g_pre and db = sum g_pre
+    over `nsplit` fixed row ranges of the chunk in the padded layout, the
+    partials summed in order and gathered back onto the plan."""
     d = st.dim
     da = d // 2
+    pp = TC._padded(st)
+    wn = TC._padded_buffer(st, wbuf)
     n = x.shape[0]
     P = pbuf.view(-1, d) if pbuf.numel() else pbuf
     gx = torch.empty_like(x)
-    gw = torch.zeros_like(wbuf)
+    gnat = torch.zeros(pp.nat_len, dtype=x.dtype)
     gp = torch.zeros_like(pbuf).view(-1, d) if pbuf.numel() else pbuf
     for c0 in range(0, n, chunk):
         rows = min(chunk, n - c0)
-        h_in = [torch.zeros(rows, K, dtype=x.dtype) for K, _ in st.layers]
-        g_pre = [torch.zeros(rows, N, dtype=x.dtype) for _, N in st.layers]
+        h_in = [torch.zeros(rows, Kp, dtype=x.dtype) for Kp, _ in pp.kn]
+        g_pre = [torch.zeros(rows, Np, dtype=x.dtype) for _, Np in pp.kn]
         for r0 in range(0, rows, tile):
             sl = slice(c0 + r0, c0 + min(rows, r0 + tile))
             rs = slice(r0, min(rows, r0 + tile))
             ins = [x[sl]]
-            for it in st.items:          # forward, inputs kept
+            for i, it in enumerate(st.items):      # forward, inputs kept
                 t = ins[-1]
                 if it.kind == "elem":
                     ps = P[it.slot:it.slot + TC._N_PARAMS[it.code]]
                     ins.append(TC._APPLY[TC._BY_CODE[it.code]](t, *ps)[0])
                     continue
-                h = t[:, it.src * da:(it.src + 1) * da]
+                h = torch.nn.functional.pad(
+                    t[:, it.src * da:(it.src + 1) * da],
+                    (0, pp.kn[it.layer0][0] - da))
                 for li in range(it.n_layers):
-                    W, b = TC._layer(st, wbuf, it.layer0 + li)
+                    W, b = TC._layer(st, wn, it.layer0 + li, pp)
                     h_in[it.layer0 + li][rs] = h
                     h = h @ W + b
                     g_pre[it.layer0 + li][rs] = h       # pre-activation
                     if li + 1 < it.n_layers:
                         h = TC.ACTIVATIONS[it.act](h)
                 tgt = slice((1 - it.src) * da, (2 - it.src) * da)
-                epi = TC._affine_epilogue if it.kind == "affine" else \
-                    lambda xx, hh, *a: TC._spline_epilogue(
-                        xx, hh, da, it.n_bins, it.bound, it.inverted)
-                new, _ = (epi(t[:, tgt], h, da, it.mls, it.inverted)
-                          if it.kind == "affine" else epi(t[:, tgt], h))
+                G, sw, n_slabs = pp.slabs[i]
                 out = t.clone()
-                out[:, tgt] = new
+                for s in range(n_slabs):               # epilogue per slab
+                    j0, gs = s * G, min(G, da - s * G)
+                    hs = h[:, [s * sw + c for c in _slab_index(
+                        G, TC._n_params(it), gs)]]
+                    xs = t[:, tgt][:, j0:j0 + gs]
+                    new, _ = (TC._affine_epilogue(xs, hs, gs, it.mls,
+                                                  it.inverted)
+                              if it.kind == "affine" else
+                              TC._spline_epilogue(xs, hs, gs, it.n_bins,
+                                                  it.bound, it.inverted))
+                    out[:, tgt.start + j0:tgt.start + j0 + gs] = new
                 ins.append(out)
             cy = gy[sl].clone()
             ce = gl[sl, None]
@@ -334,57 +386,67 @@ def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=8, chunk=50, nsplit=3):
                 if it.kind == "elem":
                     kind = TC._BY_CODE[it.code]
                     ps = P[it.slot:it.slot + TC._N_PARAMS[it.code]]
-                    cy, gs = TE._ADJOINT[kind](t, *ps, cy, ce.expand_as(cy))
-                    for q, g in enumerate(gs):
+                    cy, gs_ = TE._ADJOINT[kind](t, *ps, cy, ce.expand_as(cy))
+                    for q, g in enumerate(gs_):
                         gp[it.slot + q] += g.expand_as(cy).sum(0)
                     continue
                 src = slice(it.src * da, (it.src + 1) * da)
                 tgt = slice((1 - it.src) * da, (2 - it.src) * da)
                 last = it.layer0 + it.n_layers - 1
-                h = g_pre[last][rs].clone()
-                ce_el = ce.expand(-1, da)
-                if it.kind == "affine":
-                    cx, g = TC._adjoint_affine(t[:, tgt], h, da, it.mls,
-                                               it.inverted, cy[:, tgt], ce_el)
-                else:
-                    cx, g = TC._adjoint_spline(t[:, tgt], h, da, it.n_bins,
-                                               it.bound, it.inverted,
-                                               cy[:, tgt], ce_el)
+                G, sw, n_slabs = pp.slabs[i]
+                g = torch.zeros_like(g_pre[last][rs])
                 cy = cy.clone()
-                cy[:, tgt] = cx
+                for s in range(n_slabs):               # adjoint per slab
+                    j0, gs = s * G, min(G, da - s * G)
+                    cols = [s * sw + c for c in _slab_index(
+                        G, TC._n_params(it), gs)]
+                    hs = g_pre[last][rs][:, cols]
+                    lanes = slice(tgt.start + j0, tgt.start + j0 + gs)
+                    args = (t[:, lanes], hs, gs)
+                    tail = (cy[:, lanes], ce.expand(-1, gs))
+                    cx, g_s = (TC._adjoint_affine(*args, it.mls, it.inverted,
+                                                  *tail)
+                               if it.kind == "affine" else
+                               TC._adjoint_spline(*args, it.n_bins, it.bound,
+                                                  it.inverted, *tail))
+                    g[:, cols] = g_s
+                    cy[:, lanes] = cx
                 for li in range(it.n_layers - 1, -1, -1):
                     lay = it.layer0 + li
-                    W, _ = TC._layer(st, wbuf, lay)
+                    W, _ = TC._layer(st, wn, lay, pp)
                     g_pre[lay][rs] = g
                     dh = g @ W.T
                     if li > 0:
                         g = TC._adjoint_activation(
                             it.act, g_pre[lay - 1][rs], dh)
                     else:
-                        cy[:, src] = cy[:, src] + dh
+                        cy[:, src] = cy[:, src] + dh[:, :da]
             gx[sl] = cy
-        for lay, (K, N) in enumerate(st.layers):   # the dW reduction
-            off = st.w_offs[lay]
-            ext = torch.cat([h_in[lay], torch.ones(rows, 1, dtype=x.dtype)],
-                            dim=1)
+        for lay, (Kp, Np) in enumerate(pp.kn):   # the dW reduction
+            off = pp.nat_offs[lay]
             for s in range(nsplit):
                 a, b = rows * s // nsplit, rows * (s + 1) // nsplit
-                gw[off:off + (K + 1) * N] += (ext[a:b].T @ g_pre[lay][a:b]) \
-                    .reshape(-1)
+                gnat[off:off + Kp * Np] += (h_in[lay][a:b].T
+                                            @ g_pre[lay][a:b]).reshape(-1)
+                gnat[off + Kp * Np:off + (Kp + 1) * Np] += \
+                    g_pre[lay][a:b].sum(0)
+    gw = gnat[torch.as_tensor(pp.grad_idx)]
     return gx, gw, gp.reshape(-1) if pbuf.numel() else gp
 
 
 @pytest.mark.parametrize("kind,inverted", [("mixed", False),
                                            ("template", True),
                                            ("spline", True),
-                                           ("cycle", False)])
+                                           ("cycle", False),
+                                           ("ragged spline", False),
+                                           ("ragged affine", True)])
 def test_b5_replay_matches_autograd(kind, inverted):
-    jc = _jax_stack(kind, dtype=jnp.float64)
-    tc = from_jax(jc.inverse() if inverted else jc, device="cpu")
-    st = TC._stack_structure(tc, DIM)
-    x = torch.from_numpy(_x(123, seed=15).astype(np.float64))
+    tc, d = _stack64(kind, inverted)
+    st = TC._stack_structure(tc, d)
     rng = np.random.default_rng(16)
-    gy = torch.from_numpy(rng.normal(size=(123, DIM)))
+    x = torch.from_numpy(rng.normal(size=(123, d)))
+    x[0, :], x[1, :] = 3.5, -4.0
+    gy = torch.from_numpy(rng.normal(size=(123, d)))
     gl = torch.from_numpy(rng.normal(size=123))
     with torch.no_grad():
         wbuf, pbuf = TC._stack_plan(tc, st, torch.float64, x.device)
@@ -399,6 +461,62 @@ def test_b5_replay_matches_autograd(kind, inverted):
     _close(gw, auto[1], 1e-10, "wbuf")
     if pr.numel():
         _close(gp, auto[2], 1e-10, "pbuf")
+
+
+@pytest.mark.parametrize("kind", ["affine", "spline", "mixed", "template",
+                                  "cycle", "ragged spline",
+                                  "ragged affine"])
+def test_padded_plan_matches_plan(kind):
+    """The plain version on the kernels' padded plan (zero rows and
+    columns, padded slabs) against the unpadded plan, float64: the same y,
+    ladj and gradients of x and of the plan's weights to 1e-12."""
+    tc, d = _stack64(kind)
+    st = TC._stack_structure(tc, d)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=(60, d)) * 1.5)
+    gy = torch.from_numpy(rng.normal(size=(60, d)))
+    gl = torch.from_numpy(rng.normal(size=60))
+    with torch.no_grad():
+        wbuf, pbuf = TC._stack_plan(tc, st, torch.float64, x.device)
+    outs = []
+    for padded in (False, True):
+        xr = x.clone().requires_grad_(True)
+        wr = wbuf.clone().requires_grad_(True)
+        y, l = TC.coupling_forward_plain(st, wr, pbuf, xr, padded=padded)
+        outs.append([y, l, *torch.autograd.grad([y, l], [xr, wr],
+                                                [gy, gl])])
+    for a, b, what in zip(*outs, ("y", "ladj", "gx", "gw")):
+        _close(b, a, 1e-12, what)
+
+
+def test_kernel_buffer_packs_the_padded_plan():
+    """The kernel buffer: each layer's padded W and W^T in the B-fragment
+    order of mma.sync.m16n8k8 (lane (n % 8) * 4 + k % 4 holds rows k and
+    k + 4 of column n), rounded to TF32, then the padded biases; and the
+    weight-gradient gather inverts the padding."""
+    tc, d = _stack64("ragged spline")
+    st = TC._stack_structure(tc, d)
+    pp = TC._padded(st)
+    wbuf, _ = TC._stack_plan(tc, st, torch.float32, "cpu")
+    wbuf = wbuf.detach()
+    wk = TC._kernel_weights(st, wbuf)
+    wn = TC._padded_buffer(st, wbuf)
+    for li, (Kp, Np) in enumerate(pp.kn):
+        W, b = TC._layer(st, wn, li, pp)
+        ow, owt, ob = pp.k_offs[li]
+        for M, off in ((W, ow), (W.T, owt)):
+            R, Cn = M.shape
+            frag = wk[off:off + R * Cn].view(R // 8, Cn // 8, 8, 4, 2)
+            # frag[kk, nt, g, t, i] = M[8 kk + t + 4 i, 8 nt + g]
+            want = M.reshape(R // 8, 2, 4, Cn // 8, 8).permute(0, 3, 4, 2, 1)
+            _close(frag, TC._round_tf32(want.contiguous()), 0.0, "packed")
+        _close(wk[ob:ob + Np], b, 0.0, "bias")
+    assert torch.equal(wn[torch.as_tensor(pp.grad_idx)], wbuf)
+    # TF32: 10 mantissa bits, to nearest, ties away from zero.
+    v = torch.tensor([1.0 + 2 ** -11, 1.0 + 2 ** -12, -(1.0 + 3 * 2 ** -11),
+                      3.0], dtype=torch.float32)
+    _close(TC._round_tf32(v), torch.tensor([1.0 + 2 ** -10, 1.0,
+                                            -(1.0 + 2 ** -9), 3.0]), 0.0)
 
 
 # ------------------------------------------------------------------
@@ -423,10 +541,17 @@ def test_fusible_predicate():
                                                  torch.zeros(8)))
     assert not TC.is_fusible_coupling_stack(elementwise_only, 8)
     # The (1024, 1024) d=64 stack that tests/test_coupling.py:289-304 has
-    # the TPU accept: B5 in blocks of 4 warps.
+    # the TPU accept: B4 and B5 in 16-row tiles (a 1024-column pass); the
+    # BASELINE stacks in 64-row tiles.
     big = et.coupling_stack(g, 64, 4, (1024, 1024), device="cpu")
     assert TC.is_fusible_coupling_stack(big, 64)
-    assert TC._pick_warps(TC._stack_structure(big, 64), backward=True) == 4
+    for backward in (False, True):
+        assert TC._pick_tile(TC._stack_structure(big, 64), backward) == 16
+        for base in (et.coupling_stack(g, 64, 4, (512, 512), device="cpu"),
+                     et.spline_coupling_stack(g, 64, 4, (512, 512), n_bins=8,
+                                              bound=5.0, device="cpu")):
+            assert TC._pick_tile(TC._stack_structure(base, 64),
+                                 backward) == 64
     huge = et.coupling_stack(g, 64, 2, (4096,), device="cpu")
     assert not TC.is_fusible_coupling_stack(huge, 64)
 
