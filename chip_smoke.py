@@ -73,12 +73,20 @@ exception exits non-zero and prints no result:
    the BASELINE leapfrog config (8192 chains, d=50, L=64, the chain of
    benchmarks/bench_mcmc.py:333-338): q_L, p_L, logp_0 and logp_L each
    within 2e-4 * max|f64| + 2e-4 of the plain version run in float64, or no
-   further from it than twice the float32 plain version; timed against the
-   plain version, with leapfrog-steps/s and the bound;
-11. the B6 sweep (``LF_SWEEP``): d in {2, 5, 128} with a Householder stage,
-   d=300 elementwise only, a diagonal inverse mass, a diagonal-Gaussian
-   base, fewer chains than SMs, under the same tolerance; and the refusal
-   of a Householder chain at d=129;
+   further from it than twice the float32 plain version, in the wrapper's
+   geometry (G=16 lanes a chain, E=4 elements a lane) and in G=32, E=2;
+   the two timed in turns, and against the plain version, with
+   leapfrog-steps/s, the bound, the first version's time for reference, the
+   special functions' time at 16 per clock per SM, each geometry's blocks
+   per SM and registers, and ptxas's registers and spills for every B6
+   instantiation (a spill fails the run);
+11. the B6 sweep (``LF_SWEEP``): d in {2, 3, 5, 6, 7} with Householder
+   stages (dense and by reflections), d=128 with four Householder stages
+   after elementwise runs (two runs held in lane-private shared memory),
+   d=300 elementwise only (column tiles), a diagonal inverse mass, a
+   diagonal-Gaussian base, fewer chains than SMs, under the same
+   tolerance, with a check that every path of B6 ran; and the refusal of a
+   Householder chain at d=129;
 12. the HMC slice, with the launch counters set to 0 just before each run:
    ``infer(FlowPushforwardTarget(transport), method="hmc")`` with
    8192 chains x d=50, 200 warmup + 100 samples of L=64 on the BASELINE
@@ -1234,12 +1242,18 @@ def leapfrog_bound(n, d, steps, k):
                     (steps + 1) * 2 * n * hh_flops(d, k))
 
 
-def hold_leapfrog(TL, chain, q, p, eps, steps, what, **kw):
+def hold_leapfrog(TL, chain, q, p, eps, steps, what, elements=None, **kw):
     """B6 against leapfrog_plain on the same inputs: q_L, p_L, logp_0 and
     logp_L each within LF_TOL * max|f64| + LF_TOL of the plain version run
     in float64, or no further from it than twice the float32 plain version
-    is. Returns the worst |B6 - f64|."""
-    got = TL.fused_leapfrog(chain, q, p, eps, steps, **kw)
+    is. ``elements`` forces B6's elements per lane (default: the wrapper's
+    geometry, as ``fused_leapfrog`` runs it). Returns the worst
+    |B6 - f64|."""
+    if elements is None:
+        got = TL.fused_leapfrog(chain, q, p, eps, steps, **kw)
+    else:
+        got = TL._launch(TL._prepare(chain, q, eps, elements=elements, **kw),
+                         q, p, steps)
     ref = TL.leapfrog_plain(chain, q, p, eps, steps, **kw)
     ref64 = TL.leapfrog_plain(copy.deepcopy(chain).double(), q.double(),
                               p.double(), eps, steps,
@@ -1250,34 +1264,110 @@ def hold_leapfrog(TL, chain, q, p, eps, steps, what, **kw):
                                           ("q_L", "p_L", "logp_0", "logp_L")))
 
 
-def phase_b6(et, TL, gen, device, card):
-    """B6 against its plain version at the BASELINE leapfrog config, timed
-    against it."""
+# B6's special-function evaluations per element and gradient of the
+# BASELINE chain between the ends (csrc/leapfrog.cu lf_cc, lf_jf):
+# CenterContract 2 exp, 1 log1p, 3 reciprocals; Johnson 1 reciprocal
+# square root, 1 log. The two end gradients add log S and log s.
+LF_SPECIAL = 8
+B6_FIRST_MS = 2.007   # B6's first version at BASELINE (PERF.md), for reference
+
+
+def ptxas_entries(report, needle):
+    """(function, registers, spill store bytes, spill load bytes) of every
+    function in nvcc's ``-Xptxas -v`` report whose mangled name holds
+    ``needle``."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+        elif name and needle in name:
+            ent = out.setdefault(name, [None, None, None])
+            if "spill stores" in ln:
+                words = ln.replace(",", "").split()
+                ent[1] = int(words[words.index("spill") - 2])
+                ent[2] = int(words[words.index("loads") - 3])
+            elif "Used" in ln and "registers" in ln:
+                words = ln.replace(",", "").split()
+                ent[0] = int(words[words.index("registers") - 1])
+    return [(k, *v) for k, v in out.items()]
+
+
+def b6_geometry(TL, args, n, d):
+    """(G, E, block, grid, blocks per SM, registers, local bytes) of B6's
+    launch for ``args`` (the card's occupancy query)."""
+    import ctypes
+
+    from enflows_tpu_torch.ops._build import load_library
+
+    plan = args.plan
+    geo = TL.leapfrog_geometry(n, d, plan.n_stages, n_rows=plan.n_rows,
+                               n_smem_slots=plan.n_smem_slots,
+                               elements=args.elements)
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = load_library().enf_leapfrog_occupancy(
+        geo.E, plan.nreg, geo.block, geo.smem, *map(ctypes.byref, vals))
+    check(err == 0, f"B6 occupancy query failed: CUDA error {err}")
+    return (geo.G, geo.E, geo.block, geo.grid, *(v.value for v in vals))
+
+
+def phase_b6(et, TL, gen, device, card, report):
+    """B6 against its plain version at the BASELINE leapfrog config, in two
+    geometries (the wrapper's, and one chain per warp at E = 2) timed in
+    turns against each other and against the plain version; the ptxas
+    report of every B6 instantiation (no spills)."""
     n, d, steps = LF["chains"], LF["dim"], LF["steps"]
     chain = leapfrog_chain(et, d, gen, device)
     q = 0.3 * torch.randn(n, d, generator=gen, device=device)
     p = torch.randn(n, d, generator=gen, device=device)
     eps = torch.tensor(0.05, device=device)
     err = hold_leapfrog(TL, chain, q, p, eps, steps, "B6 BASELINE")
-    plan, pbuf, qbuf, eps_t, im, mu, iv = TL._prepare(chain, q, eps)
+    err_alt = hold_leapfrog(TL, chain, q, p, eps, steps, "B6 BASELINE E=2",
+                            elements=2)
+    args = TL._prepare(chain, q, eps)
+    alt = TL._prepare(chain, q, eps, elements=2)
+    kernel = lambda: TL._launch(args, q, p, steps)
+    kernel_alt = lambda: TL._launch(alt, q, p, steps)
     plain_ms, ms = interleaved_ms(
-        lambda: TL.leapfrog_plain(chain, q, p, eps, steps),
-        lambda: TL._launch(plan, q, p, eps_t, im, mu, iv, pbuf, qbuf, steps),
-        iters=5)
+        lambda: TL.leapfrog_plain(chain, q, p, eps, steps), kernel, iters=5)
+    # The two geometries in turns: default, alternative, alternative,
+    # default, 20 launches each.
+    t = [cuda_ms(f, iters=20) for f in (kernel, kernel_alt, kernel_alt,
+                                        kernel)]
+    ms_default, ms_alt = min(t[0], t[3]), min(t[1], t[2])
     wrapper_ms = cuda_ms(lambda: TL.fused_leapfrog(chain, q, p, eps, steps),
                          iters=5)
     bound = leapfrog_bound(n, d, steps, 4)   # the chain's 4 reflections
-    tile = TL.leapfrog_tile(n, d, len(plan.codes),
-                            torch.cuda.get_device_properties(0)
-                            .multi_processor_count)
-    print(f"[B6] BASELINE chain {n} chains x d={d} x L={steps} (tile {tile} "
-          f"chains, {-(-n // tile)} blocks): worst |B6 - f64| {err:.3e} "
-          f"(q_L, p_L, logp_0, logp_L); kernel {ms:.4f} ms (wrapper "
-          f"{wrapper_ms:.4f} ms) = {n * steps / ms / 1e3:.1f} M "
-          f"leapfrog-steps/s, plain {plain_ms:.3f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]",
-          flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+    geos = [b6_geometry(TL, a, n, d) for a in (args, alt)]
+    spills = ptxas_entries(report, "leapfrog_kernel")
+    check(spills and all(st == 0 and ld == 0 for _, _, st, ld in spills),
+          f"B6 spills registers: {spills}")
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    special_ms = (LF_SPECIAL * n * d * (steps + 1)
+                  / (16 * sms * mhz * 1e6) * 1e3)
+    geo_txt = "; ".join(
+        f"G={G} E={E} block {blk} grid {grid}: {bps} blocks/SM, {regs} "
+        f"registers, {local} local bytes, {t_ms:.4f} ms"
+        for (G, E, blk, grid, bps, regs, local), t_ms in
+        zip(geos, (ms_default, ms_alt)))
+    print(f"[B6] BASELINE chain {n} chains x d={d} x L={steps}: worst "
+          f"|B6 - f64| {err:.3e} (q_L, p_L, logp_0, logp_L; E=2 "
+          f"{err_alt:.3e}); kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} "
+          f"ms) = {n * steps / ms / 1e3:.1f} M leapfrog-steps/s, the first "
+          f"version {B6_FIRST_MS} ms (PERF.md), plain {plain_ms:.3f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+          f"geometries in "
+          f"turns: {geo_txt}; {LF_SPECIAL} special functions per "
+          f"element-gradient = {special_ms:.4f} ms at 16/clock/SM and "
+          f"{mhz:.0f} MHz; ptxas: "
+          + " | ".join(f"{name} {regs} registers, {st}/{ld} spill bytes"
+                       for name, regs, st, ld in spills)
+          + f" [{card}]", flush=True)
+    return dict(max_abs_err=max(err, err_alt), ms=ms, plain_ms=plain_ms,
+                **bound)
 
 
 LF_SWEEP = [  # (d, n, stages, options); stage codes as in SWEEP
@@ -1288,6 +1378,9 @@ LF_SWEEP = [  # (d, n, stages, options); stage codes as in SWEEP
     (7, 333, ["j", "hh", "~cs"], ("mass",)),          # diagonal inverse mass
     (6, 444, ["hh", "j", "cc"], ("base",)),           # diagonal-Gaussian base
     (3, 5, ["~hh", "ss", "hh"], ("mass", "base")),    # fewer chains than SMs
+    # More runs before Householder stages than B6 holds in registers: the
+    # third and fourth in lane-private shared memory.
+    (128, 300, ["j", "hh", "cc", "hh", "ji", "hh", "cs", "hh", "ss"], ()),
 ]
 
 
@@ -1296,10 +1389,17 @@ def phase_b6_sweep(et, TL, gen, device):
     widths, a diagonal inverse mass and a diagonal-Gaussian base
     (tests/test_fused_leapfrog.py:138-176); and the refusal of a chain it
     cannot take."""
-    worst = 0.0
+    worst, paths = 0.0, set()
     for d, n, kinds, opts in LF_SWEEP:
         chain = sweep_chain(et, d, kinds, gen, device)
         check(TL.is_fusible_leapfrog(chain, d), f"B6 sweep d={d} fusible")
+        plan = TL.leapfrog_plan(chain, d)
+        G, E = TL.lane_group(d)
+        paths |= {name for name, hit in (
+            ("dense Householder", plan.dense), ("reflections", plan.reflect),
+            ("runs in registers", plan.nreg),
+            ("runs in shared memory", plan.n_smem_slots),
+            ("column tiles", d > G * E), (f"E={E}", True)) if hit}
         u = lambda lo, hi: lo + (hi - lo) * torch.rand(d, generator=gen,
                                                        device=device)
         kw = {}
@@ -1322,11 +1422,15 @@ def phase_b6_sweep(et, TL, gen, device):
         refused = False
     check(refused and not TL.is_fusible_leapfrog(wide, 129),
           "B6 took a Householder chain at d=129")
+    want = {"dense Householder", "reflections", "runs in registers",
+            "runs in shared memory", "column tiles", "E=1", "E=4"}
+    check(want <= paths, f"B6 sweep missed {sorted(want - paths)}")
     print(f"[B6 sweep] {len(LF_SWEEP)} chains, d in "
           f"{sorted({d for d, _, _, _ in LF_SWEEP})}, with a diagonal mass "
           f"and a diagonal-Gaussian base: q_L, p_L, logp_0, logp_L within "
           f"tolerance of the float64 plain version (worst |B6 - f64| "
-          f"{worst:.3e}); d=129 with a Householder refused", flush=True)
+          f"{worst:.3e}); paths: {', '.join(sorted(paths))}; d=129 with a "
+          f"Householder refused", flush=True)
 
 
 def phase_b6_adapted(TL, chain, q, step_size, gen, device, card):
@@ -1584,7 +1688,7 @@ def main():
 
     # Flow-preconditioned HMC: B6 at the BASELINE leapfrog config, the B6
     # sweep, then the slice through infer, one main-path run per target.
-    b6 = phase_b6(et, TL, gen, device, smi)
+    b6 = phase_b6(et, TL, gen, device, smi, report)
     phase_b6_sweep(et, TL, gen, device)
     d_lf = LF["dim"]
     target = et.mcmc.FlowPushforwardTarget(

@@ -56,9 +56,12 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P],
     # scratch, layers, n_layers, rows, nsplit, w_part, w_len, smem, stream
     "enf_coupling_dw": [_P, _P, _I, _LL, _I, _P, _LL, _I, _P],
-    # q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, Q, Qt, codes, args,
-    # n_stages, n, d, tile, num_steps, grid, block, smem, stream
-    "enf_fused_leapfrog": [_P] * 15 + [_I, _LL, _I, _I, _I, _I, _I, _I, _P],
+    # q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, rows, Q, Qt, words,
+    # n_stages, n, d, G, E, nreg, n_rows, num_steps, grid, block, smem,
+    # stream
+    "enf_fused_leapfrog": [_P] * 15 + [_I, _LL] + [_I] * 9 + [_P],
+    # E, nreg, block, smem, blocks_per_sm, regs, local_bytes
+    "enf_leapfrog_occupancy": [_I] * 4 + [_P] * 3,
 }
 
 

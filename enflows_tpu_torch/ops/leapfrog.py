@@ -9,8 +9,12 @@ flow-preconditioned target with a fusible chain f (the chains of
 
 ``fused_leapfrog`` integrates L velocity-Verlet steps of every chain in one
 launch of kernel B6 (``csrc/leapfrog.cu``, replacing ``_fused_leapfrog_impl``),
-which keeps q, p and the chain's stage inputs on chip for the whole
-trajectory. ``leapfrog_plain`` computes the same in plain PyTorch.
+in which a group of G lanes owns a chain and keeps its state in registers
+for the whole trajectory. ``leapfrog_plain`` computes the same in plain
+PyTorch. The wrapper hands B6 a plan (``leapfrog_plan``): each Householder
+stage as its normalized rows (``reflection_rows``), applied one reflection
+at a time, or as its dense Q where that is cheaper; and a launch
+(``leapfrog_geometry``).
 
 Dispatch: a CPU tensor takes ``leapfrog_plain``; a CUDA tensor launches B6,
 or raises ``ValueError`` for an input it does not take and ``RuntimeError``
@@ -23,43 +27,153 @@ contiguous (n, d) tensors and (d,) vectors for the base and the mass.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..bijectors.householder import Householder, householder_matrix
 from ..distributions.base import _LOG_2PI
-from .elementwise import (_ADJOINT, _APPLY, _BLOCK, _check_cuda_input,
-                          _check_kinds, _chain_plan, _ints, _raise_on,
-                          _sm_count, _stages, _transposed,
+from .elementwise import (_ADJOINT, _APPLY, _CODE, _HH, _check_cuda_input,
+                          _check_kinds, _ints, _raise_on, _stages,
                           is_fusible_chain)
 
-_SMEM_MAX = 232448           # the card's opt-in shared memory per block
-_TILE_MAX = 256
+_SMEM_MAX = 232448      # the card's opt-in shared memory per block
+_LF_BLOCK = 128         # threads per block (LF_BLOCK_MAX in csrc/leapfrog.cu)
+_LF_MIN_BLOCKS_E4 = 5   # blocks per SM of the E = 4 kernel (LF_MIN_BLOCKS_E4)
+_LF_NREG = 2            # runs held in registers (LF_NREG)
+_LF_NCONST = 5          # constants per stage and column (LF_NCONST)
+_HD = 6                 # a Householder stage applied as its dense Q
+_MAX_TILE = 128         # columns in flight: 32 lanes x 4 elements
 
 # Kernel launches, raised by the wrapper right after a launch succeeds and
 # nowhere else.
 LAUNCHES = {"leapfrog": 0}
 
 
-def _chain_bytes(n_stages: int, d: int) -> int:
-    """Shared memory of one chain in B6: q, p, the log-density terms and the
-    n_stages + 1 stage inputs and output, d floats each."""
-    return 4 * d * (n_stages + 4)
+def lane_group(d: int, elements=None) -> tuple[int, int]:
+    """(G, E): G lanes own a chain, E elements each (E in 1, 2, 4), so that
+    G E covers min(d, 128) columns; wider chains (no Householder stage) are
+    walked in column tiles of G E. ``elements`` forces E."""
+    w = min(d, _MAX_TILE)
+    E = elements or (1 if w <= 16 else 2 if w <= 32 else 4)
+    if E not in (1, 2, 4):
+        raise ValueError(f"elements per lane must be 1, 2 or 4, got {E}")
+    G = 1 << max(0, math.ceil(math.log2(-(-w // E))))
+    if G > 32:
+        raise ValueError(f"{E} elements per lane cannot cover d={d} with "
+                         f"one warp")
+    return G, E
 
 
-def leapfrog_tile(n: int, d: int, n_stages: int, sms: int) -> int:
-    """Chains per block of B6: ceil(n / (2 sms)), so that the grid covers
-    every SM twice where n allows, at most what one block's shared memory
-    holds (and at most 256)."""
-    fit = min(_TILE_MAX, _SMEM_MAX // _chain_bytes(n_stages, d))
-    return min(fit, max(1, -(-n // (2 * sms))))
+class Geometry(NamedTuple):
+    G: int                 # lanes per chain
+    E: int                 # elements per lane
+    block: int             # threads per block
+    chains_per_block: int
+    grid: int
+    smem: int              # bytes of shared memory per block
+
+
+def _smem_bytes(n_stages, n_rows, n_smem_slots, G, E, block):
+    """B6's shared memory per block: the plan (16 bytes a stage), the
+    constants ((4 + 5 n_stages) per column), the reflection rows and the
+    lane-private runs."""
+    dc = G * E
+    return 16 * n_stages + 4 * ((4 + _LF_NCONST * n_stages) * dc
+                                + n_rows * dc + n_smem_slots * 2 * E * block)
+
+
+def leapfrog_geometry(n: int, d: int, n_stages: int, *, n_rows: int = 0,
+                      n_smem_slots: int = 0, elements=None) -> Geometry:
+    """B6's launch: ``lane_group(d)`` lanes per chain, _LF_BLOCK threads per
+    block (halved, down to 32, while the shared memory would not fit: a
+    ``leapfrog_plan`` fits at 32), one chain per lane group and blocks
+    enough to cover n. 8192 chains at d=50 take G=16, E=4: 8 chains per
+    block, 1024 blocks, 1.55 waves of the 132 x _LF_MIN_BLOCKS_E4 the card
+    holds at once."""
+    G, E = lane_group(d, elements)
+    block = _LF_BLOCK
+    while block > 32 and _smem_bytes(n_stages, n_rows, n_smem_slots, G, E,
+                                     block) > _SMEM_MAX:
+        block //= 2
+    per = block // G
+    return Geometry(G, E, block, per, -(-n // per),
+                    _smem_bytes(n_stages, n_rows, n_smem_slots, G, E, block))
+
+
+class LeapfrogPlan(NamedTuple):
+    """What B6 is told about a chain: 4 ints per stage (code, a, b, slot;
+    see ``LfPlan`` in csrc/leapfrog.cu), the reflection rows it holds in
+    shared memory, the runs stored across a Householder stage, and which
+    stages go dense."""
+    words: tuple
+    n_stages: int
+    n_rows: int
+    n_slots: int
+    dense: tuple           # stage indices applied as their dense Q
+    reflect: tuple         # stage indices applied as reflections
+
+    @property
+    def nreg(self) -> int:
+        return 0 if self.n_slots == 0 else _LF_NREG
+
+    @property
+    def n_smem_slots(self) -> int:
+        return max(0, self.n_slots - _LF_NREG)
+
+
+def leapfrog_plan(chain, d: int, elements=None) -> LeapfrogPlan:
+    """B6's plan of ``chain`` at width d. A Householder stage of k
+    reflections is applied reflection by reflection where 2 k <= d (4 d k
+    FLOP against the dense product's 2 d^2), else as its dense Q; while the
+    rows would not fit a 32-thread block's shared memory, the stage with the
+    most rows goes dense too. Each elementwise stage takes its parameter
+    slots in order, as ``_chain_plan`` lays them out. A Householder stage
+    right after an elementwise one closes a run of them, which gets the next
+    store slot."""
+    stages = _stages(chain)
+    hh = [isinstance(s, Householder) for s in stages]
+    closes = [h and i > 0 and not hh[i - 1] for i, h in enumerate(hh)]
+    n_slots = sum(closes)
+    G, E = lane_group(d, elements)
+    ks = {i: s.vmat().shape[0] for i, s in enumerate(stages) if hh[i]}
+    reflect = {i for i, k in ks.items() if 2 * k <= d}
+    while _smem_bytes(len(stages), sum(ks[i] for i in reflect),
+                      max(0, n_slots - _LF_NREG), G, E, 32) > _SMEM_MAX:
+        reflect.remove(max(sorted(reflect), key=ks.get))
+    words, pslot, row, dense = [], 0, 0, []
+    for i, s in enumerate(stages):
+        slot = sum(closes[:i]) if closes[i] else -1
+        if i in reflect:
+            words += [_HH, row, ks[i], slot]
+            row += ks[i]
+        elif hh[i]:
+            words += [_HD, len(dense), 0, slot]
+            dense.append(i)
+        else:
+            words += [_CODE[type(s)], pslot, 0, -1]
+            pslot += len(s.fields())
+    return LeapfrogPlan(tuple(words), len(stages), row, n_slots,
+                        tuple(dense), tuple(sorted(reflect)))
+
+
+def reflection_rows(stage, dtype=None):
+    """A Householder stage's normalized rows w_r = v_r / |v_r| in the order
+    they are applied: y = x Q^T is x <- x - 2 (w_r . x) w_r for r = 0..k-1,
+    the adjoint c Q the same in reverse (``householder_matrix``'s Q =
+    H_{k-1} ... H_0)."""
+    V = stage.vmat()
+    V = V if dtype is None else V.to(dtype)
+    return V * torch.rsqrt((V * V).sum(-1, keepdim=True))
 
 
 def is_fusible_leapfrog(chain, dim: int, dtype=torch.float32) -> bool:
-    """Whether B6 takes this chain: ``is_fusible_chain`` holds and one
-    chain's state fits a block's shared memory."""
-    return (is_fusible_chain(chain, dim, dtype)
-            and _chain_bytes(len(_stages(chain)), dim) <= _SMEM_MAX)
+    """Whether B6 takes this chain: exactly when ``is_fusible_chain`` holds
+    (d <= 128 with a Householder stage, d <= 2048 without, at most 32
+    stages of the six kinds, f32). Every such chain has a launch: a
+    Householder stage whose rows would not fit shared memory is applied as
+    its dense Q."""
+    return is_fusible_chain(chain, dim, dtype)
 
 
 # ------------------------------------------------------------------
@@ -135,55 +249,85 @@ def leapfrog_plain(chain, q, p, step_size, num_steps: int,
 # ------------------------------------------------------------------
 # CUDA wrapper.
 
-def _lane_vector(v, default, d, device):
-    """A contiguous (d,) f32 vector on ``device`` from None, a scalar or a
-    (d,) vector."""
+def _lane_vector(v, default, d, device, dtype=torch.float32):
+    """A contiguous (d,) vector on ``device`` from None, a scalar or a (d,)
+    vector."""
     if v is None:
-        return torch.full((d,), default, dtype=torch.float32, device=device)
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
-    return v.expand(d).contiguous()
+        return torch.full((d,), default, dtype=dtype, device=device)
+    return torch.as_tensor(v, dtype=dtype, device=device).expand(d) \
+        .contiguous()
 
 
-def _launch(plan, q, p, eps, im, mu, iv, pbuf, qbuf, num_steps):
-    """B6 on contiguous f32 CUDA tensors: eps a 0-d tensor, im/mu/iv (d,)."""
+class LeapfrogArgs(NamedTuple):
+    """B6's device arguments for one chain at one width (``_prepare``)."""
+    plan: LeapfrogPlan
+    pbuf: torch.Tensor     # (n_pslots * d,) elementwise parameters
+    rows: torch.Tensor     # (n_rows, d) normalized reflection rows
+    qbuf: torch.Tensor     # (n_dense, d, d) dense stages' Q
+    qtbuf: torch.Tensor    # and their Q^T
+    eps: torch.Tensor      # 0-d step size
+    im: torch.Tensor       # (d,) inverse mass
+    mu: torch.Tensor       # (d,) base mean
+    iv: torch.Tensor       # (d,) 1 / base variance
+    elements: object       # E forced, or None for lane_group's choice
+
+
+def _launch(args: LeapfrogArgs, q, p, num_steps):
+    """B6 on contiguous f32 CUDA tensors."""
     from ._build import load_library
 
     lib = load_library()
     n, d = q.shape
-    tile = leapfrog_tile(n, d, len(plan.codes), _sm_count(q.device.index))
-    grid = -(-n // tile)
-    block = min(_BLOCK, 32 * -(-tile * d // 32))
-    smem = tile * _chain_bytes(len(plan.codes), d)
+    plan = args.plan
+    geo = leapfrog_geometry(n, d, plan.n_stages, n_rows=plan.n_rows,
+                            n_smem_slots=plan.n_smem_slots,
+                            elements=args.elements)
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)
     lp0 = torch.empty(n, dtype=torch.float32, device=q.device)
     lpL = torch.empty_like(lp0)
-    qt = _transposed(qbuf)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_fused_leapfrog(
             q.data_ptr(), p.data_ptr(), q_out.data_ptr(), p_out.data_ptr(),
-            lp0.data_ptr(), lpL.data_ptr(), eps.data_ptr(), im.data_ptr(),
-            mu.data_ptr(), iv.data_ptr(), pbuf.data_ptr(), qbuf.data_ptr(),
-            qt.data_ptr(), _ints(plan.codes), _ints(plan.args),
-            len(plan.codes), n, d, tile, num_steps, grid, block, smem, stream)
+            lp0.data_ptr(), lpL.data_ptr(), args.eps.data_ptr(),
+            args.im.data_ptr(), args.mu.data_ptr(), args.iv.data_ptr(),
+            args.pbuf.data_ptr(), args.rows.data_ptr(), args.qbuf.data_ptr(),
+            args.qtbuf.data_ptr(), _ints(plan.words), plan.n_stages, n, d,
+            geo.G, geo.E, plan.nreg, plan.n_rows, num_steps, geo.grid,
+            geo.block, geo.smem, stream)
     _raise_on(lib, err, "B6 (fused leapfrog)")
     LAUNCHES["leapfrog"] += 1
     return q_out, p_out, lp0, lpL
 
 
 def _prepare(chain, q, step_size, inv_mass_diag=None, base_mean=None,
-             base_var=None):
-    """B6's plan and device arguments for ``chain`` at q's width:
-    (plan, pbuf, qbuf, eps, im, mu, iv)."""
+             base_var=None, elements=None,
+             dtype=torch.float32) -> LeapfrogArgs:
+    """B6's plan and device arguments for ``chain`` at q's width (in
+    ``dtype``: float32 for the kernel, float64 for the CPU tests' replay of
+    it)."""
     d, dev = q.shape[1], q.device
+    f = dict(dtype=dtype, device=dev)
     with torch.no_grad():
-        plan, pbuf, qbuf = _chain_plan(chain, d, dev)
-        eps = torch.as_tensor(step_size, dtype=torch.float32,
-                              device=dev).reshape(())
-        im = _lane_vector(inv_mass_diag, 1.0, d, dev)
-        mu = _lane_vector(base_mean, 0.0, d, dev)
-        iv = 1.0 / _lane_vector(base_var, 1.0, d, dev)
-    return plan, pbuf, qbuf, eps, im, mu, iv
+        plan = leapfrog_plan(chain, d, elements)
+        stages = _stages(chain)
+        pvecs = [v.to(dtype).expand(d) for s in stages
+                 if not isinstance(s, Householder)
+                 for v in s.fields().values()]
+        rows = [reflection_rows(stages[i], dtype) for i in plan.reflect]
+        qs = [householder_matrix(stages[i].vmat(), dtype=dtype)
+              for i in plan.dense]
+        qbuf = torch.stack(qs) if qs else torch.zeros(0, d, d, **f)
+        args = LeapfrogArgs(
+            plan,
+            torch.cat(pvecs).contiguous() if pvecs else torch.zeros(0, **f),
+            torch.cat(rows).contiguous() if rows else torch.zeros(0, d, **f),
+            qbuf.contiguous(), qbuf.transpose(1, 2).contiguous(),
+            torch.as_tensor(step_size, **f).reshape(()),
+            _lane_vector(inv_mass_diag, 1.0, d, dev, dtype),
+            _lane_vector(base_mean, 0.0, d, dev, dtype),
+            1.0 / _lane_vector(base_var, 1.0, d, dev, dtype), elements)
+    return args
 
 
 def fused_leapfrog(chain, q, p, step_size, num_steps: int,
@@ -210,9 +354,8 @@ def fused_leapfrog(chain, q, p, step_size, num_steps: int,
                          f"{tuple(q.shape)} on {q.device}")
     if num_steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {num_steps}")
-    plan, pbuf, qbuf, eps, im, mu, iv = _prepare(
-        chain, q, step_size, inv_mass_diag, base_mean, base_var)
-    return _launch(plan, q, p, eps, im, mu, iv, pbuf, qbuf, num_steps)
+    return _launch(_prepare(chain, q, step_size, inv_mass_diag, base_mean,
+                            base_var), q, p, num_steps)
 
 
 # ------------------------------------------------------------------
