@@ -8,15 +8,21 @@ Phases, one printed line each (more for the slice); any mismatch or
 exception exits non-zero and prints no result:
 
 1. the card's ``nvidia-smi`` name and power limit, and the kernels' build
-   from every source under ``enflows_tpu_torch/ops/csrc/`` (timed);
+   from every source under ``enflows_tpu_torch/ops/csrc/`` (timed), with
+   ptxas's registers and spills of every B1-B3 instantiation (a spill
+   fails the run);
 2. B1 (fused forward+ladj) against the plain version: the flagship flow at
    d=2, n=2^24 and at d=50, n=2^17;
 3. B2 (its backward) against plain autograd: loss sum(sin y) + sum(ladj^2)
    at d=2, n=2^22, every gradient;
 4. B3 (single-pass negll + gradient) against the plain version at d=2,
-   n=2^22 and at d=50, n=2^17, then all three on a sweep of other chains
-   and shapes (``SWEEP``) against the plain version in float32 and
-   float64;
+   n=2^22 and 2^20 (the slice's batch) and at d=50, n=2^17, then all three
+   on a sweep of other chains and shapes (``SWEEP``) against the plain
+   version in float32 and float64, and at the float32 stability corners
+   (|b x| >> 88; finite values and gradients). Each B1-B3 line gives the
+   launch (lanes per sample, elements per lane, blocks per SM, registers)
+   and the flagship's special functions at the MUFU rate beside the byte
+   bound;
 5. the slice, with the launch counters set to 0 just before it: whitening
    data X = f_true(z) (n=2^22, f_true as in examples/nf_example_2d.py) with
    the 2D example's model and with the flagship flow; optimize_whitening for
@@ -24,7 +30,12 @@ exception exits non-zero and prints no result:
    then the fitted flow's full-data negll and its gradient through B1 and
    B2, and cov(f(X)). Each history is finite, falls, and matches a
    plain-path run of the same trainer on the card to 1e-4 relative (f32
-   sums taken in another order);
+   sums taken in another order). Then ``torch.profiler`` over 4 fused
+   steps of each model (device time by kernel, device ops a step, the idle
+   share), and Householder's plain routes timed against each other on the
+   card (``phase_householder_auto``: the scan and the dense product,
+   forward and backward, d in {2, 8, 50, 128}, batch 2^10-2^20, k from 1
+   to d), which set ``Householder(mode="auto")``;
 6. B4 (fused coupling-stack forward+ladj,
    ``enflows_tpu_torch/ops/csrc/coupling.cu``, TF32 tensor-core products)
    against a float64 plain run at the BASELINE config (d=64, 4 couplings,
@@ -84,7 +95,8 @@ exception exits non-zero and prints no result:
    stages (dense and by reflections), d=128 with four Householder stages
    after elementwise runs (two runs held in lane-private shared memory),
    d=300 elementwise only (column tiles), a diagonal inverse mass, a
-   diagonal-Gaussian base, fewer chains than SMs, under the same
+   diagonal-Gaussian base, fewer chains than SMs, JohnsonInv at |v| up to
+   88 (e^{|v|} finite in f32, e^{-|v|} flushed), under the same
    tolerance, with a check that every path of B6 ran; and the refusal of a
    Householder chain at d=129;
 12. the HMC slice, with the launch counters set to 0 just before each run:
@@ -272,6 +284,51 @@ def grads_ok(got, plain, plain64):
     return worst
 
 
+# The first versions of B1-B3 (shared-memory tiles) at the same shapes
+# (PERF.md), for reference.
+EW_FIRST_MS = {("fwd", 2, 1 << 24): "1.111 ms",
+               ("fwd", 50, 1 << 17): "0.312 ms",
+               ("bwd", 2, 1 << 22): "0.943 ms",
+               ("negll", 2, 1 << 22): "0.914 ms",
+               ("negll", 50, 1 << 17): "1.187 ms"}
+# Special functions per element of the flagship chain (two Johnson, two
+# CenterContract stages; csrc/elementwise.cu f_jf, f_cc, b_jf, b_cc),
+# counting exp, log, log1p, sqrt and each reciprocal: B1's forward with
+# its ladj 2 x 3 + 2 x 6; B2's forward without it 2 x 2 + 2 x 4 and the
+# adjoints 2 x 2 + 2 x 5 (given each stage's output); B3 the forward with
+# its ladj and the adjoints.
+EW_SPECIAL = {"fwd": 18, "bwd": 26, "negll": 32}
+
+
+def special_ms(count, elements):
+    """Milliseconds for ``count`` special functions per element at the
+    MUFU rate, 16 per clock per SM at the card's maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return count * elements / (16 * sms * mhz * 1e6) * 1e3
+
+
+def chain_geometry_text(EW, plan, n, mode):
+    """B1-B3's launch for ``plan``: lanes per sample, elements per lane,
+    block, grid, blocks per SM, registers and spilled bytes (the card's
+    occupancy query), and the flagship's special functions at the MUFU
+    rate."""
+    geo = EW.chain_geometry(
+        plan, n, mode, lambda b, sm: EW.occupancy(mode, plan.E, b, sm)[0],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    bps, regs, local = EW.occupancy(mode, plan.E, geo.block, geo.smem)
+    where = " (words in a device scratch)" if geo.scratch else ""
+    return (f"G={plan.G} E={plan.E} block {geo.block} grid {geo.grid} smem "
+            f"{geo.smem} B{where}: {bps} blocks/SM, {regs} registers, "
+            f"{local} local bytes; "
+            f"{EW_SPECIAL[mode]} special functions per element = "
+            f"{special_ms(EW_SPECIAL[mode], n * plan.d):.4f} ms at "
+            f"16/clock/SM")
+
+
 def phase_b1(et, EW, dim, n, gen, device, card):
     chain = flagship_flow(et, dim, gen, device)
     x = torch.randn(n, dim, generator=gen, device=device)
@@ -283,18 +340,22 @@ def phase_b1(et, EW, dim, n, gen, device, card):
               f"B1 y at d={dim}: max|dy| {max_abs(y, y0):.3e}")
         check(torch.allclose(ladj, l0, rtol=LADJ_TOL, atol=LADJ_TOL),
               f"B1 ladj at d={dim}: max|dladj| {max_abs(ladj, l0):.3e}")
-        plan, pbuf, qbuf = EW._chain_plan(chain, dim, device)
+        plan, bufs = EW._chain_plan(chain, dim, device)
         plain_ms, ms = interleaved_ms(
             lambda: EW.forward_and_ladj_plain(chain, x),
-            lambda: EW._launch_fwd(plan, x, pbuf, qbuf))
+            lambda: EW._launch("fwd", plan, x, bufs))
         wrapper_ms = cuda_ms(lambda: EW.fused_forward_and_ladj(chain, x))
     err = max(max_abs(y, y0), max_abs(ladj, l0))
     # x read, y and ladj written; the Householder product's multiply-adds.
     bound = bound_of(4 * n * (2 * dim + 1), n * hh_flops(dim, 4))
+    first = EW_FIRST_MS.get(("fwd", dim, n), "not measured")
     print(f"[B1] flagship d={dim} n={n}: max|dy| {max_abs(y, y0):.3e} "
           f"max|dladj| {max_abs(ladj, l0):.3e}; kernel {ms:.4f} ms "
-          f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms [{card}]", flush=True)
+          f"(wrapper {wrapper_ms:.4f} ms, the tile version {first}), "
+          f"plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+          f"{chain_geometry_text(EW, plan, x.shape[0], 'fwd')} [{card}]",
+          flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
@@ -352,15 +413,16 @@ def phase_b2(et, EW, dim, n, gen, device, card):
     # Time the backward alone: the kernel on saved forward outputs, the
     # plain version by autograd over a retained graph.
     with torch.no_grad():
-        plan, pbuf, qbuf = EW._chain_plan(chain, dim, device)
-        y, ladj = EW._launch_fwd(plan, x, pbuf, qbuf)
+        plan, bufs = EW._chain_plan(chain, dim, device)
+        bufs = tuple(b.detach() for b in bufs)
+        y, ladj = EW._launch("fwd", plan, x, bufs)
     gy, gl = torch.cos(y), 2.0 * ladj
     xr = x.clone().requires_grad_(True)
     y0, l0 = EW.forward_and_ladj_plain(chain, xr)
     plain_ms, ms = interleaved_ms(
         lambda: torch.autograd.grad([y0, l0], [xr, *params.values()],
                                     [gy, gl], retain_graph=True),
-        lambda: EW._launch_grad(plan, x, pbuf, qbuf, gy, gl))
+        lambda: EW._launch("bwd", plan, x, bufs, gy, gl))
     err = max(max_abs(gx, gx0), worst)
     # x and gy read, gx written, gladj read; the Householder products of the
     # recompute, of dQ and of the input cotangent.
@@ -368,9 +430,13 @@ def phase_b2(et, EW, dim, n, gen, device, card):
                      3 * x.shape[0] * hh_flops(dim, 4))
     print(f"[B2] flagship d={dim} n={n} ({dropped} exact-zero rows "
           f"dropped): max|dgx| {max_abs(gx, gx0):.3e} "
-          f"max|dgrad| {worst:.3e}; kernel {ms:.4f} ms, plain autograd "
-          f"backward {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-          f"[{card}]", flush=True)
+          f"max|dgrad| {worst:.3e}; kernel {ms:.4f} ms (the tile version "
+          f"{EW_FIRST_MS.get(('bwd', dim, n), 'not measured')}"
+          f"), plain autograd backward "
+          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); "
+          f"{chain_geometry_text(EW, plan, x.shape[0], 'bwd')} [{card}]",
+          flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
@@ -386,11 +452,11 @@ def phase_b3(et, EW, dim, n, gen, device, card):
     check(abs(float(v) - float(v0)) <= NEGLL_RTOL * abs(float(v0)),
           f"B3 negll at d={dim}: {float(v)} vs {float(v0)}")
     worst = grads_ok(g, g0, g64)
-    plan, pbuf, qbuf = EW._chain_plan(chain, dim, device)
-    pbuf, qbuf = pbuf.detach(), qbuf.detach()
+    plan, bufs = EW._chain_plan(chain, dim, device)
+    bufs = tuple(b.detach() for b in bufs)
     plain_ms, ms = interleaved_ms(
         lambda: EW.negll_value_and_grad_plain(chain, x),
-        lambda: EW._launch_grad(plan, x, pbuf, qbuf))
+        lambda: EW._launch("negll", plan, x, bufs))
     wrapper_ms = cuda_ms(lambda: EW.fused_negll_value_and_grad(chain, x))
     err = max(abs(float(v) - float(v0)), worst)
     # x read once; the Householder products of the forward, dQ and the
@@ -399,8 +465,12 @@ def phase_b3(et, EW, dim, n, gen, device, card):
     print(f"[B3] flagship d={dim} n={n} ({dropped} exact-zero rows "
           f"dropped): negll {float(v):.7f} vs plain "
           f"{float(v0):.7f}, max|dgrad| {worst:.3e}; kernel {ms:.4f} ms "
-          f"(wrapper {wrapper_ms:.4f} ms), plain value+grad "
-          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms [{card}]",
+          f"(wrapper {wrapper_ms:.4f} ms, the tile version "
+          f"{EW_FIRST_MS.get(('negll', dim, n), 'not measured')}"
+          f"), plain value+grad "
+          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); "
+          f"{chain_geometry_text(EW, plan, x.shape[0], 'negll')} [{card}]",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
@@ -439,8 +509,9 @@ def sweep_chain(et, d, kinds, gen, device):
             cls = et.Johnson if k == "j" else et.JohnsonInv
             s = cls(u(-0.5, 0.5, scalar), u(2.0, 6.0, scalar),
                     u(-0.5, 0.5, scalar), u(2.0, 6.0, scalar))
-        else:
-            s = et.Householder(torch.randn(3, d, generator=gen,
+        else:                  # "hh": 3 reflections, "HH": d of them
+            s = et.Householder(torch.randn(3 if k == "hh" else d, d,
+                                           generator=gen,
                                            device=device)).canonicalize()
         stages.append(s.inverse() if inv else s)
     return et.Chain.of(*stages)
@@ -458,20 +529,39 @@ def close_to_f64(got, plain, plain64, tol, what):
     return err_k
 
 
+# Chains whose lane words do not fit a 256-thread block: dense Householder
+# stages at d=128 take E d = 512 words a lane each, so one stage runs at 64
+# threads a block and four spill to a device scratch. Drawn from their own
+# generator (``phase_sweep``).
+SWEEP_WORDS = [
+    (128, 200, ["HH", "j"]),
+    (128, 100, ["j", "HH", "HH", "cs", "HH", "HH"]),
+]
+
+
 def phase_sweep(et, EW, gen, device):
     """B1, B2 and B3 against the plain version (float32 and float64) on
     chains and shapes beyond the flagship: ragged tiles, every stage kind,
     inverted stages, scalar parameters, Householder-only and empty chains,
-    d up to 2048; and the refusal of a chain the kernels do not take."""
+    d up to 2048, lane words in smaller blocks and in a device scratch
+    (``SWEEP_WORDS``, with a check that both ran); and the refusal of a
+    chain the kernels do not take."""
     worst = 0.0
-    for d, n, kinds in SWEEP:
-        chain = sweep_chain(et, d, kinds, gen, device)
+    words_gen = torch.Generator(device=device).manual_seed(8)
+    layouts = set()
+    rows = [(r, gen) for r in SWEEP] + [(r, words_gen) for r in SWEEP_WORDS]
+    for (d, n, kinds), rng in rows:
+        chain = sweep_chain(et, d, kinds, rng, device)
+        for mode in ("bwd", "negll"):
+            geo = EW.chain_geometry(EW.chain_plan(chain, d), n, mode)
+            layouts.add("device scratch" if geo.scratch else
+                        f"{geo.block}-thread blocks")
         check(EW.is_fusible_chain(chain, d), f"sweep d={d} {kinds} fusible")
         chain64 = copy.deepcopy(chain).double()
         x, _ = drop_exact_zero_rows(
-            et, EW, chain, torch.randn(n, d, generator=gen, device=device))
-        gy = torch.randn(x.shape, generator=gen, device=device)
-        gl = torch.randn(x.shape[0], generator=gen, device=device)
+            et, EW, chain, torch.randn(n, d, generator=rng, device=device))
+        gy = torch.randn(x.shape, generator=rng, device=device)
+        gl = torch.randn(x.shape[0], generator=rng, device=device)
 
         def b1_b2(c, forward, xx):
             xr = xx.clone().requires_grad_(True)
@@ -514,10 +604,197 @@ def phase_sweep(et, EW, gen, device):
     else:
         refused = False
     check(refused, "a Householder chain at d=129 was not refused")
-    print(f"[sweep] {len(SWEEP)} chains, d in "
-          f"{sorted({d for d, _, _ in SWEEP})}: B1, B2, B3 within tolerance "
-          f"of the float64 plain version (worst |kernel - f64| "
-          f"{worst:.3e}); d=129 with a Householder refused", flush=True)
+    check({"device scratch", "64-thread blocks"} <= layouts,
+          f"sweep lane-word layouts {sorted(layouts)}")
+    print(f"[sweep] {len(rows)} chains, d in "
+          f"{sorted({d for (d, _, _), _ in rows})}: B1, B2, B3 within "
+          f"tolerance of the float64 plain version (worst |kernel - f64| "
+          f"{worst:.3e}); B2/B3 lane words in {', '.join(sorted(layouts))}; "
+          f"d=129 with a Householder refused", flush=True)
+
+
+def corner_cases(et, device):
+    """The bijectors of tests/test_bijector_elementwise.py:28-40 in f32, each
+    with its corner rows: |b x| >> 88 (:105-112), and for JohnsonInv |v| =
+    88, its last decade that f32 holds (tests/test_torch_elementwise_ops.py
+    CORNER_X, JI_EDGE_X)."""
+    t = lambda *v: torch.tensor(v, dtype=torch.float32, device=device)
+    corner = t([-200.0, 0.0, 200.0], [-5.0, 1e-3, 5.0])
+    edge = t([88.5 * 3.5 + 0.3, -88.5 * 2.0 - 1.0, 88.0], [0.0, 1.0, -2.0])
+    return [
+        (et.ScaleShift(t(1.3, 0.4, -2.0), t(2.5, -1.2, 0.3)), corner),
+        (et.CenterStretch(t(4.0, 4.1, 0.5), t(2.0, 2.1, 1.0),
+                          t(3.0, 3.1, -0.2)), corner),
+        (et.CenterContract(t(4.0, 4.1, 0.5), t(2.0, 2.1, 1.0),
+                           t(3.0, 3.1, -0.2)), corner),
+        (et.Johnson(t(10.0, -1.0, 0.0), t(3.5, 2.0, 1.0), t(10.0, 0.0, -1.0),
+                    t(1.0, 2.0, 0.5)), corner),
+        (et.JohnsonInv(t(0.3, -1.0, 0.0), t(3.5, 2.0, 1.0), t(1.0, 0.0, -1.0),
+                       t(1.0, 2.0, 0.5)), edge),
+    ]
+
+
+def phase_corners(et, EW, device):
+    """B1, B2 and B3 at the f32 stability corners: finite y and ladj, and
+    (but for JohnsonInv, whose derivatives ~ v cosh v overflow there) finite
+    input cotangents and parameter gradients, as the plain path gives
+    (tests/test_torch_elementwise_ops.py test_float32_corners_stay_finite).
+    Prints B1's largest relative distance from the plain f32 path."""
+    worst = 0.0
+    names = []
+    for f, x in corner_cases(et, device):
+        chain = et.Chain.of(f)
+        kind = type(f).__name__
+        names.append(kind)
+        with torch.no_grad():
+            y, ladj = EW.fused_forward_and_ladj(chain, x)
+            y0, l0 = EW.forward_and_ladj_plain(chain, x)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(ladj).all()),
+              f"[B1-B3 corners] {kind}: B1 y {y.tolist()} ladj "
+              f"{ladj.tolist()}")
+        for a, b in ((y, y0), (ladj, l0)):
+            worst = max(worst, float(((a - b).abs() / b.abs().clamp(
+                min=1.0)).max()))
+        if isinstance(f, et.JohnsonInv):
+            continue
+        _, g3 = EW.fused_negll_value_and_grad(chain, x)
+        xr = x.clone().requires_grad_(True)
+        yy, ll = EW.fused_forward_and_ladj(chain, xr)
+        ps = dict(chain.named_parameters())
+        gs = torch.autograd.grad([yy, ll], [xr, *ps.values()],
+                                 [torch.ones_like(yy), torch.ones_like(ll)])
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all())
+                  for g in (*g3.values(), *gs)),
+              f"[B1-B3 corners] {kind}: a gradient is not finite: B3 "
+              f"{ {k: v.tolist() for k, v in g3.items()} }, B2 "
+              f"{[g.tolist() for g in gs]}")
+    print(f"[B1-B3 corners] {', '.join(names)} at |b x| >> 88 (JohnsonInv "
+          f"at |v| = 88): B1 y and ladj finite, B2 gx and gradients and B3 "
+          f"gradients finite; max relative distance of B1 from the plain "
+          f"f32 path {worst:.3e}", flush=True)
+
+
+def ew_ptxas(report):
+    """ptxas's registers and spills of every B1-B3 instantiation; a spill
+    fails the run."""
+    ents = [e for needle in ("ew_fwd_kernel", "ew_grad_kernel")
+            for e in ptxas_entries(report, needle)]
+    check(len(ents) == 9 and all(st == 0 and ld == 0
+                                 for _, _, st, ld in ents),
+          f"B1-B3 ptxas entries or spills: {ents}")
+    print("[B1-B3 ptxas] " + " | ".join(
+        f"{name} {regs} registers, {st}/{ld} spill bytes"
+        for name, regs, st, ld in ents), flush=True)
+
+
+HH_AUTO_DIMS = (2, 8, 50, 128)
+HH_AUTO_BATCH_LOG2 = (10, 14, 17, 20)
+
+
+def phase_householder_auto(et, gen, device, card):
+    """Householder's two plain routes on the card: the scan (one reflection
+    at a time, memory-free backward) against the dense product x Q^T, each
+    forward and backward (y.sum() to V and x), at d in HH_AUTO_DIMS, batch
+    2^10 .. 2^20 and k from 1 to d, timed scan, dense, dense, scan. Prints
+    which route was faster where and how often ``Householder(mode="auto")``
+    picks the faster one, and writes every time to
+    chiprun_out/householder_auto.json. Returns the rows."""
+    from enflows_tpu_torch.bijectors.householder import (
+        householder_chain, householder_chain_dense)
+
+    rows = []
+    for d in HH_AUTO_DIMS:
+        for k in sorted({1, 2, 4, max(1, d // 2), d}):
+            V = torch.randn(k, d, generator=gen, device=device)
+            for lb in HH_AUTO_BATCH_LOG2:
+                x = torch.randn(1 << lb, d, generator=gen, device=device)
+                Vr = V.clone().requires_grad_(True)
+                xr = x.clone().requires_grad_(True)
+
+                def run(fn):
+                    return torch.autograd.grad(fn(Vr, xr).sum(), [Vr, xr])
+
+                scan = lambda: run(householder_chain)
+                dense = lambda: run(householder_chain_dense)
+                t = [cuda_ms(f, iters=3, warmup=1)
+                     for f in (scan, dense, dense, scan)]
+                rows.append(dict(d=d, k=k, batch=1 << lb,
+                                 scan_ms=min(t[0], t[3]),
+                                 dense_ms=min(t[1], t[2]),
+                                 auto_dense=bool(
+                                     et.Householder(V)._use_dense(x))))
+    agree = sum((r["dense_ms"] < r["scan_ms"]) == r["auto_dense"]
+                for r in rows)
+    lost = sum(abs(r["dense_ms"] - r["scan_ms"]) for r in rows
+               if (r["dense_ms"] < r["scan_ms"]) != r["auto_dense"])
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "householder_auto.json"),
+              "w") as fh:
+        json.dump(dict(card=card, rows=rows), fh)
+    faster = "; ".join(
+        f"d={d}: " + ", ".join(
+            f"k={r['k']} 2^{r['batch'].bit_length() - 1} "
+            f"{'D' if r['dense_ms'] < r['scan_ms'] else 'S'}"
+            f"{r['scan_ms'] / r['dense_ms']:.2f}"
+            for r in rows if r["d"] == d)
+        for d in HH_AUTO_DIMS)
+    print(f"[householder auto] forward + backward, D: dense faster, S: scan, "
+          f"then scan ms / dense ms: {faster}; mode='auto' picks the faster "
+          f"route in {agree} of {len(rows)} cases (loses {lost:.3f} ms "
+          f"summed over the others) [{card}]", flush=True)
+    return rows
+
+
+def device_kernel_us(prof):
+    """({kernel name: device microseconds}, device ops) from a
+    ``torch.profiler`` run: the device-side events, without the user
+    annotations (such as Optimizer.step#...), whose device time is that of
+    the kernels inside them and would count it twice."""
+    from torch.autograd import DeviceType
+
+    by_name, ops = {}, 0
+    for evt in prof.key_averages():
+        if (evt.device_type == DeviceType.CUDA and evt.device_time_total > 0
+                and not getattr(evt, "is_user_annotation", False)
+                and not evt.key.startswith("Optimizer.")):
+            by_name[evt.key] = by_name.get(evt.key, 0) + \
+                evt.device_time_total
+            ops += evt.count
+    return by_name, ops
+
+
+def profile_whitening_steps(name, initial, X, step_ms, card):
+    """Where a fused whitening train step's time goes: ``torch.profiler``
+    over one epoch of 4 steps of the trainer (after the slice warmed it
+    up), device time by kernel name, device ops per step, and the device's
+    idle share against the unprofiled step ``step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from enflows_tpu_torch.train import optimize_whitening
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        optimize_whitening(X, initial, nbatches=4, nepochs=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+    by_name, ops = device_kernel_us(prof)
+    busy = sum(by_name.values()) / 4e3
+    if not busy:
+        print(f"[whitening profile] {name}: no device time in the trace "
+              f"(not measured) [{card}]", flush=True)
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[whitening profile] {name}, 4 fused steps of 2^20 samples: "
+          f"device busy {busy:.4f} ms/step in {ops / 4:.0f} device ops a "
+          f"step, idle {100 * (1 - busy / step_ms):.1f}% of the unprofiled "
+          f"{step_ms:.3f} ms/step ({100 * (1 - busy / wall_ms):.1f}% of the "
+          f"profiled {wall_ms:.3f}); by kernel, ms/step: "
+          + ", ".join(f"{k[:40]} {us / 4e3:.4f} ({100 * us / 4e3 / busy:.1f}%)"
+                      for k, us in top) + f" [{card}]", flush=True)
 
 
 def train_and_evaluate(et, EW, name, model, X):
@@ -1177,7 +1454,6 @@ def profile_coupling_steps(kind, initial, X, card):
     over one epoch of 4 steps of the trainer (after the runs above warmed
     it up), device time summed by kernel name, and the device's idle share
     of the host-clock wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from enflows_tpu_torch.train import optimize_whitening
@@ -1191,11 +1467,7 @@ def profile_coupling_steps(kind, initial, X, card):
                            use_fused="coupling")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0) + \
-                evt.device_time_total
+    by_name, _ = device_kernel_us(prof)
     busy = sum(by_name.values())
     if not busy:
         print(f"[profile] coupling {kind}: no device time in the trace "
@@ -1412,6 +1684,22 @@ def phase_b6_sweep(et, TL, gen, device):
         worst = max(worst, hold_leapfrog(TL, chain, q, p, 0.02, 8,
                                          f"B6 sweep d={d} {kinds} {opts}",
                                          **kw))
+    # JohnsonInv at |v| in (87, 88], where ex2.approx.ftz flushes e^{-|v|}
+    # to 0 but e^{|v|} is finite, its output brought back to O(10) so that
+    # logp and its gradient stay finite in f32
+    # (tests/test_torch_leapfrog.py _johnson_inv_edge).
+    v = lambda *a: torch.tensor(a, device=device)
+    edge = et.compose(et.JohnsonInv(v(0.0, 0.0), v(1.0, 1.0), v(0.0, 0.0),
+                                    v(1.0, 1.0)),
+                      et.ScaleShift(v(1e-37, 1e-37), v(0.0, 0.0)))
+    q = (v(88.0, -88.0)[None]
+         - torch.linspace(0.0, 1.0, 64, device=device)[:, None]).contiguous()
+    p = torch.zeros_like(q)
+    got = TL.fused_leapfrog(edge, q, p, 1e-3, 2)
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          "B6 at the JohnsonInv edge is not finite")
+    worst = max(worst, hold_leapfrog(TL, edge, q, p, 1e-3, 2,
+                                     "B6 sweep JohnsonInv edge |v| <= 88"))
     wide = sweep_chain(et, 129, ["ss", "hh"], gen, device)
     z = torch.zeros(4, 129, device=device)
     try:
@@ -1429,8 +1717,9 @@ def phase_b6_sweep(et, TL, gen, device):
           f"{sorted({d for d, _, _, _ in LF_SWEEP})}, with a diagonal mass "
           f"and a diagonal-Gaussian base: q_L, p_L, logp_0, logp_L within "
           f"tolerance of the float64 plain version (worst |B6 - f64| "
-          f"{worst:.3e}); paths: {', '.join(sorted(paths))}; d=129 with a "
-          f"Householder refused", flush=True)
+          f"{worst:.3e}, the JohnsonInv edge at |v| <= 88 included); paths: "
+          f"{', '.join(sorted(paths))}; d=129 with a Householder refused",
+          flush=True)
 
 
 def phase_b6_adapted(TL, chain, q, step_size, gen, device, card):
@@ -1537,7 +1826,6 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
     on the host clock ending in a synchronize; then torch.profiler over 5
     fused transitions for the card's busy time, whose idle share is taken
     against the unprofiled ms per transition."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from enflows_tpu_torch.mcmc.fused_hmc import _sample
@@ -1565,11 +1853,7 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = run(TL.fused_leapfrog, 5)
-    by_name = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
-            by_name[evt.key] = by_name.get(evt.key, 0) + \
-                evt.device_time_total
+    by_name, _ = device_kernel_us(prof)
     busy_ms = sum(by_name.values()) / 1e3 / 5
     b6_ms = sum(us for k, us in by_name.items() if "leapfrog" in k) / 1e3 / 5
     # The idle share is the busy time against the unprofiled transition:
@@ -1620,13 +1904,20 @@ def main():
              if "registers" in ln or "spill" in ln]
     print(f"[build] nvcc {seconds:.1f} s -> {os.path.relpath(so, HERE)}; "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
+    ew_ptxas(report)
 
     gen = torch.Generator(device=device).manual_seed(0)
     b1 = phase_b1(et, EW, 2, 1 << 24, gen, device, smi)
     phase_b1(et, EW, 50, 1 << 17, gen, device, smi)
     b2 = phase_b2(et, EW, 2, 1 << 22, gen, device, smi)
     b3 = phase_b3(et, EW, 2, 1 << 22, gen, device, smi)
+    # The slice's batch; the phases that earlier versions of this script
+    # did not have draw from generators of their own, so that every other
+    # phase sees the inputs it always saw.
+    phase_b3(et, EW, 2, 1 << 20, torch.Generator(device=device).manual_seed(6),
+             device, smi)
     phase_sweep(et, EW, gen, device)
+    phase_corners(et, EW, device)
     phase_b3(et, EW, 50, 1 << 17, gen, device, smi)
 
     # The slice. Data and models are made before the counters are reset.
@@ -1659,12 +1950,16 @@ def main():
             runs[path].append(((time.perf_counter() - t0) * 1e3 / 12, hist))
         plain = runs["plain"][0][1]
         rel = float(((hists[k] - plain).abs() / plain.abs()).max())
+        fused_step = min(t for t, _ in runs["fused"])
         print(f"[slice] {k}: plain-path history "
               f"{[round(float(h), 5) for h in plain]}; max rel diff "
               f"{rel:.3e}; warm ms/step (host clock, 2^20 samples): fused "
-              f"{min(t for t, _ in runs['fused']):.3f}, plain "
+              f"{fused_step:.3f}, plain "
               f"{min(t for t, _ in runs['plain']):.3f} [{smi}]", flush=True)
         check(rel <= SLICE_RTOL, f"{k}: fused vs plain history {rel:.3e}")
+        profile_whitening_steps(k, m, X, fused_step, smi)
+    phase_householder_auto(
+        et, torch.Generator(device=device).manual_seed(7), device, smi)
 
     # The coupling-flow path: B4 and B5 at the BASELINE config, the sweep,
     # then the slice, one main-path run per stack.

@@ -122,11 +122,16 @@ class Householder(Bijector):
         k, d = self.vmat().shape
         if x.dim() < 2:
             return False
-        batch = x.numel() // x.shape[-1]
-        # Crossover from householder.py:175. It was measured on a TPU v5e
-        # (MXU matmul vs VPU sweeps) and is kept only so that both packages
-        # take the same path; it has not been measured on a GPU.
-        return d <= 128 and batch * k >= 32 * d
+        # Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+        # [householder auto]: forward and backward at d = 2, 8, 50, 128,
+        # batch 2^10 - 2^20, k = 1 .. d, four runs): at d = 50 and 128 and
+        # batch 2^20 the dense product was 1.5x (k = 1) to 14x (k = 64)
+        # faster; at d <= 8, and at batch 2^10, both routes take about a
+        # millisecond of host launches and swap places between runs. The
+        # scan stays for a single reflection at small d, and beyond
+        # d = 128, where nothing was measured and it stores no (d, d)
+        # matrix.
+        return d <= 128 and (k >= 2 or d >= 32)
 
     def forward(self, x):
         V = self.vmat()

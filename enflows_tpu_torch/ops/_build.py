@@ -33,18 +33,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, y, ladj, P, Qt, codes, args, n_stages, n, d, tile, grid, block,
-    # smem, stream
-    "enf_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
-                      _I, _P],
-    # x, gy, gladj, gx, P, Q, Qt, codes, args, n_stages, n, d, tile, grid,
-    # block, smem, n_pslots, n_hh, groups, p_part, q_part, stream
-    "enf_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # x, P, Q, Qt, codes, args, n_stages, n, d, tile, grid, block, smem,
-    # n_pslots, n_hh, groups, loss_part, p_part, q_part, stream
-    "enf_fused_negll": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _P, _P, _P, _P],
+    # mode, x, gy, gladj, y, ladj, gx, P, rows, Q, Qt, scratch, loss_part,
+    # p_part, w_part, q_part, words, n_stages, n, d, G, E, n_pslots, n_rows,
+    # n_dense, n_acc, packed, grid, block, smem, stream
+    "enf_fused_chain": [_I] + [_P] * 16 + [_I, _LL] + [_I] * 11 + [_P],
+    # mode, E, block, smem, blocks_per_sm, regs, local_bytes
+    "enf_chain_occupancy": [_I] * 4 + [_P] * 3,
     # x, y, ladj, Wk, P, items, item floats, n_items, layers, n_layers, n,
     # d, ldh, tm, scratch, stage inputs, smem, grid, shift, stream
     "enf_coupling_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _I,

@@ -339,8 +339,10 @@ __device__ __forceinline__ void lf_ji(float (&x)[E], float (&P)[E],
     const float id = k[DC];
     const float v = (x[i] - k[0]) * id;
     const float av = fabsf(v);
+    // e^{|v|} directly: 1 / e^{-|v|} would turn inf from |v| ~ 87.3, where
+    // ex2.approx.ftz flushes e^{-|v|} to 0; this is finite to |v| ~ 88.7.
     const float ei = lf_exp(-av);
-    const float e = lf_rcp(ei);
+    const float e = lf_exp(av);
     const float sg = sgnf(v);
     const float ei2 = ei * ei;
     x[i] = k[2 * DC] * (sg * 0.5f * (e - ei)) + k[3 * DC];

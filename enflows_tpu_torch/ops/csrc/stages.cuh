@@ -1,9 +1,10 @@
 // Stage bodies shared by the fused kernels of elementwise.cu (B1-B3),
-// coupling.cu (B4, B5) and leapfrog.cu (B6): one elementwise stage's forward
-// and its hand-derived adjoint at one element, and the product of a tile of
-// samples with a Householder stage's (d, d) matrix. Parameter slot
-// q holds a (d,) vector at P[q*d .. q*d+d). The adjoints follow the torch
-// functions _adjoint_* in enflows_tpu_torch/ops/elementwise.py line by line.
+// coupling.cu (B4, B5) and leapfrog.cu (B6): the stage codes, and one
+// elementwise stage's forward and its hand-derived adjoint at one element
+// (B4/B5; B1-B3 and B6 run their own forms on hoisted constants). Parameter
+// slot q holds a (d,) vector at P[q*d .. q*d+d). The adjoints follow the
+// torch functions _adjoint_* in enflows_tpu_torch/ops/elementwise.py line by
+// line.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,50 +14,12 @@ enum { SS = 0, CC = 1, CS = 2, JF = 3, JI = 4, HH = 5 };
 #define ENF_LOG2 0.6931471805599453f
 #define ENF_LOG_2PI 1.8378770664093453f
 
-// The chain of a fused elementwise kernel (B1-B3, B6), passed by value:
-//   code[k]  stage kind (SS, CC, CS, JF, JI, HH above);
-//   arg[k]   elementwise stage: its first parameter slot in P;
-//            Householder stage: the index of its (d, d) Q in Q.
+// At most this many stages in a fused chain (B1-B3, B6).
 #define ENF_MAX_STAGES 32
-
-struct Plan {
-  int n_stages;
-  int code[ENF_MAX_STAGES];
-  int arg[ENF_MAX_STAGES];
-};
-
-static inline int make_plan(Plan* plan, const int* codes, const int* args,
-                            int n_stages) {
-  if (n_stages < 0 || n_stages > ENF_MAX_STAGES) return 1;
-  plan->n_stages = n_stages;
-  for (int k = 0; k < ENF_MAX_STAGES; ++k) {
-    plan->code[k] = k < n_stages ? codes[k] : 0;
-    plan->arg[k] = k < n_stages ? args[k] : 0;
-  }
-  return 0;
-}
 
 __device__ __forceinline__ float par(const float* __restrict__ P, int slot,
                                      int d, int j) {
   return __ldg(P + (size_t)slot * d + j);
-}
-
-// out[s, k] = sum_j in[s, j] * M[j, k] (out = in M) over the tile's
-// ne = ns * d elements; in and out in shared memory, M (d, d) row-major in
-// device memory. A Householder stage's forward y = x Q^T passes M = Q^T
-// (the wrappers pass Q^T beside Q), its input cotangent cy Q passes M = Q:
-// either way neighbouring threads read neighbouring elements of M. (Reading
-// Q with a stride of d for the forward made B6 1.5x slower on an H100.)
-__device__ __forceinline__ void householder_apply(
-    const float* in, float* out, const float* __restrict__ M, int ne, int d) {
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const int s = e / d, k = e - s * d;
-    const float* row = in + s * d;
-    const float* col = M + k;
-    float acc = 0.f;
-    for (int j = 0; j < d; ++j, col += d) acc = fmaf(row[j], __ldg(col), acc);
-    out[e] = acc;
-  }
 }
 
 __device__ __forceinline__ float sgnf(float v) {

@@ -20,17 +20,21 @@ The TPU layout machinery (packing, event padding, the multirow layout,
 pattern rows, the block-diagonal Householder, tile constants) has no
 counterpart: a contiguous (n, d) CUDA tensor is already row-major flat.
 
-The kernel receives its chain at run time as a plan: one code per stage, a
-flat f32 buffer of per-dimension parameter vectors (scalars broadcast to
-(d,)) and one (d, d) matrix Q per Householder stage, built here by
-``householder_matrix``. The kernels' parameter cotangents are mapped back onto
-the chain's Parameters by autograd through that construction, as the JAX
-version does by a vjp over it (elementwise.py:933-938).
+The kernels receive their chain at run time as a plan (``chain_plan``):
+four ints per stage, a flat f32 buffer of per-dimension parameter vectors
+(scalars broadcast to (d,)), each Householder stage either as its
+normalized rows (``reflection_rows``, applied one reflection at a time) or
+as its (d, d) matrix Q (``householder_matrix``), and a launch
+(``lane_group``, ``chain_geometry``). The kernels' cotangents of those
+buffers are mapped back onto the chain's Parameters by autograd through
+their construction, as the JAX version does by a vjp over it
+(elementwise.py:933-938).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -57,17 +61,19 @@ MAX_DIM = 2048               # d limit of an elementwise-only chain
 # a launch succeeds and nowhere else.
 LAUNCHES = {"fwd": 0, "bwd": 0, "negll": 0}
 
-# Stage codes of csrc/elementwise.cu.
+# Stage codes of csrc/stages.cuh; _HD (csrc/elementwise.cu) is a Householder
+# stage applied as its dense Q.
 _CODE = {ScaleShift: 0, CenterContract: 1, CenterStretch: 2, Johnson: 3,
          JohnsonInv: 4, Householder: 5}
 _HH = 5
+_HD = 6
 
-_BLOCK = 256                   # threads per block
-_FWD_SMEM = 48 * 1024          # B1: 3 tiles of tile * d floats
-_FWD_TILE_MAX = 2048
-_GRAD_SMEM = 100 * 1024        # B2/B3: two blocks per SM
-_GRAD_SMEM_MAX = 232448 - 128  # the card's opt-in limit, less the scratch
-_GRAD_TILE_MAX = 512
+_MODE = {"fwd": 0, "bwd": 1, "negll": 2}   # EW_FWD, EW_BWD, EW_NEGLL
+_EW_BLOCK = 256           # threads per block (EW_BLOCK_MAX)
+_EW_NCONST = 6            # constants per stage and column (EW_NCONST)
+_EW_NREG = {1: 8, 2: 4, 4: 2}   # stage inputs in registers (ew_nreg)
+_SMEM_MAX = 232448        # the card's opt-in shared memory per block
+_MAX_TILE = 128           # columns in flight: 32 lanes x 4 elements
 
 
 def _stages(chain) -> tuple:
@@ -79,18 +85,6 @@ def _n_pslots(stages) -> int:
                if not isinstance(s, Householder))
 
 
-def _grad_tile(n_stages: int, n_pslots: int, d: int, negll: bool):
-    """(samples per tile, shared bytes) of B2/B3, or (0, 0) if not even one
-    sample fits: every stage's input, the per-slot gradient sums and, for
-    B3, the loss sums are held for the whole tile."""
-    per_sample = 4 * d * (n_stages + 1 + n_pslots + (1 if negll else 0))
-    for budget in (_GRAD_SMEM, _GRAD_SMEM_MAX):
-        tile = min(_GRAD_TILE_MAX, budget // per_sample)
-        if tile > 0:
-            return tile, tile * per_sample + 128
-    return 0, 0
-
-
 def is_fusible_chain(chain, dim: int, dtype=torch.float32) -> bool:
     """Whether the fused kernels take this chain
     (``enflows_tpu/ops/pallas/elementwise.py:117-137``).
@@ -98,16 +92,15 @@ def is_fusible_chain(chain, dim: int, dtype=torch.float32) -> bool:
     Every stage is ScaleShift, CenterContract, CenterStretch, Johnson,
     JohnsonInv or Householder; the dtype is f32 (bf16 storage is not ported
     yet); d <= 128 with a Householder stage and d <= 2048 without; at most
-    32 stages, whose tile fits the card's shared memory."""
+    32 stages. Every such chain has a launch (``chain_plan``,
+    ``chain_geometry``)."""
     if dtype != torch.float32 or dim > MAX_DIM or dim < 1:
         return False
     stages = _stages(chain)
     if len(stages) > MAX_STAGES:
         return False
     kinds = ELEMENTWISE_KINDS if dim > MAX_HOUSEHOLDER_DIM else FUSIBLE_KINDS
-    if not all(type(s) in kinds for s in stages):
-        return False
-    return _grad_tile(len(stages), _n_pslots(stages), dim, True)[0] > 0
+    return all(type(s) in kinds for s in stages)
 
 
 # ------------------------------------------------------------------
@@ -346,36 +339,147 @@ def negll_value_and_grad_plain(chain, x):
 
 
 # ------------------------------------------------------------------
+# The kernels' plan and geometry (csrc/elementwise.cu).
+
+def lane_group(d: int) -> tuple[int, int]:
+    """(G, E): G lanes own a sample, E elements each. At d <= 4 a group is
+    one thread (E = 1, 2 or 4 covering d); wider, E = 4 and G the power of
+    two that covers min(d, 128) columns. Chains wider than 128 (no
+    Householder stage) are walked in column tiles of G E = 128."""
+    if d <= 4:
+        return 1, 1 if d == 1 else 2 if d == 2 else 4
+    w = min(d, _MAX_TILE)
+    return 1 << math.ceil(math.log2(-(-w // 4))), 4
+
+
+def reflection_rows(stage, dtype=None):
+    """A Householder stage's normalized rows w_r = v_r / |v_r| in the order
+    they are applied: y = x Q^T is x <- x - 2 (w_r . x) w_r for r = 0..k-1,
+    the adjoint c Q the same in reverse (``householder_matrix``'s Q =
+    H_{k-1} ... H_0). Differentiable."""
+    V = stage.vmat()
+    V = V if dtype is None else V.to(dtype)
+    return V * torch.rsqrt((V * V).sum(-1, keepdim=True))
+
+
+def _header_bytes(n_stages: int, n_rows: int, dc: int) -> int:
+    """Shared memory of a block besides the lane-private words: the plan
+    (16 bytes a stage), the tile's constants, the reflection rows and 32
+    floats for the loss."""
+    return 16 * n_stages + 4 * (_EW_NCONST * n_stages * dc + n_rows * dc
+                                + 32)
+
+
+class ChainPlan(NamedTuple):
+    """What B1-B3 are told about a chain at width d: 4 ints per stage
+    (code, a, b, acc; ``EwPlan`` in csrc/elementwise.cu), which Householder
+    stages run as reflections and which as dense Q, and the lane's words."""
+    words: tuple
+    n_stages: int
+    n_pslots: int
+    n_rows: int
+    n_dense: int
+    reflect: tuple         # stage indices applied reflection by reflection
+    dense: tuple           # stage indices applied as their dense Q
+    n_acc: int             # accumulator words per lane
+    d: int
+    G: int
+    E: int
+
+    def n_words(self, mode: str) -> int:
+        """Lane-private words of a lane: B2/B3's accumulators and the stage
+        inputs beyond the registers; B1 keeps none."""
+        if mode == "fwd":
+            return 0
+        spill = max(0, self.n_stages - _EW_NREG[self.E])
+        return self.n_acc + spill * self.E
+
+
+def chain_plan(chain, d: int) -> ChainPlan:
+    """B1-B3's plan of ``chain`` at width d. Each elementwise stage takes its
+    parameter slots in order, its sums at words slot E + i. A Householder
+    stage of k reflections runs reflection by reflection where 2 k <= d
+    (4 d k FLOP against the dense 2 d^2), its row cotangents at k E words,
+    else as its dense Q, dQ at E d words; while the rows would not fit a
+    32-thread block's shared memory, the stage with the most rows goes
+    dense too."""
+    stages = _stages(chain)
+    G, E = lane_group(d)
+    dc = G * E
+    ks = {i: s.vmat().shape[0] for i, s in enumerate(stages)
+          if isinstance(s, Householder)}
+    reflect = {i for i, k in ks.items() if 2 * k <= d}
+    while _header_bytes(len(stages), sum(ks[i] for i in reflect),
+                        dc) > _SMEM_MAX:
+        reflect.remove(max(sorted(reflect), key=ks.get))
+    n_pslots = _n_pslots(stages)
+    words, pslot, row, dense, acc = [], 0, 0, [], n_pslots * E
+    for i, s in enumerate(stages):
+        if i in reflect:
+            words += [_HH, row, ks[i], acc]
+            row += ks[i]
+            acc += ks[i] * E
+        elif i in ks:
+            words += [_HD, len(dense), 0, acc]
+            dense.append(i)
+            acc += E * d
+        else:
+            words += [_CODE[type(s)], pslot, 0, pslot * E]
+            pslot += len(s.fields())
+    return ChainPlan(tuple(words), len(stages), n_pslots, row, len(dense),
+                     tuple(sorted(reflect)), tuple(dense), acc, d, G, E)
+
+
+class Geometry(NamedTuple):
+    block: int             # threads per block
+    grid: int
+    smem: int              # bytes of shared memory per block
+    scratch: bool          # lane-private words in device memory
+
+
+def chain_geometry(plan: ChainPlan, n: int, mode: str,
+                   blocks_per_sm=None, sms: int = 132) -> Geometry:
+    """The launch of B1 (mode "fwd"), B2 ("bwd") or B3 ("negll"):
+    _EW_BLOCK threads per block (halved, down to 32, while B2/B3's
+    lane-private words would not fit shared memory; where they do not fit
+    at 32 either, they go to a device scratch at _EW_BLOCK), and as many
+    blocks as are resident at once (``blocks_per_sm(block, smem)``, the
+    card's occupancy query; 1 if None), each walking its samples in a
+    grid-stride loop, but no more than the samples need."""
+    dc = plan.G * plan.E
+    head = _header_bytes(plan.n_stages, plan.n_rows, dc)
+    words = plan.n_words(mode)
+    block, scratch = _EW_BLOCK, False
+    while block > 32 and head + 4 * words * block > _SMEM_MAX:
+        block //= 2
+    if head + 4 * words * block > _SMEM_MAX:
+        block, scratch = _EW_BLOCK, True
+    smem = head + (0 if scratch else 4 * words * block)
+    per_sm = blocks_per_sm(block, smem) if blocks_per_sm else 1
+    need = -(-n // (block // plan.G))
+    return Geometry(block, max(1, min(need, per_sm * sms)), smem, scratch)
+
+
+# ------------------------------------------------------------------
 # CUDA wrappers.
 
-class _Plan(NamedTuple):
-    codes: tuple
-    args: tuple
-    n_pslots: int
-    n_hh: int
-    d: int
-
-
-def _chain_plan(chain, d: int, device):
-    """(plan, pbuf, qbuf): the stage codes and arguments, the flat f32
-    per-dimension parameter buffer (n_pslots * d,) and the stacked
-    Householder matrices (n_hh, d, d), both differentiable functions of the
-    chain's Parameters."""
-    codes, args, pvecs, qs = [], [], [], []
-    for s in _stages(chain):
-        codes.append(_CODE[type(s)])
-        if isinstance(s, Householder):
-            args.append(len(qs))
-            qs.append(householder_matrix(s.vmat(), dtype=torch.float32))
-        else:
-            args.append(len(pvecs))
-            pvecs.extend(p.to(torch.float32).expand(d)
-                         for p in s.fields().values())
-    f32 = dict(dtype=torch.float32, device=device)
-    pbuf = torch.cat(pvecs) if pvecs else torch.zeros(0, **f32)
-    qbuf = torch.stack(qs) if qs else torch.zeros(0, d, d, **f32)
-    plan = _Plan(tuple(codes), tuple(args), len(pvecs), len(qs), d)
-    return plan, pbuf.contiguous(), qbuf.contiguous()
+def _chain_plan(chain, d: int, device, dtype=torch.float32):
+    """(plan, (pbuf, rbuf, qbuf)): the kernels' plan, the flat
+    per-dimension parameter buffer (n_pslots * d,), the reflection stages'
+    normalized rows (n_rows, d) and the dense stages' Q (n_dense, d, d), all
+    differentiable functions of the chain's Parameters."""
+    plan = chain_plan(chain, d)
+    stages = _stages(chain)
+    pvecs = [p.to(dtype).expand(d) for s in stages
+             if not isinstance(s, Householder) for p in s.fields().values()]
+    rows = [reflection_rows(stages[i], dtype) for i in plan.reflect]
+    qs = [householder_matrix(stages[i].vmat(), dtype=dtype)
+          for i in plan.dense]
+    f = dict(dtype=dtype, device=device)
+    pbuf = torch.cat(pvecs) if pvecs else torch.zeros(0, **f)
+    rbuf = torch.cat(rows) if rows else torch.zeros(0, d, **f)
+    qbuf = torch.stack(qs) if qs else torch.zeros(0, d, d, **f)
+    return plan, (pbuf.contiguous(), rbuf.contiguous(), qbuf.contiguous())
 
 
 def _check_cuda_input(chain, x, fusible=None):
@@ -418,93 +522,104 @@ def _raise_on(lib, err: int, kernel: str):
                            f"{err} ({msg})")
 
 
-def _transposed(qbuf):
-    """Q^T of each stacked Householder matrix, contiguous: the kernels'
-    forward product x Q^T reads it (csrc/stages.cuh, householder_apply)."""
-    return qbuf.detach().transpose(1, 2).contiguous()
+def occupancy(mode: str, E: int, block: int, smem: int) -> tuple:
+    """(blocks per SM, registers per thread, local bytes) of B1/B2/B3's
+    instantiation for E elements per lane at ``block`` threads and ``smem``
+    bytes (the card's occupancy query)."""
+    return _occupancy(_MODE[mode], E, block, smem)
 
 
-def _launch_fwd(plan: _Plan, x, pbuf, qbuf):
+@functools.cache
+def _occupancy(mode: int, E: int, block: int, smem: int) -> tuple:
+    from ._build import load_library
+
+    lib = load_library()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = lib.enf_chain_occupancy(mode, E, block, smem,
+                                  *map(ctypes.byref, vals))
+    _raise_on(lib, err, "B1-B3 occupancy query")
+    return tuple(v.value for v in vals)
+
+
+_NAMES = {"fwd": "B1 (fused forward)", "bwd": "B2 (fused bwd)",
+          "negll": "B3 (fused negll)"}
+
+
+def _launch(mode: str, plan: ChainPlan, x, bufs, gy=None, gladj=None):
+    """One launch of B1 (``mode`` "fwd": returns (y, ladj)), B2 ("bwd":
+    (gx, gp, gw, gq) for the cotangents gy (n, d) and gladj (n,)) or B3
+    ("negll": (loss sum, gp, gw, gq), unscaled: c_y = y, c_ladj = -1). gp,
+    gw and gq are the cotangents of the plan's buffers, the blocks'
+    partials summed here in order (elementwise.py:742, :905)."""
     from ._build import load_library
 
     lib = load_library()
     n, d = x.shape
-    y = torch.empty_like(x)
-    ladj = torch.empty(n, dtype=torch.float32, device=x.device)
-    tile = max(1, min(_FWD_TILE_MAX, _FWD_SMEM // (12 * d)))
-    grid = min(-(-n // tile), 8 * _sm_count(x.device.index))
-    qt = _transposed(qbuf)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.enf_fused_fwd(
-            x.data_ptr(), y.data_ptr(), ladj.data_ptr(), pbuf.data_ptr(),
-            qt.data_ptr(), _ints(plan.codes), _ints(plan.args),
-            len(plan.codes), n, d, tile, grid, _BLOCK, 12 * tile * d, stream)
-    _raise_on(lib, err, "B1 (fused forward)")
-    LAUNCHES["fwd"] += 1
-    return y, ladj
-
-
-def _launch_grad(plan: _Plan, x, pbuf, qbuf, gy=None, gladj=None):
-    """B3 when ``gy`` is None: (loss sum, pbuf cotangent, qbuf cotangent),
-    unscaled (c_y = y, c_e = -1). B2 otherwise: (gx, pbuf cotangent, qbuf
-    cotangent) for the cotangents gy (n, d) and gladj (n,)."""
-    from ._build import load_library
-
-    lib = load_library()
-    negll = gy is None
-    n, d = x.shape
-    tile, smem = _grad_tile(len(plan.codes), plan.n_pslots, d, negll)
-    per_sm = 2 if smem <= _GRAD_SMEM + 128 else 1
-    grid = min(-(-n // tile), per_sm * _sm_count(x.device.index))
-    groups = max(1, _BLOCK // (d * d))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    p_part = torch.empty(grid, plan.n_pslots * d, **f32)
-    q_part = torch.zeros(grid, plan.n_hh, groups, d, d, **f32)
-    qt = _transposed(qbuf)
-    common = (_ints(plan.codes), _ints(plan.args), len(plan.codes), n, d,
-              tile, grid, _BLOCK, smem, plan.n_pslots, plan.n_hh, groups)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if negll:
-            loss_part = torch.empty(grid, **f32)
-            err = lib.enf_fused_negll(
-                x.data_ptr(), pbuf.data_ptr(), qbuf.data_ptr(),
-                qt.data_ptr(), *common,
-                loss_part.data_ptr(), p_part.data_ptr(), q_part.data_ptr(),
-                stream)
+    pbuf, rbuf, qbuf = bufs
+    dev = x.device
+    geo = chain_geometry(
+        plan, n, mode, lambda b, sm: occupancy(mode, plan.E, b, sm)[0],
+        _sm_count(dev.index))
+    f32 = dict(dtype=torch.float32, device=dev)
+    qt = qbuf.transpose(1, 2).contiguous()
+    outs = {k: torch.empty(0, **f32) for k in
+            ("y", "ladj", "gx", "loss", "p", "w", "q", "scratch")}
+    if mode == "fwd":
+        outs["y"] = torch.empty_like(x)
+        outs["ladj"] = torch.empty(n, **f32)
+    else:
+        outs["p"] = torch.empty(geo.grid, plan.n_pslots * d, **f32)
+        outs["w"] = torch.empty(geo.grid, plan.n_rows * d, **f32)
+        outs["q"] = torch.empty(geo.grid, plan.n_dense * d * d, **f32)
+        if mode == "negll":
+            outs["loss"] = torch.empty(geo.grid, **f32)
         else:
-            gx = torch.empty_like(x)
-            err = lib.enf_fused_bwd(
-                x.data_ptr(), gy.data_ptr(), gladj.data_ptr(), gx.data_ptr(),
-                pbuf.data_ptr(), qbuf.data_ptr(), qt.data_ptr(), *common,
-                p_part.data_ptr(), q_part.data_ptr(), stream)
-    _raise_on(lib, err, "B3 (fused negll)" if negll else "B2 (fused bwd)")
-    LAUNCHES["negll" if negll else "bwd"] += 1
-    # Per-block partials summed here, deterministically (elementwise.py:742,
-    # :905).
-    gp = p_part.sum(0)
-    gq = q_part.sum((0, 2))
-    return (loss_part.sum() if negll else gx), gp, gq
+            outs["gx"] = torch.empty_like(x)
+        if geo.scratch:
+            outs["scratch"] = torch.empty(
+                geo.grid * geo.block * plan.n_words(mode), **f32)
+    ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
+    rows_io = [x, gy, outs["y"], outs["gx"]]
+    packed = (plan.G == 1 and d == plan.E and plan.E > 1
+              and all(t.data_ptr() % (4 * plan.E) == 0
+                      for t in rows_io if t is not None and t.numel()))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.enf_fused_chain(
+            _MODE[mode], x.data_ptr(), ptr(gy), ptr(gladj), ptr(outs["y"]),
+            ptr(outs["ladj"]), ptr(outs["gx"]), ptr(pbuf), ptr(rbuf),
+            ptr(qbuf), ptr(qt), ptr(outs["scratch"]), ptr(outs["loss"]),
+            ptr(outs["p"]), ptr(outs["w"]), ptr(outs["q"]),
+            _ints(plan.words), plan.n_stages, n, d, plan.G, plan.E,
+            plan.n_pslots, plan.n_rows, plan.n_dense, plan.n_acc,
+            int(packed), geo.grid, geo.block, geo.smem, stream)
+    _raise_on(lib, err, _NAMES[mode])
+    LAUNCHES[mode] += 1
+    if mode == "fwd":
+        return outs["y"], outs["ladj"]
+    grads = (outs["p"].sum(0), outs["w"].sum(0).view(plan.n_rows, d),
+             outs["q"].sum(0).view(plan.n_dense, d, d))
+    first = outs["loss"].sum() if mode == "negll" else outs["gx"]
+    return (first, *grads)
 
 
 class _FusedChain(torch.autograd.Function):
     """Forward: B1. Backward: B2 (elementwise.py:510-525, :993-1012)."""
 
     @staticmethod
-    def forward(ctx, x, pbuf, qbuf, plan):
-        y, ladj = _launch_fwd(plan, x, pbuf, qbuf)
-        ctx.save_for_backward(x, pbuf, qbuf)
+    def forward(ctx, x, pbuf, rbuf, qbuf, plan):
+        y, ladj = _launch("fwd", plan, x, (pbuf, rbuf, qbuf))
+        ctx.save_for_backward(x, pbuf, rbuf, qbuf)
         ctx.plan = plan
         return y, ladj
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gladj):
-        x, pbuf, qbuf = ctx.saved_tensors
-        gx, gp, gq = _launch_grad(ctx.plan, x, pbuf, qbuf,
-                                  gy.contiguous(), gladj.contiguous())
-        return gx, gp, gq, None
+        x, *bufs = ctx.saved_tensors
+        gx, gp, gw, gq = _launch("bwd", ctx.plan, x, bufs, gy.contiguous(),
+                                 gladj.contiguous())
+        return gx, gp, gw, gq, None
 
 
 def fused_forward_and_ladj(chain, x):
@@ -518,8 +633,8 @@ def fused_forward_and_ladj(chain, x):
     if x.device.type == "cpu":
         return forward_and_ladj_plain(chain, x)
     _check_cuda_input(chain, x)
-    plan, pbuf, qbuf = _chain_plan(chain, x.shape[1], x.device)
-    return _FusedChain.apply(x, pbuf, qbuf, plan)
+    plan, bufs = _chain_plan(chain, x.shape[1], x.device)
+    return _FusedChain.apply(x, *bufs, plan)
 
 
 def fused_negll_value_and_grad(chain, x):
@@ -528,8 +643,9 @@ def fused_negll_value_and_grad(chain, x):
 
     Counterpart of ``fused_negll_value_and_grad``
     (``enflows_tpu/ops/pallas/elementwise.py:909-939``). On a CUDA tensor:
-    B3, whose parameter cotangents are mapped onto the chain's Parameters
-    by autograd through the plan's construction. On a CPU tensor:
+    B3, whose cotangents of the plan's buffers (parameters, reflection
+    rows, dense Q) are mapped onto the chain's Parameters by autograd
+    through the plan's construction. On a CPU tensor:
     ``negll_value_and_grad_plain``. The keys are those of
     ``chain.named_parameters()``."""
     _check_kinds(chain)
@@ -538,8 +654,8 @@ def fused_negll_value_and_grad(chain, x):
     _check_cuda_input(chain, x)
     n, d = x.shape
     with torch.enable_grad():
-        plan, pbuf, qbuf = _chain_plan(chain, d, x.device)
-        loss_sum, gp, gq = _launch_grad(plan, x, pbuf.detach(),
-                                        qbuf.detach())
-        grads = _grads_by_name(chain, [pbuf, qbuf], [gp / n, gq / n])
+        plan, bufs = _chain_plan(chain, d, x.device)
+        loss_sum, *gs = _launch("negll", plan, x,
+                                tuple(b.detach() for b in bufs))
+        grads = _grads_by_name(chain, list(bufs), [g / n for g in gs])
     return -loss_sum / n, grads

@@ -35,7 +35,7 @@ from ..bijectors.householder import Householder, householder_matrix
 from ..distributions.base import _LOG_2PI
 from .elementwise import (_ADJOINT, _APPLY, _CODE, _HH, _check_cuda_input,
                           _check_kinds, _ints, _raise_on, _stages,
-                          is_fusible_chain)
+                          is_fusible_chain, reflection_rows)
 
 _SMEM_MAX = 232448      # the card's opt-in shared memory per block
 _LF_BLOCK = 128         # threads per block (LF_BLOCK_MAX in csrc/leapfrog.cu)
@@ -155,16 +155,6 @@ def leapfrog_plan(chain, d: int, elements=None) -> LeapfrogPlan:
             pslot += len(s.fields())
     return LeapfrogPlan(tuple(words), len(stages), row, n_slots,
                         tuple(dense), tuple(sorted(reflect)))
-
-
-def reflection_rows(stage, dtype=None):
-    """A Householder stage's normalized rows w_r = v_r / |v_r| in the order
-    they are applied: y = x Q^T is x <- x - 2 (w_r . x) w_r for r = 0..k-1,
-    the adjoint c Q the same in reverse (``householder_matrix``'s Q =
-    H_{k-1} ... H_0)."""
-    V = stage.vmat()
-    V = V if dtype is None else V.to(dtype)
-    return V * torch.rsqrt((V * V).sum(-1, keepdim=True))
 
 
 def is_fusible_leapfrog(chain, dim: int, dtype=torch.float32) -> bool:

@@ -15,6 +15,7 @@ B5 (``ops.coupling.fused_coupling_forward_and_ladj``).
 """
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Any, Callable, NamedTuple
 
@@ -66,8 +67,8 @@ def mvnormal_negll_grad(flow: Bijector, X: torch.Tensor,
 
 class WhiteningResult(NamedTuple):
     """``enflows_tpu/train/whitening.py:82``. ``result`` is the trained flow
-    (the module passed in, updated in place); ``optimizer_state`` the
-    optimizer's ``state_dict()``."""
+    (a copy of the module passed in); ``optimizer_state`` the optimizer's
+    ``state_dict()``."""
     result: Bijector
     optimizer_state: Any
     negll_history: torch.Tensor
@@ -121,8 +122,11 @@ def optimize_whitening(
     (``enflows_tpu/train/whitening.py:116-330``).
 
     The n samples are split into ``nbatches`` equal batches, the remainder
-    dropped; the loop runs nepochs x nbatches steps. The flow is trained in
-    place and returned as ``result``.
+    dropped; the loop runs nepochs x nbatches steps. A copy of the flow
+    (``copy.deepcopy``) is trained and returned as ``result``;
+    ``initial_flow`` is left as given, as the JAX trainer returns a new flow
+    (``enflows_tpu/train/whitening.py:326-330``). To resume, pass the
+    previous ``result`` with its ``optimizer_state``.
 
     ``optimizer``: a factory ``params -> torch.optim.Optimizer``, by default
     ``default_optimizer`` (optax.adagrad(0.1)'s counterpart). Resumable:
@@ -172,7 +176,8 @@ def optimize_whitening(
         raise ValueError("use_fused=True needs a fusible chain "
                          "(see is_fusible_chain)")
 
-    opt = (optimizer or default_optimizer)(list(initial_flow.parameters()))
+    flow = copy.deepcopy(initial_flow)
+    opt = (optimizer or default_optimizer)(list(flow.parameters()))
     if opt_state is not None:
         opt.load_state_dict(opt_state)
     value_and_grad = {False: mvnormal_negll_grad,
@@ -182,11 +187,11 @@ def optimize_whitening(
                           loss_fn=mvnormal_negll_coupling)}[use_fused]
     step = make_train_step(opt, value_and_grad)
 
-    neglls = [step(initial_flow, batches[b])
+    neglls = [step(flow, batches[b])
               for _ in range(nepochs) for b in range(nbatches)]
     history = (torch.stack(neglls) if neglls else
                torch.zeros(0, dtype=samples.dtype, device=samples.device))
     if negll_history is not None:
         history = torch.cat([torch.as_tensor(negll_history).to(history),
                              history])
-    return WhiteningResult(initial_flow, opt.state_dict(), history)
+    return WhiteningResult(flow, opt.state_dict(), history)

@@ -261,3 +261,23 @@ def test_flow_distribution_logpdf_and_sampling():
     a = dist.sample(torch.Generator().manual_seed(7), (5,), 2)
     b = dist.sample(torch.Generator().manual_seed(7), (5,), 2)
     assert a.shape == (5, 2) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k,d,batch,dense", [
+    (1, 2, 4096, False), (1, 31, 4096, False), (1, 32, 4, True),
+    (2, 2, 4, True), (2, 128, 1 << 20, True), (1, 128, 1, True),
+    (2, 129, 4096, False), (64, 129, 4096, False)])
+def test_householder_auto_rule_boundary(k, d, batch, dense):
+    """mode="auto" takes the dense product for k >= 2, or d >= 32 for one
+    reflection, up to d = 128 (the rule set from the card's timings), and
+    both routes give the same result there."""
+    rng = np.random.default_rng(k + d)
+    V = torch.from_numpy(rng.normal(size=(k, d)))
+    h = et.Householder(V)
+    x = torch.from_numpy(rng.normal(size=(min(batch, 64), d)))
+    big = x[:1].expand(batch, d)
+    assert h._use_dense(big) is dense
+    assert h._use_dense(x[0]) is False           # one sample: the scan
+    np.testing.assert_allclose(
+        householder_chain(V, x).numpy(),
+        householder_chain_dense(V, x).numpy(), rtol=1e-12, atol=1e-12)

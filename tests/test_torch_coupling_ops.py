@@ -598,7 +598,7 @@ def test_trainer_coupling_dispatch_matches_jax():
     tstack = from_jax(jstack, device="cpu")
     rt = optimize_whitening(Xt, tstack, adam, nbatches=2, nepochs=3,
                             use_fused="coupling")
-    assert rt.result is tstack and rt.negll_history.shape == (6,)
+    assert rt.result is not tstack and rt.negll_history.shape == (6,)
     for ref in (r_fused, r_std):
         np.testing.assert_allclose(rt.negll_history.numpy(),
                                    np.asarray(ref.negll_history), rtol=2e-4,

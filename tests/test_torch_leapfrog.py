@@ -269,9 +269,9 @@ def _brace_block(src, start):
 
 
 def test_b6_source_reuses_the_shared_stage_bodies():
-    """B6 includes the shared stage header, runs no barrier inside its
-    trajectory loop, and has stopped calling the dense product, which stays
-    defined once for B1-B5."""
+    """B6 includes the shared stage header and runs no barrier inside its
+    trajectory loop; the tile-wide dense Householder product is gone from
+    every source (B1-B3 and B6 apply Householder stages per lane group)."""
     csrc = os.path.join(ROOT, "enflows_tpu_torch", "ops", "csrc")
     src = open(os.path.join(csrc, "leapfrog.cu")).read()
     assert '#include "stages.cuh"' in src
@@ -280,12 +280,9 @@ def test_b6_source_reuses_the_shared_stage_bodies():
     grads = [_brace_block(src, m.start()) for m in
              re.finditer(r"__device__ __forceinline__ void lf_\w+\(", src)]
     assert grads and not any("__syncthreads" in g for g in grads)
-    assert "householder_apply" not in src
-    for f in ("elementwise.cu", "leapfrog.cu", "coupling.cu"):
+    for f in ("elementwise.cu", "leapfrog.cu", "coupling.cu", "stages.cuh"):
         body = open(os.path.join(csrc, f)).read()
-        assert "void householder_apply" not in body, f
-    shared = open(os.path.join(csrc, "stages.cuh")).read()
-    assert shared.count("void householder_apply") == 1
+        assert "householder_apply" not in body, f
 
 
 # ------------------------------------------------------------------
@@ -405,8 +402,7 @@ def _replay_stage(code, x, k, ends):
         return y, k[4] * rs, -u * il * rs * rs, -torch.log(s) if ends else 0.0
     v = (x - k[0]) * k[1]
     av = v.abs()
-    ei = torch.exp(-av)
-    e = 1 / ei
+    ei, e = torch.exp(-av), torch.exp(av)
     y = k[2] * (sg(v) * 0.5 * (e - ei)) + k[3]
     tanh_v = sg(v) * (1 - ei * ei) / (1 + ei * ei)
     return (y, k[4] * 0.5 * (e + ei), tanh_v * k[1],
@@ -606,6 +602,53 @@ def test_b6_replay_matches_plain_and_jnp_oracle_f64(d, kinds, opts):
     for a, b in zip(got, (qr, pr, logp(jnp.asarray(q)), logp(qr))):
         np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-10,
                                    atol=1e-10)
+
+
+def _johnson_inv_edge(dtype):
+    """C-3's corner: JohnsonInv at |v| = 88 (e^{|v|} ~ 1.65e38, the last
+    decade that f32 holds) followed by a ScaleShift that brings y back to
+    O(10), so that logp and its gradient stay finite in f32."""
+    v = lambda *a: torch.tensor(a, dtype=dtype)
+    chain = et.compose(et.JohnsonInv(v(0.0, 0.0), v(1.0, 1.0), v(0.0, 0.0),
+                                     v(1.0, 1.0)),
+                       et.ScaleShift(v(1e-37, 1e-37), v(0.0, 0.0)))
+    q = v(88.0, -88.0)[None].repeat(3, 1) - v(0.0, 0.5, 1.0)[:, None]
+    return chain, q, torch.zeros_like(q)
+
+
+def test_b6_replay_at_the_johnson_inv_edge():
+    """replay_b6 and the plain version agree in float64 at C-3's corner."""
+    chain, q, p = _johnson_inv_edge(torch.float64)
+    got = replay_b6(chain, q, p, 1e-3, 2)
+    ref = TL.leapfrog_plain(chain, q, p, 1e-3, 2)
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-10, atol=1e-10)
+
+
+def _ex2_ftz(v):
+    """e^v as B6's lf_exp computes it in f32: ex2.approx.ftz flushes results
+    below 2^-126 to 0 (and gives inf from 2^128)."""
+    r = torch.exp(v.float())
+    return torch.where(r < 2.0 ** -126, torch.zeros_like(r), r)
+
+
+def test_b6_johnson_inv_stays_finite_where_f32_does():
+    """B6's JohnsonInv body in f32 with flushed exponentials at |v| in
+    (87.3, 88.7), where e^{-|v|} flushes to 0 but e^{|v|} is finite: the
+    source computes e^{|v|} directly (as lf_exp(|v|)); taking it as
+    1 / e^{-|v|} turns y and dy/dx inf there."""
+    src = open(os.path.join(ROOT, "enflows_tpu_torch", "ops", "csrc",
+                            "leapfrog.cu")).read()
+    body = _brace_block(src, src.index("void lf_ji("))
+    assert "lf_exp(av)" in body and "lf_rcp(ei)" not in body
+    av = torch.tensor([87.5, 88.0, 88.6], dtype=torch.float32)
+    ei = _ex2_ftz(-av)
+    assert bool((ei == 0).all())                    # flushed
+    e = _ex2_ftz(av)
+    sinh, cosh = 0.5 * (e - ei), 0.5 * (e + ei)
+    assert bool(torch.isfinite(sinh).all() and torch.isfinite(cosh).all())
+    assert not bool(torch.isfinite(1 / ei).any())   # the old form
 
 
 def test_replay_plan_takes_every_path():
