@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's three main paths once on one CUDA card: the
-whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5) and
-flow-preconditioned HMC (B6).
+"""Drive the PyTorch port's main paths once on one CUDA card: the
+whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5),
+flow-VI (B1/B2 and B4/B5) and flow-preconditioned HMC (B6).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -115,6 +115,39 @@ exception exits non-zero and prints no result:
    ``leapfrog_plain`` (20 warm transitions each, host clock), and
    ``torch.profiler`` over 5 fused transitions: the card's busy time per
    transition, and its idle share against the unprofiled transition.
+
+Flow-VI runs after 9 and before 10, every phase from generators of its
+own (``phase_vi_*``), each main-path run with the launch counters set to 0
+just before it and read just after:
+
+14. B2 at d=50, n=2^17 as in 3, the shape of the VI slice;
+15. ``[vi elementwise]``: ``default_flow_template(50)`` fitted by
+   ``optimize_elbo`` (the default optimizer, 12 steps of 2^16 antithetic
+   pairs) to a normalized d=50 target, the pushforward of N(0, I) through
+   a fixed JohnsonInv -> 4-reflection Householder -> ScaleShift chain
+   (``vi_target``), once with each estimator: exactly 12 B1 and 12 B2
+   launches (24 each under STL); each history finite, falling, and within
+   1e-4 relative of the plain path's on the same draws, or, where the
+   plain path on rows reordered within each step differs from it by more,
+   within the coupling slice's noise rule (``NoiseGate``);
+16. ``[vi coupling affine]`` and ``[vi coupling spline]``: the coupling
+   template at the BASELINE widths (ScaleShift, JohnsonInv, 4 couplings
+   with (512, 512) conditioners, ScaleShift; K=8 on [-5, 5]) fitted at
+   d=64 with adam(1e-3), 12 steps of 2^17 rows (the affine one also with
+   STL): exactly 12 (24) B4 and 12 (24) B5 launches, the history held to
+   the plain path run with TF32 products by the noise rule; then B4's and
+   B5's row tiles and times (CUDA events, on B4's stored rows) on the
+   template beside the bare BASELINE stack (``[vi B5 tile]``);
+17. ``[vi example]``: enflows_tpu_torch/examples/nf_variational_1d.py,
+   800 steps at d=1, exactly 800 B1 and 800 B2 launches, under the JAX
+   test's gates (pushforward mean within 0.3 of 2.9, variance within 1.2,
+   the nELBO falling by more than 1 to a last-50 mean under 0.5);
+
+and ``[vi timing]`` / ``[vi profile]`` for each of these fits: warm
+ms/step fused against plain (timed plain, fused, fused, plain on the host
+clock), then ``torch.profiler`` over 4 fused steps. The script
+ends with its total time, the kernels line (each kernel's launches summed
+over every main-path run, by path) and the ``{"ok": true, ...}`` line.
 
 Tolerances: y 2e-5 and ladj 2e-4 (rtol = atol), input cotangents rtol 2e-4
 / atol 2e-5 elementwise, negll 1e-5 relative. Every parameter gradient is
@@ -854,15 +887,22 @@ COUPLING_SLICE_RTOL, COUPLING_CALM_RTOL = 1e-3, 1e-4
 BASELINE = dict(dim=64, n_layers=4, hidden=(512, 512))   # BASELINE.md:150
 
 
-class tf32_products:
-    """torch.matmul in TF32 inside the block, full f32 again after it: the
-    plain version's yardstick run for the gates above."""
+class matmul_tf32:
+    """torch.matmul in TF32 (``flag`` True) or in full f32 inside the block,
+    the setting outside restored after it. TF32 is the plain version's
+    yardstick run for the gates above; full f32 keeps the VI targets'
+    density the same function in every run, the TF32 yardstick's
+    included."""
+
+    def __init__(self, flag=True):
+        self.flag = flag
 
     def __enter__(self):
-        torch.backends.cuda.matmul.allow_tf32 = True
+        self.was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = self.flag
 
     def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = self.was
 
 
 class Held(NamedTuple):
@@ -941,7 +981,7 @@ def matmul_only_ms(st, n, device, backward, tf32=False):
                 torch.matmul(h, W)
     if not tf32:
         return cuda_ms(run, iters=5)
-    with tf32_products():
+    with matmul_tf32(True):
         return cuda_ms(run, iters=5)
 
 
@@ -968,12 +1008,12 @@ def phase_b4(et, C, kind, n, gen, device, card):
         wbuf, pbuf = C._stack_plan(stack, st, torch.float32, device)
         y0, l0 = C.coupling_forward_plain(st, wbuf, pbuf, x)
         y0 = y0[:, list(st.out_map)]
-        with tf32_products():
+        with matmul_tf32(True):
             yt, lt = plain_coupling(C)(stack, x)
         y64, l64 = plain_coupling(C)(copy.deepcopy(stack).double(),
                                      x.double())
         xb, lb = C.fused_coupling_forward_and_ladj(stack.inverse(), y)
-        with tf32_products():
+        with matmul_tf32(True):
             xbt, lbt = plain_coupling(C)(stack.inverse(), yt)
         torch.cuda.synchronize()
         held_y = tf32_gate(y, yt, y64, C_FWD_GATE, f"B4 {kind} y")
@@ -1132,7 +1172,7 @@ def phase_b5(et, C, kind, n, gen, device, card):
     got = {"stored": grads_of(C, stack, x, C.fused_coupling_forward_and_ladj),
            "recompute": grads_of(C, stack, x, fused_recomputing(C))}
     gx0, g0 = grads_of(C, stack, x, plain_coupling(C))
-    with tf32_products():
+    with matmul_tf32(True):
         gxt, gt = grads_of(C, stack, x, plain_coupling(C))
     gx64, g64 = grads_of(C, copy.deepcopy(stack).double(), x.double(),
                          plain_coupling(C))
@@ -1258,6 +1298,14 @@ def _sweep_unpadded(et, gen, dev):
                              device=dev)
 
 
+def _sweep_vi_template(kind):
+    """coupling_flow_template's tails (ScaleShift, JohnsonInv, ScaleShift)
+    around 2 x (512, 512) couplings at d=64: B5's shared memory puts it in
+    16-row tiles, as at the VI slice's 4 couplings."""
+    return lambda et, gen, dev: et.coupling_flow_template(
+        2, (512, 512), kind=kind)(64, gen)
+
+
 def _sweep_slabs(et, gen, dev):
     """d=40, K=8: the last layer in slabs of 8, 8 and 4 half-lanes."""
     return et.spline_coupling_stack(gen, 40, 2, (24,), n_bins=8, bound=3.0,
@@ -1282,14 +1330,51 @@ COUPLING_SWEEP = [
     ("spline d=40 K=8: a last slab of 4 of 8 half-lanes", 2001,
      _sweep_slabs),
 ]
+# The VI templates' tails at widths that put B5 in 16-row tiles; swept with
+# a generator of their own, after the VI slice.
+VI_TEMPLATE_SWEEP = [
+    ("template tails, affine 2x(512, 512), B5 in 16-row tiles", 3001,
+     _sweep_vi_template("affine")),
+    ("template tails, spline 2x(512, 512), B5 in 16-row tiles", 2001,
+     _sweep_vi_template("spline")),
+]
 
 
-def phase_coupling_sweep(et, C, gen, device):
+def vjp_run(c, forward, xx, gy, gl, stopped=False):
+    """(y, ladj, gx, {parameter: gradient}) of ``forward(c, x)`` for the
+    cotangents (gy, gl). ``stopped``: the parameters detached, as STL's
+    inverse pass runs them, so only gx is computed."""
+    from enflows_tpu_torch.train.vi import _with_stopped_parameters
+
+    xr = xx.clone().requires_grad_(True)
+    if stopped:
+        y, ladj = _with_stopped_parameters(forward, c, xr)
+        ps = {}
+    else:
+        y, ladj = forward(c, xr)
+        ps = dict(c.named_parameters())
+    gs = torch.autograd.grad([y, ladj], [xr, *ps.values()],
+                             [gy.to(y.dtype), gl.to(y.dtype)])
+    return y.detach(), ladj.detach(), gs[0], dict(zip(ps, gs[1:]))
+
+
+def stopped_gx_equal(C, chain, forward, x, gy, gl, gx, what):
+    """B5 with the parameters stopped (no weight-gradient reduction) gives
+    the gx it gives with them live, bit for bit."""
+    gx_s = vjp_run(chain, forward, x, gy, gl, stopped=True)[2]
+    check(torch.equal(gx_s, gx), f"{what}: gx with the parameters stopped "
+          f"differs from gx with them live by {max_abs(gx_s, gx):.3e}")
+
+
+def phase_coupling_sweep(et, C, gen, device, sweep=COUPLING_SWEEP,
+                         tag="coupling sweep", b5_tile=None):
     """B4 and B5 (on B4's stored rows and recomputing) against the plain
     version in float64 on small chains at a few thousand rows, with random
-    cotangents, under the TF32 gate."""
+    cotangents, under the TF32 gate; and B5 with the parameters stopped
+    giving the same gx, both ways. ``b5_tile``: the B5 tile every chain
+    must take."""
     nearest = None   # (Held, label) of the reading nearest its limit
-    for name, n, build_chain in COUPLING_SWEEP:
+    for name, n, build_chain in sweep:
         chain = build_chain(et, gen, device)
         with torch.no_grad():
             for p in chain.parameters():
@@ -1297,6 +1382,10 @@ def phase_coupling_sweep(et, C, gen, device):
                                           device=device))
         d = next(s for s in chain.stages if hasattr(s, "split")).split * 2
         check(C.is_fusible_coupling_stack(chain, d), f"sweep {name} fusible")
+        if b5_tile is not None:
+            tile = C._pick_tile(C._stack_structure(chain, d), backward=True)
+            check(tile == b5_tile, f"sweep {name}: B5 tile {tile}, not "
+                  f"{b5_tile}")
         chain64 = copy.deepcopy(chain).double()
         x, _ = drop_near_knot_rows(
             et, chain, 1.5 * torch.randn(n, d, generator=gen, device=device))
@@ -1305,19 +1394,18 @@ def phase_coupling_sweep(et, C, gen, device):
         gl = torch.randn(n, generator=gen, device=device)
 
         def run(c, forward, xx):
-            xr = xx.clone().requires_grad_(True)
-            y, ladj = forward(c, xr)
-            ps = dict(c.named_parameters())
-            gs = torch.autograd.grad([y, ladj], [xr, *ps.values()],
-                                     [gy.to(y.dtype), gl.to(y.dtype)])
-            return y.detach(), ladj.detach(), gs[0], dict(zip(ps, gs[1:]))
+            return vjp_run(c, forward, xx, gy, gl)
 
         got = run(chain, C.fused_coupling_forward_and_ladj, x)
         got_r = run(chain, fused_recomputing(C), x)
-        with tf32_products():
+        with matmul_tf32(True):
             ref = run(chain, plain_coupling(C), x)
         ref64 = run(chain64, plain_coupling(C), x.double())
         what = f"{name} d={d} n={n}"
+        stopped_gx_equal(C, chain, C.fused_coupling_forward_and_ladj, x, gy,
+                         gl, got[2], f"{tag} {what} (stored)")
+        stopped_gx_equal(C, chain, fused_recomputing(C), x, gy, gl,
+                         got_r[2], f"{tag} {what} (recompute)")
         pairs = [(got[0], ref[0], ref64[0], C_FWD_GATE, f"{what} y"),
                  (got[1], ref[1], ref64[1], C_FWD_GATE, f"{what} ladj")]
         for mode, out in (("stored", got), ("recompute", got_r)):
@@ -1326,15 +1414,16 @@ def phase_coupling_sweep(et, C, gen, device):
             pairs += [(out[3][k], ref[3][k], ref64[3][k], C_BWD_GATE,
                        f"{what} ({mode}) grad {k}") for k in ref64[3]]
         for *args, label in pairs:
-            held = tf32_gate(*args, f"coupling sweep {label}")
+            held = tf32_gate(*args, f"{tag} {label}")
             if nearest is None or held.share > nearest[0].share:
                 nearest = (held, label)
-    print(f"[coupling sweep] {len(COUPLING_SWEEP)} chains "
-          f"({', '.join(name for name, _, _ in COUPLING_SWEEP)}): B4 and B5 "
+    print(f"[{tag}] {len(sweep)} chains "
+          f"({', '.join(name for name, _, _ in sweep)}): B4 and B5 "
           f"(on B4's stored rows and recomputing) within the TF32 gate of "
           f"the float64 plain version; nearest its limit: {nearest[1]}, "
           f"|kernel - f64| {nearest[0]} ({100 * nearest[0].share:.0f}% of "
-          f"it)", flush=True)
+          f"it); B5 with the parameters stopped gives the same gx bit for "
+          f"bit in every chain, both ways", flush=True)
 
 
 def coupling_data(et, n, gen, device):
@@ -1388,6 +1477,49 @@ def rel_diff(a, b):
     return float(((a - b).abs() / b.abs()).max())
 
 
+class NoiseGate(NamedTuple):
+    """The coupling slice's history rule: on the steps before the first
+    loss spike (a rise of more than 10%) within max(1e-4, 2x the noise),
+    all steps within max(1e-3, 8x the noise), the noise being how far runs
+    that differ from the reference in rounding alone sit from it."""
+    rel: float
+    rel_calm: float
+    calm: int
+    noise: float
+    noise_calm: float
+
+    @classmethod
+    def of(cls, hist, ref, others):
+        rises = [i for i in range(1, len(ref)) if ref[i] > 1.1 * ref[i - 1]]
+        calm = rises[0] if rises else len(ref)
+        return cls(rel_diff(hist, ref), rel_diff(hist[:calm], ref[:calm]),
+                   calm, max(rel_diff(h, ref) for h in others),
+                   max(rel_diff(h[:calm], ref[:calm]) for h in others))
+
+    @property
+    def limit_calm(self):
+        return max(COUPLING_CALM_RTOL, 2 * self.noise_calm)
+
+    @property
+    def limit(self):
+        return max(COUPLING_SLICE_RTOL, 8 * self.noise)
+
+    def check(self, what):
+        check(self.rel_calm <= self.limit_calm,
+              f"{what}: first {self.calm} steps fused vs plain TF32 "
+              f"{self.rel_calm:.3e}, the plain path's own rounding noise "
+              f"{self.noise_calm:.3e}")
+        check(self.rel <= self.limit,
+              f"{what}: fused vs plain TF32 history {self.rel:.3e}, the "
+              f"plain path's own rounding noise {self.noise:.3e}")
+
+    def __str__(self):
+        return (f"max rel diff {self.rel:.3e} (limit {self.limit:.3e}; "
+                f"first {self.calm} steps {self.rel_calm:.3e}, limit "
+                f"{self.limit_calm:.3e}); noise {self.noise:.3e}, first "
+                f"{self.calm} steps {self.noise_calm:.3e}")
+
+
 def coupling_slice_timing(kind, initial, X, hist, gen, card):
     """The same trainer from the same start on the plain path (the chain's
     own autograd), and warm ms/step of both, timed plain, fused, fused,
@@ -1416,15 +1548,12 @@ def coupling_slice_timing(kind, initial, X, hist, gen, card):
         h = train(path, X).negll_history.cpu()
         runs[path].append(((time.perf_counter() - t0) * 1e3 / 12, h))
     plain = runs["plain"][0][1]
-    with tf32_products():
+    with matmul_tf32(True):
         ref = train("plain", X).negll_history.cpu()
     others = [plain] + [train("plain", rows_permuted_within_batches(
         X, 4, gen)).negll_history.cpu() for _ in range(2)]
-    rises = [i for i in range(1, 12) if ref[i] > 1.1 * ref[i - 1]]
-    calm = rises[0] if rises else 12
-    noise = max(rel_diff(h, ref) for h in others)
-    noise_calm = max(rel_diff(h[:calm], ref[:calm]) for h in others)
-    rel, rel_calm = rel_diff(hist, ref), rel_diff(hist[:calm], ref[:calm])
+    gate = NoiseGate.of(hist, ref, others)
+    rel, rel_calm, calm, noise, noise_calm = gate
     fused_ms = min(t for t, _ in runs["fused"])
     plain_ms = min(t for t, _ in runs["plain"])
     print(f"[coupling slice] {kind}: negll history "
@@ -1432,20 +1561,13 @@ def coupling_slice_timing(kind, initial, X, hist, gen, card):
           f"TF32 {[round(float(v), 5) for v in ref]}, in f32 "
           f"{[round(float(v), 5) for v in plain]}; fused vs plain TF32 max "
           f"rel diff {rel:.3e} (first {calm} steps, before any loss spike, "
-          f"{rel_calm:.3e}, limit "
-          f"{max(COUPLING_CALM_RTOL, 2 * noise_calm):.3e}); the plain f32 "
+          f"{rel_calm:.3e}, limit {gate.limit_calm:.3e}); the plain f32 "
           f"path, on X and on rows in another order, vs plain TF32: "
           f"{noise:.3e}, first {calm} steps {noise_calm:.3e}; fused vs "
           f"plain f32 {rel_diff(hist, plain):.3e}; warm ms/step (host "
           f"clock, 2^17 samples): fused {fused_ms:.2f}, plain f32 "
           f"{plain_ms:.2f} [{card}]", flush=True)
-    check(rel_calm <= max(COUPLING_CALM_RTOL, 2 * noise_calm),
-          f"coupling slice {kind}: first {calm} steps fused vs plain TF32 "
-          f"{rel_calm:.3e}, the plain path's own rounding noise "
-          f"{noise_calm:.3e}")
-    check(rel <= max(COUPLING_SLICE_RTOL, 8 * noise),
-          f"coupling slice {kind}: fused vs plain TF32 history {rel:.3e}, "
-          f"the plain path's own rounding noise {noise:.3e}")
+    gate.check(f"coupling slice {kind}")
     return dict(fused_ms_per_step=fused_ms, plain_ms_per_step=plain_ms)
 
 
@@ -1481,6 +1603,339 @@ def profile_coupling_steps(kind, initial, X, card):
           + ", ".join(f"{name[:40]} {us / 4e3:.2f} ({100 * us / busy:.1f}%)"
                       for name, us in top)
           + f" [{card}]", flush=True)
+
+
+# ----------------------------------------------------------------------
+# Flow-VI: optimize_elbo through B1/B2 (the default transport template, an
+# elementwise chain with a Householder stage, d=50) and through B4/B5 (the
+# coupling template at the BASELINE widths, d=64), with the standard and the
+# sticking-the-landing estimator, and the 1-D example.
+
+VI_STEPS, VI_BATCH = 12, 1 << 16     # 2^17 rows a step: antithetic pairs
+
+
+def vi_target(et, d, gen, device):
+    """The batched log density, (n, d) -> (n,), of the pushforward of
+    N(0, I_d) through a fixed chain drawn from ``gen``: a JohnsonInv with
+    gamma ~ 0.3 N(0, 1), delta in [1.5, 3], xi = 0, lam = 1 (heavy, skewed
+    tails), a 4-reflection Householder (correlation), a ScaleShift with a
+    in [0.5, 2] and b ~ 0.5 N(0, 1). Normalized, so the nELBO's floor is
+    0; plain torch in full f32, not a kernel path."""
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(d, generator=gen,
+                                                   device=device)
+    n = lambda s: s * torch.randn(d, generator=gen, device=device)
+    truth = et.Chain.of(
+        et.JohnsonInv(n(0.3), u(1.5, 3.0), torch.zeros(d, device=device),
+                      torch.ones(d, device=device)),
+        et.Householder(torch.randn(4, d, generator=gen,
+                                   device=device)).canonicalize(),
+        et.ScaleShift(u(0.5, 2.0), n(0.5)))
+    dist = et.FlowDistribution(truth).requires_grad_(False)
+
+    def logp(z):
+        with matmul_tf32(False):
+            return dist.logpdf(z)
+    return logp
+
+
+def vi_run(VI, logp, flow, dim, seed, device, nsteps=VI_STEPS, reorder=None,
+           **kw):
+    """``optimize_elbo`` of ``flow``: ``nsteps`` of 2^16 antithetic pairs
+    drawn from a generator seeded ``seed``, so runs with one seed see the
+    same draws. With ``reorder`` (a generator), the trainer's steps with
+    each step's draws in another row order: the same samples, summed in
+    another order."""
+    from enflows_tpu_torch.train import optimize_elbo
+
+    key = torch.Generator(device=device).manual_seed(seed)
+    if reorder is None:
+        return optimize_elbo(logp, flow, dim=dim, batch_size=VI_BATCH,
+                             nsteps=nsteps, key=key, **kw)
+
+    def draws(generator, step, batch_size, d, dtype, dev):
+        xi = VI._base_draws(generator, step, batch_size, d, dtype, dev)
+        return xi[torch.randperm(batch_size, generator=reorder, device=dev)]
+    return VI._fit(logp, flow, kw.get("optimizer"), draws, dim=dim,
+                   batch_size=VI_BATCH, nsteps=nsteps, antithetic=True,
+                   key=key, opt_state=None, nelbo_history=None,
+                   dtype=torch.float32,
+                   use_fused_coupling=kw["use_fused_coupling"],
+                   stl=kw.get("stl", False))
+
+
+def vi_main_run(VI, counters, what, logp, flow, dim, seed, device, want,
+                **kw):
+    """The user's path once, with the launch counters set to 0 just before
+    and read just after: every history finite, its last value below its
+    first, and exactly ``want`` launches. Returns (history, launches, the
+    trained flow)."""
+    reset_launches(*counters)
+    res = vi_run(VI, logp, flow, dim, seed, device, **kw)
+    hist = res.nelbo_history.cpu()
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items()}
+    check(launches == want, f"{what}: launches {launches}, not {want}")
+    check(bool(torch.isfinite(hist).all()) and hist.shape == (VI_STEPS,),
+          f"{what}: history {hist.tolist()}")
+    check(float(hist[-1]) < float(hist[0]),
+          f"{what}: nELBO did not fall: {hist.tolist()}")
+    return hist, launches, res.result
+
+
+def vi_timing(VI, what, logp, flow, dim, seed, device, card, **kw):
+    """Warm ms/step of the fused and the plain path from the same start on
+    the same draws, timed plain, fused, fused, plain on the host clock
+    ending in a synchronize; then ``torch.profiler`` over 4 fused steps:
+    the card's busy ms/step, device ops a step, device time by kernel and
+    the idle share against the unprofiled step. Returns (fused ms, plain
+    ms, the first plain history)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {"plain": [], "fused": []}
+    for path in ("plain", "fused", "fused", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = vi_run(VI, logp, flow, dim, seed, device,
+                   use_fused_coupling=None if path == "fused" else False,
+                   **kw).nelbo_history.cpu()
+        runs[path].append(((time.perf_counter() - t0) * 1e3 / VI_STEPS, h))
+    fused_ms = min(t for t, _ in runs["fused"])
+    plain_ms = min(t for t, _ in runs["plain"])
+    print(f"[vi timing] {what}: warm ms/step (host clock, 2^17 rows): fused "
+          f"{fused_ms:.3f}, plain {plain_ms:.3f} [{card}]", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vi_run(VI, logp, flow, dim, seed, device, nsteps=4, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+    by_name, ops = device_kernel_us(prof)
+    busy = sum(by_name.values()) / 4e3
+    if not busy:
+        print(f"[vi profile] {what}: no device time in the trace (not "
+              f"measured) [{card}]", flush=True)
+    else:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[vi profile] {what}, 4 fused steps of 2^17 rows: device "
+              f"busy {busy:.3f} ms/step in {ops / 4:.0f} device ops a step, "
+              f"idle {100 * (1 - busy / fused_ms):.1f}% of the unprofiled "
+              f"{fused_ms:.3f} ms/step ({100 * (1 - busy / wall_ms):.1f}% of "
+              f"the profiled {wall_ms:.3f}); by kernel, ms/step: "
+              + ", ".join(f"{k[:40]} {us / 4e3:.3f} "
+                          f"({100 * us / 4e3 / busy:.1f}%)" for k, us in top)
+              + f" [{card}]", flush=True)
+    return fused_ms, plain_ms, runs["plain"][0][1]
+
+
+def phase_vi_elementwise(et, EW, C, VI, device, card):
+    """``default_flow_template(50)`` fitted by ``optimize_elbo`` with the
+    default optimizer, 12 steps of 2^17 rows, once with each estimator:
+    every step one B1 and one B2 launch (two of each under STL). Each
+    history is held to the plain path's on the same draws within 1e-4
+    relative, the whitening slice's gate, unless the plain path on rows
+    reordered within each step already differs from it by more; then by
+    the coupling slice's noise rule. Returns the launches of each run."""
+    gen = torch.Generator(device=device).manual_seed(20)
+    logp = vi_target(et, 50, gen, device)
+    flow = et.default_flow_template(50, gen)
+    out = {}
+    for stl in (False, True):
+        what = f"vi elementwise d=50 ({'stl' if stl else 'standard'})"
+        n = VI_STEPS * (2 if stl else 1)
+        hist, out[stl], _ = vi_main_run(
+            VI, (EW.LAUNCHES, C.LAUNCHES), what, logp, flow, 50, 21, device,
+            dict(fwd=n, bwd=n, negll=0, coupling_fwd=0, coupling_bwd=0),
+            stl=stl)
+        _, _, plain = vi_timing(VI, what[3:], logp, flow, 50, 21, device,
+                                card, stl=stl)
+        other = vi_run(VI, logp, flow, 50, 21, device, stl=stl,
+                       use_fused_coupling=False,
+                       reorder=torch.Generator(device=device).manual_seed(22)
+                       ).nelbo_history.cpu()
+        rel, noise = rel_diff(hist, plain), rel_diff(other, plain)
+        if noise <= SLICE_RTOL:
+            check(rel <= SLICE_RTOL, f"{what}: fused vs plain {rel:.3e}")
+            rule = f"limit {SLICE_RTOL:.0e}"
+        else:
+            gate = NoiseGate.of(hist, plain, [other])
+            gate.check(what)
+            rule = f"the noise rule: {gate}"
+        print(f"[{what}] nELBO history {[round(float(v), 4) for v in hist]}"
+              f"; plain path {[round(float(v), 4) for v in plain]}; fused vs "
+              f"plain max rel diff {rel:.3e}, the plain path on reordered "
+              f"rows vs plain {noise:.3e} ({rule}); launches {out[stl]} "
+              f"[{card}]", flush=True)
+    return out
+
+
+def b5_stored_at(C, flow, x):
+    """(B4 ms writing B5's rows, B5 ms on them, B4's tile, B5's tile) of a
+    fusible stack on ``x``, by CUDA events."""
+    st = C._stack_structure(flow, x.shape[1])
+    with torch.no_grad():
+        wbuf, pbuf = C._stack_plan(flow, st, torch.float32, x.device)
+        y, ladj, _ = C._launch_fwd(st, x, wbuf, pbuf)
+    b4 = cuda_ms(lambda: C._launch_fwd(st, x, wbuf, pbuf, True), iters=3)
+    b5 = stored_b5_ms(C, st, x, wbuf, pbuf, torch.cos(y), 2.0 * ladj)
+    return b4, b5, C._pick_tile(st, False), C._pick_tile(st, True)
+
+
+def hold_vi_template(et, C, kind, flow, gen, device, card):
+    """B4 and B5 on a template that VI trained, at the slice's 2^17 rows and
+    tiles, for random cotangents: y, ladj, gx and every parameter gradient
+    under the TF32 gate against the plain version run in TF32 and in
+    float64; and gx with the parameters stopped (B5 without its
+    weight-gradient reduction) equal to gx with them live. For the affine
+    template, which VI also runs under STL, the inverse pass as STL runs
+    it: the inverted template on the forward's outputs, parameters
+    stopped, y, ladj and gx under the gate."""
+    d = BASELINE["dim"]
+    x, dropped = drop_near_knot_rows(
+        et, flow, torch.randn(2 * VI_BATCH, d, generator=gen, device=device))
+    cases = [("forward", flow, x, False)]
+    if kind == "affine":
+        with torch.no_grad():
+            z, _ = flow.forward_and_ladj(x)
+        cases.append(("inverse, parameters stopped", flow.inverse(), z,
+                      True))
+    fused = C.fused_coupling_forward_and_ladj
+    nearest = None   # (Held, label) of the reading nearest its limit
+    for direction, chain, xx, stopped in cases:
+        n = xx.shape[0]
+        gy = torch.randn(n, d, generator=gen, device=device)
+        gl = torch.randn(n, generator=gen, device=device)
+        got = vjp_run(chain, fused, xx, gy, gl, stopped)
+        with matmul_tf32(True):
+            ref = vjp_run(chain, plain_coupling(C), xx, gy, gl, stopped)
+        ref64 = vjp_run(copy.deepcopy(chain).double(), plain_coupling(C),
+                        xx.double(), gy, gl, stopped)
+        what = f"vi template {kind} {direction} n={n}"
+        pairs = [(got[0], ref[0], ref64[0], C_FWD_GATE, f"{what} y"),
+                 (got[1], ref[1], ref64[1], C_FWD_GATE, f"{what} ladj"),
+                 (got[2], ref[2], ref64[2], C_BWD_GATE, f"{what} gx")]
+        pairs += [(got[3][k], ref[3][k], ref64[3][k], C_BWD_GATE,
+                   f"{what} grad {k}") for k in ref64[3]]
+        for *args, label in pairs:
+            held = tf32_gate(*args, label)
+            if nearest is None or held.share > nearest[0].share:
+                nearest = (held, label)
+        if not stopped:
+            stopped_gx_equal(C, chain, fused, xx, gy, gl, got[2], what)
+        del got, ref, ref64
+    st = C._stack_structure(flow, d)
+    print(f"[vi B5 hold] {kind} template, the trained flow, n={x.shape[0]} "
+          f"({dropped} rows within {KNOT_EPS} of a spline knot dropped), B4 "
+          f"tile {C._pick_tile(st, False)}, B5 tile {C._pick_tile(st, True)}:"
+          f" {' and '.join(c[0] for c in cases)}: y, ladj, gx and every "
+          f"parameter gradient within the TF32 gate of the float64 plain "
+          f"version; nearest its limit: {nearest[1]}, |kernel - f64| "
+          f"{nearest[0]} ({100 * nearest[0].share:.0f}% of it); gx with the "
+          f"parameters stopped equal to gx with them live [{card}]",
+          flush=True)
+
+
+def phase_vi_coupling(et, EW, C, VI, device, card):
+    """``coupling_flow_template(4, (512, 512), kind)(64)`` with its default
+    tails, affine and K=8 spline on [-5, 5], fitted by ``optimize_elbo``
+    with adam(1e-3), 12 steps of 2^17 rows (the affine one also with STL):
+    every step one B4 and one B5 launch (two of each under STL). Each
+    history is held to the plain path run with TF32 products by the
+    coupling slice's noise rule. Then each trained template held against
+    the plain version at the slice's shapes (``hold_vi_template``), and B4
+    and B5 timed at the templates' tiles beside the bare BASELINE stacks'.
+    Returns ({kind: {stl: launches}},
+    {kind: timing})."""
+    gen = torch.Generator(device=device).manual_seed(30)
+    logp = vi_target(et, BASELINE["dim"], gen, device)
+    d = BASELINE["dim"]
+    launches, tiles = {}, {}
+    for kind in ("affine", "spline"):
+        flow = et.coupling_flow_template(
+            BASELINE["n_layers"], BASELINE["hidden"], kind=kind)(d, gen)
+        launches[kind] = {}
+        for stl in ((False, True) if kind == "affine" else (False,)):
+            what = f"vi coupling {kind} ({'stl' if stl else 'standard'})"
+            n = VI_STEPS * (2 if stl else 1)
+            kw = dict(optimizer=adam, stl=stl)
+            hist, launches[kind][stl], trained = vi_main_run(
+                VI, (EW.LAUNCHES, C.LAUNCHES), what, logp, flow, d, 31,
+                device, dict(fwd=0, bwd=0, negll=0, coupling_fwd=n,
+                             coupling_bwd=n), **kw)
+            _, _, plain = vi_timing(VI, what[3:], logp, flow, d, 31, device,
+                                    card, **kw)
+            with matmul_tf32(True):
+                ref = vi_run(VI, logp, flow, d, 31, device,
+                             use_fused_coupling=False,
+                             **kw).nelbo_history.cpu()
+            others = [plain] + [vi_run(
+                VI, logp, flow, d, 31, device, use_fused_coupling=False,
+                reorder=torch.Generator(device=device).manual_seed(32 + i),
+                **kw).nelbo_history.cpu()
+                for i in range(1 if kind == "spline" else 2)]
+            gate = NoiseGate.of(hist, ref, others)
+            print(f"[{what}] nELBO history "
+                  f"{[round(float(v), 4) for v in hist]}; plain path in TF32 "
+                  f"{[round(float(v), 4) for v in ref]}; fused vs plain TF32 "
+                  f"{gate} ({len(others)} plain f32 runs); launches "
+                  f"{launches[kind][stl]} [{card}]", flush=True)
+            gate.check(what)
+            if not stl:
+                fitted = trained
+        # A generator of its own: ``gen`` goes on to make the spline
+        # template from the same draws whether or not the hold runs.
+        hold_vi_template(et, C, kind, fitted, torch.Generator(
+            device=device).manual_seed(34), device, card)
+        x = torch.randn(2 * VI_BATCH, d, generator=gen, device=device)
+        b4_t, b5_t, t4, t5 = b5_stored_at(C, flow, x)
+        b4_0, b5_0, s4, s5 = b5_stored_at(
+            C, baseline_stack(et, kind, gen, device), x)
+        tiles[kind] = dict(ms_vi_template=b5_t, tile_vi_template=t5,
+                           b4_ms_vi_template=b4_t, b4_tile_vi_template=t4)
+        print(f"[vi B5 tile] {kind} template (ScaleShift, JohnsonInv, "
+              f"4x{BASELINE['hidden']}, ScaleShift) n={x.shape[0]}: B4 tile "
+              f"{t4} rows, B5 tile {t5} rows; B5 on B4's stored rows "
+              f"{b5_t:.3f} ms at the template's {t5}-row tile against "
+              f"{b5_0:.3f} ms for the bare BASELINE stack at its {s5}-row "
+              f"tile; B4 writing B5's rows {b4_t:.3f} ms ({t4}-row tile) "
+              f"against {b4_0:.3f} ms ({s4}-row tile) [{card}]", flush=True)
+    return launches, tiles
+
+
+def phase_vi_example(EW, C, device, card):
+    """enflows_tpu_torch/examples/nf_variational_1d.py on the card: the JAX
+    test's fit (Adagrad(0.2), 800 steps of 100 antithetic pairs, d=1),
+    exactly 800 B1 and 800 B2 launches, under the JAX test's gates
+    (tests/test_training.py:131-147)."""
+    from enflows_tpu_torch.examples import nf_variational_1d as ex
+
+    reset_launches(EW.LAUNCHES, C.LAUNCHES)
+    t0 = time.perf_counter()
+    res = ex.fit(torch.Generator(device=device).manual_seed(40), nsteps=800,
+                 lr=0.2)
+    hist = res.nelbo_history.cpu()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 800
+    launches = {**EW.LAUNCHES, **C.LAUNCHES}
+    check(launches == dict(fwd=800, bwd=800, negll=0, coupling_fwd=0,
+                           coupling_bwd=0),
+          f"vi example: launches {launches}, not 800 B1 and 800 B2")
+    mean, var = ex.pushforward_moments(
+        res.result, torch.Generator(device=device).manual_seed(41), n=50000)
+    print(f"[vi example] nf_variational_1d: nELBO {float(hist[0]):.4f} -> "
+          f"last {float(hist[-1]):.4f}, mean of the last 50 "
+          f"{float(hist[-50:].mean()):.4f}; pushforward mean {mean:.4f} "
+          f"(true {ex.MEAN_TRUE}), var {var:.4f} (true {ex.VAR_TRUE:.4f}); "
+          f"{ms:.3f} ms/step (host clock); launches {launches} [{card}]",
+          flush=True)
+    check(abs(mean - ex.MEAN_TRUE) < 0.3, f"vi example: mean {mean}")
+    check(abs(var - ex.VAR_TRUE) < 1.2, f"vi example: var {var}")
+    check(bool(torch.isfinite(hist).all())
+          and float(hist[-1]) < float(hist[0]) - 1.0
+          and float(hist[-50:].mean()) < 0.5,
+          f"vi example: history {hist[:3].tolist()} ... "
+          f"{hist[-3:].tolist()}")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1875,6 +2330,7 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available()"
                          " is False)")
@@ -1981,6 +2437,18 @@ def main():
         coupling_slice_timing(k, initial_stacks[k], X64, hist, gen, smi)
         profile_coupling_steps(k, initial_stacks[k], X64, smi)
 
+    # Flow-VI through B1/B2 and B4/B5, then the 1-D example; B2 at d=50
+    # first. Each phase draws from generators of its own.
+    from enflows_tpu_torch.train import vi as VI
+    b2_d50 = phase_b2(et, EW, 50, 1 << 17,
+                      torch.Generator(device=device).manual_seed(16), device,
+                      smi)
+    vi_ew = phase_vi_elementwise(et, EW, C, VI, device, smi)
+    vi_c, vi_tiles = phase_vi_coupling(et, EW, C, VI, device, smi)
+    phase_coupling_sweep(et, C, torch.Generator(device=device).manual_seed(33),
+                         device, VI_TEMPLATE_SWEEP, "vi template sweep", 16)
+    vi_ex = phase_vi_example(EW, C, device, smi)
+
     # Flow-preconditioned HMC: B6 at the BASELINE leapfrog config, the B6
     # sweep, then the slice through infer, one main-path run per target.
     b6 = phase_b6(et, TL, gen, device, smi, report)
@@ -1995,40 +2463,68 @@ def main():
     b6["max_abs_err"] = max(b6["max_abs_err"], phase_b6_adapted(
         TL, target.whiten, res.draws[:, -1].contiguous(), res.stats.step_size,
         gen, device, smi))
-    hmc_route(et, TL, "examples/fused_pushforward_hmc.py", example_d8(
-        et, gen, device), 8, 256, 200, 500,
+    _, hmc_example_launches = hmc_route(
+        et, TL, "examples/fused_pushforward_hmc.py", example_d8(
+            et, gen, device), 8, 256, 200, 500,
         torch.Generator(device=device).manual_seed(4), smi)
     hmc_timing(TL, target.whiten, res.stats.step_size, gen, device, smi)
 
     src = "enflows_tpu_torch/ops/csrc/elementwise.cu"
     pallas = "enflows_tpu/ops/pallas/elementwise.py"
-    rows = [("B1 fused_forward_and_ladj", launches["fwd"], src,
+    # Each row's launches over every main-path run that launched it, by path
+    # and shape.
+    ew_paths = {key: {"whitening slice (d=2, n=2^20)": launches[key],
+                      "vi elementwise (d=50, n=2^17)": vi_ew[False][key],
+                      "vi elementwise stl (d=50, n=2^17)": vi_ew[True][key],
+                      "vi example (d=1, n=200)": vi_ex[key]}
+                for key in ("fwd", "bwd")}
+    b2 = {**b2, **{f"{k}_d50": b2_d50[k]
+                   for k in ("ms", "plain_ms", "bound_ms")}}
+    rows = [("B1 fused_forward_and_ladj", ew_paths["fwd"], src,
              f"{pallas}:441", b1),
-            ("B2 fused forward backward", launches["bwd"], src,
+            ("B2 fused forward backward", ew_paths["bwd"], src,
              f"{pallas}:641", b2),
-            ("B3 fused_negll_value_and_grad", launches["negll"], src,
+            ("B3 fused_negll_value_and_grad",
+             {"whitening slice (d=2, n=2^20)": launches["negll"]}, src,
              f"{pallas}:852", b3)]
     csrc = "enflows_tpu_torch/ops/csrc/coupling.cu"
     cpallas = "enflows_tpu/ops/pallas/coupling.py"
     for k in ("affine", "spline"):
+        paths = {key: {f"coupling slice {k} (d=64, n=2^17)":
+                       coupling_launches[k][key],
+                       **{f"vi coupling {k}{' stl' if stl else ''} template "
+                          f"(d=64, n=2^17)": n_l[key]
+                          for stl, n_l in vi_c[k].items()}}
+                 for key in ("coupling_fwd", "coupling_bwd")}
+        t = vi_tiles[k]
         rows += [(f"B4 fused_coupling_forward_and_ladj ({k} BASELINE)",
-                  coupling_launches[k]["coupling_fwd"], csrc,
-                  f"{cpallas}:677", b4[k]),
+                  paths["coupling_fwd"], csrc, f"{cpallas}:677",
+                  {**b4[k], "ms_vi_template": t["b4_ms_vi_template"],
+                   "tile_vi_template": t["b4_tile_vi_template"]}),
                  (f"B5 fused coupling backward ({k} BASELINE)",
-                  coupling_launches[k]["coupling_bwd"], csrc,
-                  f"{cpallas}:616", b5[k])]
+                  paths["coupling_bwd"], csrc, f"{cpallas}:616",
+                  {**b5[k], "ms_vi_template": t["ms_vi_template"],
+                   "tile_vi_template": t["tile_vi_template"]})]
     rows.append((f"B6 fused_leapfrog (BASELINE {LF['chains']} x {d_lf} x "
-                 f"{LF['steps']})", hmc_launches["leapfrog"],
+                 f"{LF['steps']})",
+                 {"hmc slice (8192 x d=50 x L=64)": hmc_launches["leapfrog"],
+                  "hmc example (256 x d=8 x L=16)":
+                  hmc_example_launches["leapfrog"]},
                  "enflows_tpu_torch/ops/csrc/leapfrog.cu",
                  "enflows_tpu/ops/pallas/leapfrog.py:157", b6))
-    # "ms" is the variant the main path runs; B4/B5 add the other beside it.
+    # "ms" is the variant the main path runs; B4/B5 add the other beside it,
+    # and the VI template's tile; B2 its time at d=50, n=2^17.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "ms_without_b5_rows", "ms_recomputing")
+            "library_ms", "ms_without_b5_rows", "ms_recomputing",
+            "ms_vi_template", "tile_vi_template", "ms_d50", "plain_ms_d50",
+            "bound_ms_d50")
+    print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s, the "
+          f"build included [{smi}]", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
-         "launches": n_launch,
+         "launches": sum(paths.values()), "launches_by_path": paths,
          **{key: vals[key] for key in keys if key in vals}}
-        for name, n_launch, source, rep, vals in rows]}), flush=True)
+        for name, paths, source, rep, vals in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,11 @@ elementwise spline, and the fused coupling-stack kernels B4/B5
 (``ops/csrc/coupling.cu``); and flow-preconditioned HMC: batch-first HMC
 with Stan warmup, flow-preconditioned and declared-pushforward targets,
 convergence diagnostics, the fused leapfrog kernel B6
-(``ops/csrc/leapfrog.cu``) and ``infer``'s HMC routes. The kernels are
-written in CUDA C++ for Hopper and built at first use. The package imports ``torch`` and never ``jax``;
+(``ops/csrc/leapfrog.cu``) and ``infer``'s HMC routes; and flow-VI:
+``optimize_elbo`` with the standard and sticking-the-landing estimators
+(through B1/B2 or B4/B5 on the card) and ``infer``'s two transport
+templates. The kernels are written in CUDA C++ for Hopper and built at
+first use. The package imports ``torch`` and never ``jax``;
 ``interop`` carries weights over from the JAX package without importing
 it.
 """
@@ -28,7 +31,9 @@ from .bijectors import (
 from .distributions import (
     FlowDistribution, std_normal_logpdf, std_normal_logpdf_sum,
 )
-from .infer import InferenceResult, infer, summarize_draws
-from .train import WhiteningResult, mvnormal_negll, optimize_whitening
+from .infer import (InferenceResult, coupling_flow_template,
+                    default_flow_template, infer, summarize_draws)
+from .train import (VIResult, WhiteningResult, mvnormal_negll, neg_elbo,
+                    neg_elbo_stl, optimize_elbo, optimize_whitening)
 
 __version__ = "0.1.0"

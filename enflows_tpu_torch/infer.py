@@ -10,11 +10,14 @@ Counterpart of ``enflows_tpu/infer.py``. Ported routes, all ``method='hmc'``:
   through ``mcmc.sample``, draws pushed back to data space; with
   ``precondition=None`` and no flow, the raw target.
 
-Every other route raises ``NotImplementedError`` naming its ROADMAP item:
-``precondition='auto'`` without a flow (the VI-fitted transport and its
-escalation ladder, A.6 and A.9), ``data=`` (MLE-whitening preconditioner,
-A.9), ``method='nuts'``/``'chees'`` (A.7), ``'smc'`` (A.8), ``mesh=``
-(A.10) and ``refine_rounds`` (A.9).
+It also holds the transport templates that ``precondition='auto'`` fits by
+ELBO ascent: ``default_flow_template`` and ``coupling_flow_template``
+(``enflows_tpu/infer.py:45-114``). Every other route raises
+``NotImplementedError`` naming its ROADMAP item: ``precondition='auto'``
+without a flow (the VI-fitted transport and its escalation ladder, A.9),
+``data=`` (MLE-whitening preconditioner, A.9), ``method='nuts'``/
+``'chees'`` (A.7), ``'smc'`` (A.8), ``mesh=`` (A.10) and
+``refine_rounds`` (A.9).
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .bijectors.base import Bijector
+from .bijectors import (CenterStretch, Householder, JohnsonInv, ScaleShift,
+                        coupling_stack, spline_coupling_stack)
+from .bijectors.base import Bijector, Chain, compose
 from .mcmc import FlowPushforwardTarget, flow_preconditioned, sample
 from .mcmc.diagnostics import (_host, bfmi, bulk_ess,
                                rank_normalized_rhat_per_dim, tail_ess)
@@ -37,6 +42,67 @@ class InferenceResult(NamedTuple):
     diagnostics: dict         # host-side scalars/arrays (see summarize_draws)
     stats: Any                # raw sampler stats (SampleStats/FusedHMCStats)
     flow: Optional[Bijector]  # preconditioner used (whitened -> data), if any
+
+
+def default_flow_template(dim: int, key: torch.Generator,
+                          dtype=torch.float32) -> Bijector:
+    """Identity-initialized base->data transport
+    (``enflows_tpu/infer.py:45-66``): two (CenterStretch, JohnsonInv)
+    blocks around a Householder rotation of min(dim, 4) reflections (dim >
+    1), with ScaleShifts at both ends. The reflections are drawn from the
+    ``torch.Generator`` ``key`` and canonicalized; every module lies on the
+    generator's device."""
+    device = key.device
+    v = lambda val: torch.full((dim,), val, dtype=dtype, device=device)
+    tail_block = lambda: (
+        CenterStretch(v(0.0), v(1.0), v(0.0)),
+        JohnsonInv(v(0.0), v(5.0), v(0.0), v(5.0)),
+    )
+    stages = [ScaleShift(v(1.0), v(0.0)), *tail_block()]
+    if dim > 1:
+        V = torch.randn(min(dim, 4), dim, generator=key, dtype=dtype,
+                        device=device)
+        stages.append(Householder(V).canonicalize())
+    stages.extend(tail_block())
+    stages.append(ScaleShift(v(1.0), v(0.0)))
+    return compose(*stages)
+
+
+def coupling_flow_template(n_layers: int = 4, hidden=(32, 32), *,
+                           tails: bool = True, kind: str = "affine",
+                           n_bins: int = 8, bound: float = 5.0):
+    """Template factory of a coupling-stack base->data transport
+    (``enflows_tpu/infer.py:69-114``): a callable ``(dim, key, dtype)``
+    returning, in apply order, a ScaleShift, a JohnsonInv tail expansion
+    (``tails``), ``n_layers`` identity-initialized couplings with reversal
+    Permutes (``kind`` 'affine', or 'spline' with ``n_bins`` bins on
+    [-bound, bound]) and a trailing ScaleShift, on the device of the
+    ``torch.Generator`` ``key`` that draws the conditioner weights. Below
+    dim 2 it returns ``default_flow_template``."""
+    if kind not in ("affine", "spline"):
+        raise ValueError(f"kind must be 'affine' or 'spline', got {kind!r}")
+
+    def template(dim: int, key: torch.Generator,
+                 dtype=torch.float32) -> Bijector:
+        if dim < 2:
+            return default_flow_template(dim, key, dtype)
+        device = key.device
+        v = lambda val: torch.full((dim,), val, dtype=dtype, device=device)
+        stages = [ScaleShift(v(1.0), v(0.0))]
+        if tails:
+            stages.append(JohnsonInv(v(0.0), v(5.0), v(0.0), v(5.0)))
+        if kind == "spline":
+            stack = spline_coupling_stack(key, dim, n_layers, hidden,
+                                          n_bins=n_bins, bound=bound,
+                                          dtype=dtype, device=device)
+        else:
+            stack = coupling_stack(key, dim, n_layers, hidden, dtype=dtype,
+                                   device=device)
+        stages.extend(stack.stages)
+        stages.append(ScaleShift(v(1.0), v(0.0)))
+        return Chain.of(*stages)
+
+    return template
 
 
 def summarize_draws(draws, stats=None) -> dict:
@@ -137,7 +203,7 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
         raise _unported("refine_rounds", "A.9")
     if flow is None and precondition == "auto":
         raise _unported("precondition='auto' (the VI-fitted transport)",
-                        "A.6 and A.9")
+                        "A.9")
     pre = None if flow is None else flow_preconditioned(logdensity_fn, flow)
     target = logdensity_fn if pre is None else pre.logdensity_fn
     draws, _final, stats = sample(

@@ -877,7 +877,8 @@ def _dw_tiles(pp: _Padded) -> int:
     return sum(-(-Kp // _DW_TILE) * -(-Np // _DW_TILE) for Kp, Np in pp.kn)
 
 
-def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None):
+def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
+                weights: bool = True):
     """B5: (gx, wbuf cotangent, pbuf cotangent) for the cotangents gy (n, d)
     in physical lane order and gl (n,). Given B4's ``saved`` rows, the whole
     batch is one launch of the sweep, which then skips its recompute of the
@@ -885,7 +886,9 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None):
     ``_BWD_CHUNK_ROWS`` rows, each recomputed. Each chunk is one launch of
     the sweep kernel and one of the weight-gradient reduction over fixed
     row splits; the partials are summed here in a fixed order and gathered
-    from the padded layout back onto the plan."""
+    from the padded layout back onto the plan. With ``weights=False`` (no
+    parameter wants a gradient, as in the sticking-the-landing inverse
+    pass) only the sweep runs, and both parameter cotangents are None."""
     from ._build import load_library
 
     lib = load_library()
@@ -907,8 +910,8 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None):
     nsplit = max(1, min(64, -(-4 * sms // _dw_tiles(pp))))
     gx = torch.empty_like(x)
     n_chunks = -(-n // chunk)
-    w_part = torch.empty(n_chunks * nsplit, pp.nat_len, dtype=torch.float32,
-                         device=dev)
+    w_part = torch.empty(n_chunks * nsplit if weights else 0, pp.nat_len,
+                         dtype=torch.float32, device=dev)
     p_parts = []
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -926,12 +929,16 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None):
                 None if saved is None else svs.data_ptr(), p_part.data_ptr(),
                 _DERIV_SHIFT, stream)
             _raise_on(lib, err, "B5 (fused coupling backward sweep)")
+            if not weights:
+                continue
             err = lib.enf_coupling_dw(
                 scratch.data_ptr(), li, len(st.layers), rows, nsplit,
                 w_part[c * nsplit:].data_ptr(), pp.nat_len, _DW_SMEM, stream)
             _raise_on(lib, err, "B5 (coupling weight-gradient reduction)")
             p_parts.append(p_part.sum(0))
     LAUNCHES["coupling_bwd"] += 1
+    if not weights:
+        return gx, None, None
     gw = w_part.sum(0)[_index(st, "grad_idx", dev)]
     return gx, gw, sum(p_parts[1:], p_parts[0])
 
@@ -953,7 +960,8 @@ class _FusedCoupling(torch.autograd.Function):
     """Forward: B4. Backward: B5 (``coupling.py:719-790``). ``save``: True
     or False to have B4 write B5's rows (B5 then skips its recompute) or
     not; None decides by ``_rows_fit``. Rows are written only when a
-    gradient is wanted."""
+    gradient is wanted, x's alone included. When neither buffer of the
+    plan wants one, B5 skips its weight-gradient reduction."""
 
     @staticmethod
     def forward(ctx, x, wbuf, pbuf, st, physical_order, save):
@@ -977,7 +985,8 @@ class _FusedCoupling(torch.autograd.Function):
             # gather gathers by the inverse permutation (coupling.py:764-767).
             gy = gy[:, np.argsort(st.out_map).tolist()]
         gx, gw, gp = _launch_bwd(st, x, wbuf, pbuf, gy.contiguous(),
-                                 gl.contiguous(), ctx.saved)
+                                 gl.contiguous(), ctx.saved,
+                                 weights=any(ctx.needs_input_grad[1:3]))
         ctx.saved = None
         return gx, gw, gp, None, None, None
 

@@ -621,14 +621,17 @@ def test_modules_do_not_import_jax():
             "enflows_tpu_torch.ops.coupling, "
             "enflows_tpu_torch.bijectors.coupling, "
             "enflows_tpu_torch.bijectors.spline, enflows_tpu_torch.interop, "
-            "enflows_tpu_torch.train.whitening, enflows_tpu_torch.ops._build; "
+            "enflows_tpu_torch.train.whitening, enflows_tpu_torch.ops._build, "
+            "enflows_tpu_torch.train.vi, enflows_tpu_torch.infer, "
+            "enflows_tpu_torch.examples.nf_variational_1d; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'enflows_tpu.')) or m == 'enflows_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
     for rel in ("ops/coupling.py", "bijectors/coupling.py",
-                "bijectors/spline.py", "ops/csrc/coupling.cu"):
+                "bijectors/spline.py", "ops/csrc/coupling.cu", "train/vi.py",
+                "infer.py", "examples/nf_variational_1d.py"):
         src = open(os.path.join(ROOT, "enflows_tpu_torch", rel)).read()
         assert "import jax" not in src and "from jax" not in src
         assert "enflows_tpu." not in src.replace("enflows_tpu_torch", "")

@@ -369,7 +369,7 @@ def test_summarize_draws_matches_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(method="nuts"), "A.7"), (dict(method="chees"), "A.7"),
-    (dict(method="smc"), "A.8"), (dict(), "A.6"),
+    (dict(method="smc"), "A.8"), (dict(), "A.9"),
     (dict(data=np.zeros((8, 2))), "A.9"), (dict(mesh=object()), "A.10"),
     (dict(precondition=None, refine_rounds=1), "A.9"),
 ])
