@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths once on one CUDA card: the
 whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5),
-flow-VI (B1/B2 and B4/B5) and flow-preconditioned HMC (B6).
+flow-VI (B1/B2 and B4/B5), flow-preconditioned HMC (B6), and NUTS and
+ChEES (no kernel).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -145,9 +146,40 @@ just before it and read just after:
 
 and ``[vi timing]`` / ``[vi profile]`` for each of these fits: warm
 ms/step fused against plain (timed plain, fused, fused, plain on the host
-clock), then ``torch.profiler`` over 4 fused steps. The script
-ends with its total time, the kernels line (each kernel's launches summed
-over every main-path run, by path) and the ``{"ok": true, ...}`` line.
+clock), then ``torch.profiler`` over 4 fused steps.
+
+NUTS and ChEES run after 13. No kernel is on their path (the JAX tree
+samplers reach none either); each run sets the launch counters to 0 just
+before it, reads them just after and fails if any kernel launched:
+
+18. ``[nuts slice]`` / ``[chees slice]``: ``sample(target,
+   algorithm='nuts'/'chees')`` on the HMC slice's BASELINE pushforward,
+   8192 chains x d=50, 200 warmup + 100 samples: draws finite, acceptance
+   within 0.6-1.0 (ChEES 0.45-0.95, tests/test_chees.py:51), mean and sd
+   within 0.1 of Monte-Carlo truth; the tree depths, leaves a transition
+   (the most and the mean over chains, and the lockstep's own count) and
+   host reads printed, for ChEES the adapted step size, trajectory length
+   and leapfrog steps an iteration;
+19. ``[nuts infer]``: ``infer(logp, method='nuts'/'chees')`` on the 2-D
+   example target of benchmarks/bench_mcmc.py:35-44, raw
+   (``precondition=None``, 128 chains, 500 + 1000: finite draws and the
+   acceptance range; its moments, min bulk ESS and max rhat are printed
+   but not gated, since raw chains do not cross the target's modes) and
+   through its exact transport (``flow=``, 128 chains, 200 + 300: mean
+   within 0.1 sd, sd within 10% of Monte-Carlo truth); then
+   ``infer(target, method='nuts', precondition=None)`` on the BASELINE
+   pushforward at 1024 chains, 100 + 100, through ``mcmc.sample``, with no
+   B6 launch;
+20. ``[nuts timing]`` / ``[chees timing]``: 20 warm transitions from the
+   slice's final states at its adapted settings (host clock): ms a
+   transition, a leaf (NUTS) or a leapfrog step (ChEES), gradient
+   evaluations a second and host reads a transition; ``torch.profiler``
+   over 5: the card's busy time, its idle share and device ops a leaf or
+   step; the fused HMC transition of 13 beside them as context.
+
+The script ends with its total time, the kernels line (each kernel's
+launches summed over every main-path run, by path) and the ``{"ok": true,
+...}`` line.
 
 Tolerances: y 2e-5 and ladj 2e-4 (rtol = atol), input cotangents rtol 2e-4
 / atol 2e-5 elementwise, negll 1e-5 relative. Every parameter gradient is
@@ -253,13 +285,20 @@ def flagship_flow(et, dim, gen, device):
                       stretch_inv())
 
 
-def example_2d(et, gen, device):
-    """(f_true, model) of examples/nf_example_2d.py."""
+def example_2d_flow(et, device):
+    """f_true of examples/nf_example_2d.py, the transport of the 2-D example
+    target of benchmarks/bench_mcmc.py:35-44."""
     vec = lambda *a: torch.tensor(a, device=device)
-    f_true = et.compose(
+    return et.compose(
         et.ScaleShift(vec(1.3, 0.4), vec(2.5, -1.2)),
         et.Householder(vec(1.0, 0.3)),
         et.CenterStretch(vec(4.0, 4.1), vec(2.0, 2.1), vec(3.0, 3.1)))
+
+
+def example_2d(et, gen, device):
+    """(f_true, model) of examples/nf_example_2d.py."""
+    vec = lambda *a: torch.tensor(a, device=device)
+    f_true = example_2d_flow(et, device)
     model = et.compose(
         et.invert(et.CenterStretch(vec(0.0, 0.0), vec(1.0, 1.0),
                                    vec(0.0, 0.0))),
@@ -1781,6 +1820,37 @@ def b5_stored_at(C, flow, x):
     return b4, b5, C._pick_tile(st, False), C._pick_tile(st, True)
 
 
+def template_yardsticks(C, flow, x):
+    """A VI template's plain B4 and B5 (autograd over a retained plain
+    forward, for the cotangents of ``b5_stored_at``) by CUDA events, and,
+    as for the bare stack, its conditioner products alone in TF32
+    torch.matmul and the TF32 bounds: {"b4": ..., "b5": ...}, each with
+    plain_ms, library_ms, bound_ms and bound_by."""
+    n, d = x.shape
+    st = C._stack_structure(flow, d)
+    with torch.no_grad():
+        wbuf, pbuf = C._stack_plan(flow, st, torch.float32, x.device)
+        y, ladj, _ = C._launch_fwd(st, x, wbuf, pbuf)
+        plain4 = cuda_ms(lambda: C.coupling_forward_plain(st, wbuf, pbuf, x),
+                         iters=3)
+    xr = x.clone().requires_grad_(True)
+    y0, l0 = plain_coupling(C, physical_order=True)(flow, xr)
+    params = list(flow.parameters())
+    gy, gl = torch.cos(y), 2.0 * ladj
+    plain5 = cuda_ms(lambda: torch.autograd.grad(
+        [y0, l0], [xr, *params], [gy, gl], retain_graph=True), iters=3)
+    del y0, l0, xr
+    flops = conditioner_flops(st) * n
+    return {"b4": {**bound_of(4 * (n * (2 * d + 1) + st.w_len), flops,
+                              TF32_FLOP_PER_S),
+                   "plain_ms": plain4, "library_ms": matmul_only_ms(
+                       st, n, x.device, backward=False, tf32=True)},
+            "b5": {**bound_of(4 * (n * (3 * d + 1) + 2 * st.w_len),
+                              2 * flops, TF32_FLOP_PER_S),
+                   "plain_ms": plain5, "library_ms": matmul_only_ms(
+                       st, n, x.device, backward=True, tf32=True)}}
+
+
 def hold_vi_template(et, C, kind, flow, gen, device, card):
     """B4 and B5 on a template that VI trained, at the slice's 2^17 rows and
     tiles, for random cotangents: y, ladj, gx and every parameter gradient
@@ -1890,15 +1960,23 @@ def phase_vi_coupling(et, EW, C, VI, device, card):
         b4_t, b5_t, t4, t5 = b5_stored_at(C, flow, x)
         b4_0, b5_0, s4, s5 = b5_stored_at(
             C, baseline_stack(et, kind, gen, device), x)
+        yard = template_yardsticks(C, flow, x)
         tiles[kind] = dict(ms_vi_template=b5_t, tile_vi_template=t5,
-                           b4_ms_vi_template=b4_t, b4_tile_vi_template=t4)
+                           b4_ms_vi_template=b4_t, b4_tile_vi_template=t4,
+                           yardsticks=yard)
         print(f"[vi B5 tile] {kind} template (ScaleShift, JohnsonInv, "
               f"4x{BASELINE['hidden']}, ScaleShift) n={x.shape[0]}: B4 tile "
               f"{t4} rows, B5 tile {t5} rows; B5 on B4's stored rows "
               f"{b5_t:.3f} ms at the template's {t5}-row tile against "
               f"{b5_0:.3f} ms for the bare BASELINE stack at its {s5}-row "
               f"tile; B4 writing B5's rows {b4_t:.3f} ms ({t4}-row tile) "
-              f"against {b4_0:.3f} ms ({s4}-row tile) [{card}]", flush=True)
+              f"against {b4_0:.3f} ms ({s4}-row tile); on the template, "
+              + "; ".join(f"{k.upper()} plain {v['plain_ms']:.3f} ms, the "
+                          f"products alone in TF32 torch.matmul "
+                          f"{v['library_ms']:.3f} ms, TF32 bound "
+                          f"{v['bound_ms']:.3f} ms ({v['bound_by']})"
+                          for k, v in yard.items()) + f" [{card}]",
+              flush=True)
     return launches, tiles
 
 
@@ -2214,6 +2292,15 @@ def moment_gate(name, draws, transport, base_mean, base_var, gen):
     return mean_err, sd_rel
 
 
+def base_of(target, dim, device):
+    """(mean, var) of a FlowPushforwardTarget's diagonal-Gaussian base."""
+    mu = torch.zeros(dim, device=device) if target.base_mean is None else \
+        torch.as_tensor(target.base_mean, device=device)
+    var = torch.ones(dim, device=device) if target.base_var is None else \
+        torch.as_tensor(target.base_var, device=device)
+    return mu, var
+
+
 def hmc_route(et, TL, name, target, dim, num_chains, num_warmup,
               num_samples, gen, card, **kw):
     """The user's path: infer(target, method='hmc') on a declared
@@ -2239,13 +2326,9 @@ def hmc_route(et, TL, name, target, dim, num_chains, num_warmup,
           f"{bool(torch.isfinite(res.draws).all())}")
     acc = res.diagnostics["accept_prob"]
     check(0.6 <= acc <= 1.0, f"{name}: acceptance {acc:.3f}")
-    dev = res.draws.device
-    mu = torch.zeros(dim, device=dev) if target.base_mean is None else \
-        torch.as_tensor(target.base_mean, device=dev)
-    var = torch.ones(dim, device=dev) if target.base_var is None else \
-        torch.as_tensor(target.base_var, device=dev)
-    mean_err, sd_rel = moment_gate(name, res.draws, target.transport, mu,
-                                   var, gen)
+    mean_err, sd_rel = moment_gate(name, res.draws, target.transport,
+                                   *base_of(target, dim, res.draws.device),
+                                   gen)
     print(f"[hmc slice] {name}: infer(method='hmc') {num_chains} chains x "
           f"d={dim}, {num_warmup} warmup + {num_samples} samples: B6 "
           f"launches {launches['leapfrog']} (other kernels "
@@ -2327,6 +2410,237 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
           flush=True)
     return dict(fused_ms_per_transition=fused_ms,
                 plain_ms_per_transition=plain_ms)
+
+
+# ----------------------------------------------------------------------
+# NUTS and ChEES through sample and infer. No kernel: the JAX tree samplers
+# reach no Pallas kernel either (enflows_tpu/mcmc/sample.py:163-169,
+# chees.py:318). The card runs the batched density gradients (autograd of
+# the plain whitening chain) and the tree bookkeeping.
+
+TREE = dict(chains=8192, warmup=200, samples=100)
+INFER_2D = dict(chains=128, warmup=500, samples=1000)       # raw target
+INFER_2D_FLOW = dict(chains=128, warmup=200, samples=300)   # flow= route
+INFER_PUSHFORWARD = dict(chains=1024, warmup=100, samples=100)
+TREE_ACCEPT = {"nuts": (0.6, 1.0), "chees": (0.45, 0.95)}  # test_chees.py:51
+
+
+def kernel_launches(counters):
+    return {k: v for counts in counters for k, v in counts.items()}
+
+
+def tree_slice(et, NU, algorithm, target, dim, counters, gen, card):
+    """``[nuts slice]`` / ``[chees slice]``: ``sample(target,
+    algorithm=...)`` at 8192 chains x d=50, 200 warmup + 100 samples, on
+    the HMC slice's BASELINE pushforward, with the launch counters set to 0
+    just before and read just after: no kernel may launch. Draws finite,
+    acceptance within ``TREE_ACCEPT``, mean and sd within 0.1 of
+    Monte-Carlo truth (``moment_gate``). Returns (stats, final states)."""
+    n, nw, ns = TREE["chains"], TREE["warmup"], TREE["samples"]
+    tag = f"[{algorithm} slice]"
+    reset_launches(*counters)
+    lock0 = dict(NU.LOCKSTEP)
+    t0 = time.perf_counter()
+    draws, final, stats = et.mcmc.sample(
+        target, gen, dim=dim, num_chains=n, num_warmup=nw, num_samples=ns,
+        algorithm=algorithm, device=gen.device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(counters)
+    check(not any(launches.values()), f"{tag} launched a kernel: {launches}")
+    check(draws.shape == (n, ns, dim) and bool(torch.isfinite(draws).all()),
+          f"{tag} draws {tuple(draws.shape)}, finite "
+          f"{bool(torch.isfinite(draws).all())}")
+    acc = float(stats.accept_prob.mean())
+    lo, hi = TREE_ACCEPT[algorithm]
+    check(lo <= acc <= hi, f"{tag} acceptance {acc:.3f}")
+    mean_err, sd_rel = moment_gate(tag, draws, target.transport,
+                                   *base_of(target, dim, draws.device), gen)
+    if algorithm == "nuts":
+        steps = stats.num_steps.double()               # (samples, chains)
+        depth = (steps + 1).log2().ceil()
+        lock = {k: NU.LOCKSTEP[k] - lock0[k] for k in lock0}
+        per = lambda k: lock[k] / lock["transitions"]
+        detail = (f"tree depth mean {float(depth.mean()):.3f}, max "
+                  f"{float(depth.max()):.0f}; leaves a sampling transition: "
+                  f"max over chains {float(steps.max(1).values.mean()):.2f} "
+                  f"(largest {float(steps.max()):.0f}), mean "
+                  f"{float(steps.mean()):.2f}; over all "
+                  f"{lock['transitions']} transitions the lockstep ran "
+                  f"{per('leaves'):.2f} leaves in {per('doublings'):.2f} "
+                  f"doublings with {per('host_reads'):.2f} host reads a "
+                  f"transition")
+    else:
+        steps = stats.num_steps.double()
+        detail = (f"step size {float(stats.step_size):.4f}, trajectory "
+                  f"length {float(stats.trajectory_length):.4f}, leapfrog "
+                  f"steps a sampling iteration mean {float(steps.mean()):.2f}"
+                  f" ({float(steps.min()):.0f}-{float(steps.max()):.0f})")
+    print(f"{tag} sample(algorithm={algorithm!r}) {n} chains x d={dim}, "
+          f"{nw} warmup + {ns} samples: kernel launches "
+          f"{sum(launches.values())}; accept {acc:.3f}, divergences "
+          f"{int(stats.divergent.sum())}, mean err {mean_err:.4f}, sd rel "
+          f"err {sd_rel:.4f}; {detail}; wall {wall:.2f} s [{card}]",
+          flush=True)
+    return stats, final
+
+
+def infer_2d(et, method, through_flow, counters, seed, device, card):
+    """``infer(logp, method=...)`` on the 2-D example target of
+    benchmarks/bench_mcmc.py:35-44 (BASELINE.md:34's NUTS/ChEES row),
+    raw (``precondition=None``, 128 chains x 500 warmup + 1000 samples) or
+    through its exact transport (``flow=``, 128 x 200 + 300, where the
+    chains see N(0, I)). The target has several modes
+    that raw chains started near 0 do not cross (the JAX package's own
+    NUTS at these counts leaves R-hat far above 1.1 too). So the raw run
+    is held to finite draws and the acceptance range, its moments printed;
+    the flow run to mean within 0.1 sd and sd within 10% of Monte-Carlo
+    truth (200,000 draws). No kernel may launch."""
+    f = example_2d_flow(et, device)
+    logp = et.FlowDistribution(f).requires_grad_(False).logpdf
+    tag = (f"[nuts infer] {method} 2-D example, "
+           f"{'flow' if through_flow else 'raw'}")
+    reset_launches(*counters)
+    t0 = time.perf_counter()
+    kw = dict(flow=f) if through_flow else dict(precondition=None)
+    sizes = INFER_2D_FLOW if through_flow else INFER_2D
+    n, nw, ns = sizes["chains"], sizes["warmup"], sizes["samples"]
+    res = et.infer(logp, dim=2, key=torch.Generator(device=device)
+                   .manual_seed(seed), method=method, num_chains=n,
+                   num_warmup=nw, num_samples=ns, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(counters)
+    check(not any(launches.values()), f"{tag}: launched {launches}")
+    check(res.draws.shape == (n, ns, 2)
+          and bool(torch.isfinite(res.draws).all()),
+          f"{tag}: draws {tuple(res.draws.shape)} not finite")
+    d = res.diagnostics
+    lo, hi = TREE_ACCEPT[method]
+    check(lo <= d["accept_prob"] <= hi,
+          f"{tag}: acceptance {d['accept_prob']:.3f}")
+    with torch.no_grad():
+        xs = f(torch.randn(200_000, 2, generator=torch.Generator(
+            device=device).manual_seed(seed + 1), device=device))
+    sd = xs.std(0)
+    got = res.draws.reshape(-1, 2)
+    mean_err = float(((got.mean(0) - xs.mean(0)).abs() / sd).max())
+    sd_rel = float((got.std(0) / sd - 1).abs().max())
+    if through_flow:
+        check(mean_err < 0.1 and sd_rel < 0.1,
+              f"{tag}: mean err {mean_err:.4f} sd, sd rel err {sd_rel:.4f}")
+    print(f"{tag}: {n} chains, {nw} warmup + {ns} samples: "
+          f"accept {d['accept_prob']:.3f}, divergences {d['divergences']}, "
+          f"mean err {mean_err:.4f} sd, sd rel err {sd_rel:.4f}"
+          f"{'' if through_flow else ' (not gated)'}, min bulk ESS "
+          f"{d['min_bulk_ess']:.0f}, max rhat {float(d['rhat'].max()):.4f}; "
+          f"kernel launches {sum(launches.values())}; wall {wall:.2f} s with "
+          f"the host-side diagnostics [{card}]", flush=True)
+
+
+def infer_pushforward_tree(et, target, dim, counters, gen, card):
+    """``infer(target, method='nuts', precondition=None)`` on the BASELINE
+    pushforward at 1024 chains x 100 + 100: a declared target with a tree
+    method takes ``mcmc.sample``, not the fused HMC route: no B6 launch,
+    no launch at all."""
+    n, nw, ns = (INFER_PUSHFORWARD[k] for k in ("chains", "warmup",
+                                                "samples"))
+    reset_launches(*counters)
+    t0 = time.perf_counter()
+    res = et.infer(target, dim=dim, key=gen, method="nuts",
+                   precondition=None, num_chains=n, num_warmup=nw,
+                   num_samples=ns)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(counters)
+    tag = "[nuts infer] nuts BASELINE pushforward"
+    check(not any(launches.values()), f"{tag}: launched {launches}")
+    check(isinstance(res.stats, et.mcmc.SampleStats),
+          f"{tag}: stats {type(res.stats).__name__}, not SampleStats")
+    check(res.draws.shape == (n, ns, dim)
+          and bool(torch.isfinite(res.draws).all()),
+          f"{tag}: draws {tuple(res.draws.shape)} not finite")
+    d = res.diagnostics
+    mu, var = base_of(target, dim, res.draws.device)
+    with torch.no_grad():
+        xs = target.transport(mu + torch.sqrt(var) * torch.randn(
+            200_000, dim, generator=gen, device=res.draws.device))
+    got = res.draws.reshape(-1, dim)
+    print(f"{tag}: {n} chains x d={dim}, {nw} warmup + {ns} samples through "
+          f"mcmc.sample: B6 launches {launches['leapfrog']}, all kernels "
+          f"{sum(launches.values())}; accept {d['accept_prob']:.3f}, "
+          f"divergences {d['divergences']}, mean err "
+          f"{float((got.mean(0) - xs.mean(0)).abs().max()):.4f}, sd rel err "
+          f"{float((got.std(0) / xs.std(0) - 1).abs().max()):.4f} (not "
+          f"gated), min bulk ESS {d['min_bulk_ess']:.0f}, max rhat "
+          f"{float(d['rhat'].max()):.4f}; wall {wall:.2f} s with the "
+          f"host-side diagnostics [{card}]", flush=True)
+
+
+def tree_timing(et, NU, algorithm, target, stats, final, hmc_ms, card,
+                transitions=20):
+    """``[nuts timing]`` / ``[chees timing]``: ``transitions`` warm
+    transitions from the slice's final states at its adapted step size and
+    mass (and trajectory length), on the host clock ending in a synchronize:
+    ms a transition, a leaf (NUTS, the lockstep's) or a leapfrog step
+    (ChEES), gradient evaluations a second and host reads a transition;
+    then ``torch.profiler`` over 5 transitions: the card's busy time, its
+    idle share against the unprofiled transition, device ops a leaf or
+    step. The fused HMC transition of ``[hmc timing]`` (L=64, B6) stands
+    beside them as context."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = final.q.shape[0]
+    step, inv_mass = stats.step_size, stats.inv_mass_diag
+    kernel = et.mcmc.nuts_kernel(target)
+
+    def run(count, seed):
+        """(leaves or leapfrog steps of every chain, host reads) of
+        ``count`` transitions from the slice's final states."""
+        g = torch.Generator(device=final.q.device).manual_seed(seed)
+        if algorithm == "chees":
+            out = et.mcmc.run_chains_chees(
+                target, final, g, count, step, stats.trajectory_length,
+                inv_mass)
+            return int(out[2].num_steps.sum()), 1
+        lock0 = dict(NU.LOCKSTEP)
+        st = final
+        for _ in range(count):
+            st, _ = kernel(g, st, step, inv_mass)
+        return (NU.LOCKSTEP["leaves"] - lock0["leaves"],
+                NU.LOCKSTEP["host_reads"] - lock0["host_reads"])
+
+    run(2, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaves, reads = run(transitions, 2)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / transitions
+    per_leaf = ms * transitions / leaves
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        leaves5, _ = run(5, 3)
+        torch.cuda.synchronize()
+    by_name, ops = device_kernel_us(prof)
+    busy = sum(by_name.values()) / 1e3 / 5
+    unit, units = (("leaf", "leaves") if algorithm == "nuts" else
+                   ("leapfrog step", "leapfrog steps"))
+    profile_line = (
+        f"profiler over 5 transitions ({leaves5} {units}): device busy "
+        f"{busy:.3f} ms a transition, idle {100 * (1 - busy / ms):.1f}% of "
+        f"the unprofiled ms (if the 5 run as many {units} as the 20), "
+        f"{ops / leaves5:.1f} device ops a {unit}" if busy else
+        "profiler: no device time in the trace (not measured)")
+    print(f"[{algorithm} timing] {n} chains x d={final.q.shape[1]}, "
+          f"{transitions} warm transitions (host clock): {ms:.3f} "
+          f"ms/transition, {leaves / transitions:.2f} {units} a transition, "
+          f"{per_leaf:.4f} ms a {unit}, "
+          f"{n * leaves / (ms * transitions) / 1e3:.3f} M gradient "
+          f"evaluations/s, {reads / transitions:.2f} host reads a "
+          f"transition; {profile_line}; fused HMC (B6, L=64) "
+          f"{hmc_ms:.3f} ms/transition, {hmc_ms / 64:.4f} ms a leapfrog "
+          f"step [{card}]", flush=True)
+    return dict(ms_per_transition=ms, ms_per_leaf=per_leaf, busy_ms=busy)
 
 
 def main():
@@ -2467,7 +2781,27 @@ def main():
         et, TL, "examples/fused_pushforward_hmc.py", example_d8(
             et, gen, device), 8, 256, 200, 500,
         torch.Generator(device=device).manual_seed(4), smi)
-    hmc_timing(TL, target.whiten, res.stats.step_size, gen, device, smi)
+    hmc_t = hmc_timing(TL, target.whiten, res.stats.step_size, gen, device,
+                       smi)
+
+    # NUTS and ChEES through sample and infer, no kernel on their path; each
+    # run with the launch counters set to 0 just before it and read just
+    # after. Each phase draws from generators of its own.
+    from enflows_tpu_torch.mcmc import nuts as NU
+    counters = (TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES)
+    tree = {alg: tree_slice(et, NU, alg, target, d_lf, counters,
+                            torch.Generator(device=device).manual_seed(seed),
+                            smi)
+            for alg, seed in (("nuts", 40), ("chees", 41))}
+    for method, seed in (("nuts", 42), ("chees", 44)):
+        for through_flow in (False, True):
+            infer_2d(et, method, through_flow, counters, seed, device, smi)
+    infer_pushforward_tree(et, target, d_lf, counters,
+                           torch.Generator(device=device).manual_seed(46),
+                           smi)
+    for alg in ("nuts", "chees"):
+        tree_timing(et, NU, alg, target, *tree[alg],
+                    hmc_t["fused_ms_per_transition"], smi)
 
     src = "enflows_tpu_torch/ops/csrc/elementwise.cu"
     pallas = "enflows_tpu/ops/pallas/elementwise.py"
@@ -2497,14 +2831,19 @@ def main():
                           for stl, n_l in vi_c[k].items()}}
                  for key in ("coupling_fwd", "coupling_bwd")}
         t = vi_tiles[k]
+        yard = {b: {f"{key}_vi_template": v[key] for key in
+                    ("plain_ms", "library_ms", "bound_ms")}
+                for b, v in t["yardsticks"].items()}
         rows += [(f"B4 fused_coupling_forward_and_ladj ({k} BASELINE)",
                   paths["coupling_fwd"], csrc, f"{cpallas}:677",
                   {**b4[k], "ms_vi_template": t["b4_ms_vi_template"],
-                   "tile_vi_template": t["b4_tile_vi_template"]}),
+                   "tile_vi_template": t["b4_tile_vi_template"],
+                   **yard["b4"]}),
                  (f"B5 fused coupling backward ({k} BASELINE)",
                   paths["coupling_bwd"], csrc, f"{cpallas}:616",
                   {**b5[k], "ms_vi_template": t["ms_vi_template"],
-                   "tile_vi_template": t["tile_vi_template"]})]
+                   "tile_vi_template": t["tile_vi_template"],
+                   **yard["b5"]})]
     rows.append((f"B6 fused_leapfrog (BASELINE {LF['chains']} x {d_lf} x "
                  f"{LF['steps']})",
                  {"hmc slice (8192 x d=50 x L=64)": hmc_launches["leapfrog"],
@@ -2516,8 +2855,9 @@ def main():
     # and the VI template's tile; B2 its time at d=50, n=2^17.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "ms_without_b5_rows", "ms_recomputing",
-            "ms_vi_template", "tile_vi_template", "ms_d50", "plain_ms_d50",
-            "bound_ms_d50")
+            "ms_vi_template", "tile_vi_template", "plain_ms_vi_template",
+            "library_ms_vi_template", "bound_ms_vi_template", "ms_d50",
+            "plain_ms_d50", "bound_ms_d50")
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s, the "
           f"build included [{smi}]", flush=True)
     print(json.dumps({"kernels": [

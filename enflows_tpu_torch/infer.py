@@ -1,23 +1,24 @@
 """One-call inference: sample -> diagnose.
 
-Counterpart of ``enflows_tpu/infer.py``. Ported routes, all ``method='hmc'``:
+Counterpart of ``enflows_tpu/infer.py``. Ported routes:
 
-* a target declared as ``mcmc.FlowPushforwardTarget`` whose whitening chain
-  B6 takes: ``mcmc.fused_flow_hmc_sample`` over that chain, each trajectory
-  in one launch of kernel B6, draws directly in data space
-  (``infer.py:299-320``);
-* an explicit ``flow=`` (whitened -> data): the flow-preconditioned target
-  through ``mcmc.sample``, draws pushed back to data space; with
-  ``precondition=None`` and no flow, the raw target.
+* with ``method='hmc'``, a target declared as ``mcmc.FlowPushforwardTarget``
+  whose whitening chain B6 takes: ``mcmc.fused_flow_hmc_sample`` over that
+  chain, each trajectory in one launch of kernel B6, draws directly in data
+  space (``infer.py:299-320``);
+* with ``method='nuts'``, ``'hmc'`` or ``'chees'``, an explicit ``flow=``
+  (whitened -> data): the flow-preconditioned target through
+  ``mcmc.sample``, draws pushed back to data space; with
+  ``precondition=None`` and no flow, the raw target (a declared
+  pushforward with a tree method included).
 
 It also holds the transport templates that ``precondition='auto'`` fits by
 ELBO ascent: ``default_flow_template`` and ``coupling_flow_template``
 (``enflows_tpu/infer.py:45-114``). Every other route raises
 ``NotImplementedError`` naming its ROADMAP item: ``precondition='auto'``
 without a flow (the VI-fitted transport and its escalation ladder, A.9),
-``data=`` (MLE-whitening preconditioner, A.9), ``method='nuts'``/
-``'chees'`` (A.7), ``'smc'`` (A.8), ``mesh=`` (A.10) and
-``refine_rounds`` (A.9).
+``data=`` (MLE-whitening preconditioner, A.9), ``method='smc'`` (A.8),
+``mesh=`` (A.10) and ``refine_rounds`` (A.9).
 """
 from __future__ import annotations
 
@@ -162,7 +163,9 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     ``mcmc.FlowPushforwardTarget``. ``key``: the ``torch.Generator`` of every
     draw; its device is where the chains run. Without one, a generator
     seeded 0 on ``device`` (the card unless the caller asks for the CPU).
-    ``method``: 'hmc' ('nuts', 'chees' and 'smc' are not ported yet).
+    ``method``: 'nuts', 'hmc' or 'chees' ('smc' is not ported yet); the
+    sampler's keywords (``max_depth=``, ``num_steps=``, ...) pass through
+    ``sampler_kw``.
 
     A target declared as ``FlowPushforwardTarget`` with a chain that B6
     takes runs ``method='hmc'`` through the fused leapfrog kernel, with no
@@ -170,11 +173,9 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     (whitened -> data) preconditions the target, or ``precondition=None``
     samples it raw. Draws are returned in data space.
     """
-    if method in ("nuts", "chees"):
-        raise _unported(f"method={method!r}", "A.7")
     if method == "smc":
         raise _unported("method='smc'", "A.8")
-    if method != "hmc":
+    if method not in ("nuts", "hmc", "chees"):
         raise ValueError(f"method must be 'nuts', 'hmc', 'chees' or 'smc', "
                          f"got {method!r}")
     if mesh is not None:
@@ -187,7 +188,8 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     # Declared-structure route: the declared chain is the exact transport,
     # and its trajectories run in kernel B6. The sampler draws q with density
     # N(whiten(q)) + ladj_whiten(q) == logdensity_fn(q): data space.
-    if (isinstance(logdensity_fn, FlowPushforwardTarget) and flow is None
+    if (method == "hmc" and isinstance(logdensity_fn, FlowPushforwardTarget)
+            and flow is None
             and logdensity_fn.fused_kernel_available(dim, dtype)
             and _fused_hmc_accepts(sampler_kw)):
         draws, _final, stats = fused_flow_hmc_sample(

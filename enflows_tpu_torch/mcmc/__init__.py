@@ -1,11 +1,14 @@
-"""MCMC: batch-first HMC with Stan warmup, flow-preconditioned targets, the
-fused-leapfrog sampler (kernel B6) and convergence diagnostics.
+"""MCMC: batch-first HMC, multinomial NUTS and ChEES-HMC with Stan warmup,
+flow-preconditioned targets, the fused-leapfrog sampler (kernel B6) and
+convergence diagnostics.
 
-Counterpart of ``enflows_tpu/mcmc/``; NUTS and ChEES are not ported yet
-(ROADMAP A.7).
+Counterpart of ``enflows_tpu/mcmc/``.
 """
 from .hmc import (HMCInfo, HMCState, hmc_kernel, hmc_transition, init_state,
                   kinetic_energy, leapfrog, sample_momentum, value_and_grad)
+from .nuts import NUTSInfo, nuts_kernel, nuts_transition
+from .chees import (ChEESSampleStats, ChEESWarmupResult, chees_sample,
+                    chees_warmup, hmc_proposal_kernel, run_chains_chees)
 from .logdensity import (FlowPushforwardTarget, PreconditionedTarget,
                          flow_preconditioned, per_sample)
 from .sample import (SampleStats, WarmupResult, run_chains, sample,
@@ -23,6 +26,9 @@ from .diagnostics import (
 __all__ = [
     "HMCInfo", "HMCState", "hmc_kernel", "hmc_transition", "init_state",
     "kinetic_energy", "leapfrog", "sample_momentum", "value_and_grad",
+    "NUTSInfo", "nuts_kernel", "nuts_transition",
+    "ChEESSampleStats", "ChEESWarmupResult", "chees_sample", "chees_warmup",
+    "hmc_proposal_kernel", "run_chains_chees",
     "FlowPushforwardTarget", "PreconditionedTarget", "flow_preconditioned",
     "per_sample",
     "SampleStats", "WarmupResult", "run_chains", "sample",

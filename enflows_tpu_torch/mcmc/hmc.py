@@ -76,12 +76,15 @@ def leapfrog(value_grad_fn: Callable, q, p, grad, step_size, inv_mass_diag,
     return q, p, logp, grad
 
 
-def hmc_transition(value_grad_fn: Callable, state: HMCState, step_size,
-                   inv_mass_diag, num_steps: int, p, u,
-                   divergence_threshold: float = 1000.0):
-    """One HMC transition of all chains given its draws: the momenta p
-    (n, dim) (``sample_momentum``) and the acceptance uniforms ``u`` (n,).
-    A NaN energy change rejects. Returns (state, info)."""
+def metropolis_proposal(value_grad_fn: Callable, state: HMCState, step_size,
+                        inv_mass_diag, num_steps: int, p, u,
+                        divergence_threshold: float = 1000.0):
+    """``num_steps`` leapfrog steps of all chains from momenta ``p`` and the
+    Metropolis step with uniforms ``u`` (n,); a NaN energy change rejects.
+    Returns (state, accept_prob, accepted, divergent, energy, q_prop,
+    p_prop), ``energy`` the H of the accepted state (on rejection: the
+    initial point with its fresh momentum), the energy marginal that BFMI
+    is defined over."""
     energy0 = -state.logp + kinetic_energy(p, inv_mass_diag)
     q_new, p_new, logp_new, grad_new = leapfrog(
         value_grad_fn, state.q, p, state.grad, step_size, inv_mass_diag,
@@ -96,15 +99,37 @@ def hmc_transition(value_grad_fn: Callable, state: HMCState, step_size,
         q=torch.where(accepted[:, None], q_new, state.q),
         logp=torch.where(accepted, logp_new, state.logp),
         grad=torch.where(accepted[:, None], grad_new, state.grad))
+    return (new_state, accept_prob, accepted, divergent,
+            torch.where(accepted, energy1, energy0), q_new, p_new)
+
+
+def hmc_transition(value_grad_fn: Callable, state: HMCState, step_size,
+                   inv_mass_diag, num_steps: int, p, u,
+                   divergence_threshold: float = 1000.0):
+    """One HMC transition of all chains given its draws: the momenta p
+    (n, dim) (``sample_momentum``) and the acceptance uniforms ``u`` (n,).
+    A NaN energy change rejects. Returns (state, info)."""
+    new_state, accept_prob, accepted, divergent, energy, _, _ = \
+        metropolis_proposal(value_grad_fn, state, step_size, inv_mass_diag,
+                            num_steps, p, u, divergence_threshold)
     info = HMCInfo(accept_prob=accept_prob, accepted=accepted,
-                   divergent=divergent,
-                   # H of the accepted state (on rejection: the initial
-                   # point with its fresh momentum), the energy marginal
-                   # that BFMI is defined over.
-                   energy=torch.where(accepted, energy1, energy0),
+                   divergent=divergent, energy=energy,
                    num_steps=torch.full_like(accept_prob, num_steps,
                                              dtype=torch.int64))
     return new_state, info
+
+
+def initial_positions(initial_position, generator, num_chains: int,
+                      dim: int, dtype, device):
+    """Where the chains start: ``initial_position`` in ``dtype`` (a tensor
+    keeps its device, anything else lands on ``device``), or 0.1 N(0, I)
+    draws from ``generator`` on ``device``."""
+    if isinstance(initial_position, torch.Tensor):
+        return initial_position.to(dtype)
+    if initial_position is None:
+        return 0.1 * torch.randn(num_chains, dim, generator=generator,
+                                 dtype=dtype, device=device)
+    return torch.as_tensor(initial_position, dtype=dtype, device=device)
 
 
 def hmc_kernel(logdensity_fn: Callable, num_steps: int = 32,

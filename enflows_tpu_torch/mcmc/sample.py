@@ -3,13 +3,15 @@
 Counterpart of ``enflows_tpu/mcmc/sample.py``. The JAX warmup and sampling
 are one jitted ``lax.scan`` each over a ``vmap``-ed single-chain kernel;
 here a kernel transitions all chains at once and warmup and sampling are
-Python loops over transitions. The adaptation state and every per-transition statistic stay in
-device tensors (draws and statistics in preallocated buffers), so the loops
-read nothing back to the host.
+Python loops over transitions. The adaptation state and every
+per-transition statistic stay in device tensors (draws and statistics in
+preallocated buffers), so the loops read nothing back to the host but
+what a kernel reads itself: NUTS its stop flags (``nuts.py``), ChEES its
+step counts (``chees.py``).
 
-Ported: ``algorithm="hmc"``. NUTS and ChEES (``algorithm="nuts"`` /
-``"chees"``) and the ``metrics=`` stream raise ``NotImplementedError``
-(ROADMAP A.7).
+``sample`` runs ``algorithm="nuts"`` (the default), ``"hmc"`` and
+``"chees"`` (``chees.chees_sample``). The ``metrics=`` stream raises
+``NotImplementedError`` (ROADMAP A.11).
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ import torch
 
 from .adaptation import (build_schedule, da_init, da_update, welford_init,
                          welford_update_batch, welford_variance)
-from .hmc import HMCState, hmc_kernel, init_state
+from .chees import chees_sample
+from .hmc import HMCState, hmc_kernel, init_state, initial_positions
+from .nuts import nuts_kernel
 
 
 class WarmupResult(NamedTuple):
@@ -38,7 +42,7 @@ class SampleStats(NamedTuple):
                                  # chains-leading to feed diagnostics.bfmi
 
 
-def _unported(what: str, item: str = "A.7"):
+def _unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to enflows_tpu_torch "
                                f"yet (ROADMAP {item})")
 
@@ -99,7 +103,7 @@ def run_chains(kernel, states: HMCState, generator, num_samples: int,
 def sample(logdensity_fn: Callable, generator, *, dim: int,
            num_chains: int = 8, num_warmup: int = 500,
            num_samples: int = 1000, algorithm: str = "nuts",
-           num_steps: int = 32, initial_position=None,
+           max_depth: int = 10, num_steps: int = 32, initial_position=None,
            initial_step_size: float = 0.1, target_accept: float = 0.8,
            dtype=torch.float32, metrics=None, device="cuda"):
     """Adaptive MCMC: windowed warmup then sampling.
@@ -109,26 +113,29 @@ def sample(logdensity_fn: Callable, generator, *, dim: int,
     (dim,) -> scalar function). ``generator``: the ``torch.Generator`` of
     every draw, on the device the chains run on: ``device`` (the card unless
     the caller asks for the CPU), or ``initial_position``'s when that is a
-    tensor. ``algorithm``: 'hmc' ('nuts' and 'chees' are not ported yet).
+    tensor. ``algorithm``: 'nuts' | 'hmc' | 'chees' (adaptive fixed-length
+    HMC, ``mcmc.chees``; it uses its own optimal acceptance target 0.651
+    and ignores ``target_accept``: call ``chees_sample`` to set it).
     """
-    if algorithm in ("nuts", "chees"):
-        raise _unported(f"algorithm={algorithm!r}")
-    if algorithm != "hmc":
+    if algorithm not in ("nuts", "hmc", "chees"):
         raise ValueError(f"algorithm must be 'nuts', 'hmc' or 'chees', got "
                          f"{algorithm!r}")
     if metrics is not None:
-        raise _unported("metrics=")
-    if isinstance(initial_position, torch.Tensor):
-        initial_position = initial_position.to(dtype)
-    elif initial_position is None:
-        initial_position = 0.1 * torch.randn(
-            num_chains, dim, generator=generator, dtype=dtype, device=device)
+        raise _unported("metrics=", "A.11")
+    if algorithm == "chees":
+        return chees_sample(
+            logdensity_fn, generator, dim=dim, num_chains=num_chains,
+            num_warmup=num_warmup, num_samples=num_samples,
+            initial_position=initial_position,
+            initial_step_size=initial_step_size, dtype=dtype, device=device)
+    q0 = initial_positions(initial_position, generator, num_chains, dim,
+                           dtype, device)
+    if algorithm == "nuts":
+        kernel = nuts_kernel(logdensity_fn, max_depth=max_depth)
     else:
-        initial_position = torch.as_tensor(initial_position, dtype=dtype,
-                                           device=device)
-    kernel = hmc_kernel(logdensity_fn, num_steps=num_steps)
-    states = init_state(logdensity_fn, initial_position)
-    warm = window_adaptation(kernel, states, generator, num_warmup,
+        kernel = hmc_kernel(logdensity_fn, num_steps=num_steps)
+    warm = window_adaptation(kernel, init_state(logdensity_fn, q0),
+                             generator, num_warmup,
                              initial_step_size=initial_step_size,
                              target_accept=target_accept)
     return run_chains(kernel, warm.states, generator, num_samples,

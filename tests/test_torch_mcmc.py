@@ -281,11 +281,31 @@ def test_sample_hmc_gaussian_moments():
 
 
 def test_sample_unported_options_raise():
-    gen = torch.Generator()
-    for kw in (dict(algorithm="nuts"), dict(algorithm="chees"),
-               dict(algorithm="hmc", metrics=object())):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            TM.sample(_tgauss, gen, dim=3, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A.11"):
+        TM.sample(_tgauss, torch.Generator(), dim=3, device="cpu",
+                  algorithm="hmc", metrics=object())
+
+
+@pytest.mark.parametrize("algorithm", ["nuts", "chees"])
+def test_sample_tree_and_chees_algorithms_run(algorithm):
+    """``sample(algorithm='nuts'/'chees')`` on the CPU when asked: draws
+    of the requested shape, finite, and the sampler's own stats."""
+    samples, final, stats = TM.sample(
+        _tgauss, torch.Generator().manual_seed(7), dim=3, num_chains=16,
+        num_warmup=40, num_samples=30, algorithm=algorithm, max_depth=4,
+        dtype=T64, device="cpu")
+    assert samples.shape == (16, 30, 3) and final.q.shape == (16, 3)
+    assert bool(torch.isfinite(samples).all())
+    assert stats.accept_prob.shape == (30, 16)
+    assert stats.energy.shape == (16, 30)
+    if algorithm == "nuts":
+        assert isinstance(stats, TM.SampleStats)
+        assert stats.num_steps.shape == (30, 16)
+        assert 1 <= int(stats.num_steps.min()) and \
+            int(stats.num_steps.max()) <= (1 << 4) - 1
+    else:
+        assert isinstance(stats, TM.ChEESSampleStats)
+        assert stats.num_steps.shape == (30,)
 
 
 # ------------------------------------------------------------------
@@ -368,7 +388,6 @@ def test_summarize_draws_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(method="nuts"), "A.7"), (dict(method="chees"), "A.7"),
     (dict(method="smc"), "A.8"), (dict(), "A.9"),
     (dict(data=np.zeros((8, 2))), "A.9"), (dict(mesh=object()), "A.10"),
     (dict(precondition=None, refine_rounds=1), "A.9"),
@@ -391,6 +410,81 @@ def test_infer_pushforward_with_unsupported_kwarg_takes_standard_path():
                  num_samples=2)
 
 
+@pytest.mark.parametrize("method", ["nuts", "chees"])
+@pytest.mark.parametrize("route", ["raw", "flow"])
+def test_infer_tree_methods_run(method, route):
+    """``infer(method='nuts'/'chees')`` on the raw target
+    (``precondition=None``) and through an explicit ``flow=``: draws of the
+    requested shape in data space, finite, with the diagnostics."""
+    mu, sd = np.array([1.5, -0.5]), np.array([1.0, 2.0])
+    logp = lambda q: -0.5 * (((q - _t(mu)) / _t(sd)) ** 2).sum(-1)
+    kw = dict(precondition=None) if route == "raw" else \
+        dict(flow=et.ScaleShift(_t(sd), _t(mu)))
+    res = et.infer(logp, dim=2, key=torch.Generator().manual_seed(3),
+                   method=method, num_chains=16, num_warmup=60,
+                   num_samples=40, dtype=T64, max_depth=5, **kw)
+    assert res.draws.shape == (16, 40, 2)
+    assert bool(torch.isfinite(res.draws).all())
+    assert res.flow is kw.get("flow")
+    d = res.diagnostics
+    assert np.all(np.isfinite(d["mean"])) and d["min_bulk_ess"] > 0
+    assert 0.0 < d["accept_prob"] <= 1.0
+
+
+def _gauss_mu_sd():
+    mu, sd = np.array([1.5, -0.5]), np.array([1.0, 2.0])
+    return mu, sd, lambda q: -0.5 * (((q - _t(mu)) / _t(sd)) ** 2).sum(-1)
+
+
+def test_infer_raw_nuts_moments_and_diagnostics():
+    """tests/test_infer.py:23 on the port: the default method (NUTS) on the
+    raw target."""
+    mu, sd, logp = _gauss_mu_sd()
+    res = et.infer(logp, dim=2, key=torch.Generator().manual_seed(0),
+                   precondition=None, num_chains=8, num_warmup=300,
+                   num_samples=400, dtype=T64)
+    assert res.flow is None and res.draws.shape == (8, 400, 2)
+    d = res.diagnostics
+    np.testing.assert_allclose(d["mean"], mu, atol=0.12)
+    np.testing.assert_allclose(d["sd"], sd, rtol=0.12)
+    assert np.all(d["rhat"] < 1.05)
+    assert d["min_bulk_ess"] > 200
+    assert np.all(d["tail_ess"] > 100)
+    assert d["divergences"] == 0
+    assert 0.5 < d["accept_prob"] <= 1.0
+    assert 0.5 < d["bfmi"] < 2.0
+
+
+def test_infer_chees():
+    """tests/test_infer.py:176 on the port."""
+    mu, _, logp = _gauss_mu_sd()
+    res = et.infer(logp, dim=2, key=torch.Generator().manual_seed(3),
+                   method="chees", precondition=None, num_chains=32,
+                   num_warmup=300, num_samples=200, dtype=T64)
+    d = res.diagnostics
+    np.testing.assert_allclose(d["mean"], mu, atol=0.15)
+    assert np.all(d["rhat"] < 1.1)
+
+
+def test_infer_pushforward_tree_method_takes_sample(monkeypatch):
+    """A declared FlowPushforwardTarget with a tree method runs
+    ``mcmc.sample`` on the target, never the fused HMC route (B6)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("fused_flow_hmc_sample called")
+
+    monkeypatch.setattr(sys.modules["enflows_tpu_torch.infer"],
+                        "fused_flow_hmc_sample", refuse)
+    target = from_jax(_d2_target(), device="cpu")
+    before = dict(TL.LAUNCHES)
+    res = et.infer(target, dim=2, key=torch.Generator().manual_seed(1),
+                   method="nuts", precondition=None, num_chains=8,
+                   num_warmup=30, num_samples=20, max_depth=4)
+    assert TL.LAUNCHES == before
+    assert isinstance(res.stats, TM.SampleStats) and res.flow is None
+    assert res.draws.shape == (8, 20, 2)
+    assert bool(torch.isfinite(res.draws).all())
+
+
 def test_mcmc_and_infer_import_no_jax():
     code = ("import sys; import enflows_tpu_torch.mcmc, "
             "enflows_tpu_torch.infer, enflows_tpu_torch.ops.leapfrog; "
@@ -399,9 +493,10 @@ def test_mcmc_and_infer_import_no_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
-    for rel in ("mcmc/__init__.py", "mcmc/adaptation.py",
+    for rel in ("mcmc/__init__.py", "mcmc/adaptation.py", "mcmc/chees.py",
                 "mcmc/diagnostics.py", "mcmc/fused_hmc.py", "mcmc/hmc.py",
-                "mcmc/logdensity.py", "mcmc/sample.py", "infer.py",
+                "mcmc/logdensity.py", "mcmc/nuts.py", "mcmc/sample.py",
+                "infer.py",
                 "ops/leapfrog.py", "ops/csrc/leapfrog.cu"):
         src = open(os.path.join(ROOT, "enflows_tpu_torch", rel)).read()
         assert "import jax" not in src and "from jax" not in src, rel
