@@ -1,7 +1,8 @@
 """Drive the PyTorch port's main paths once on one CUDA card: the
 whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5),
-flow-VI (B1/B2 and B4/B5), flow-preconditioned HMC (B6), and NUTS and
-ChEES (no kernel).
+flow-VI (B1/B2 and B4/B5), flow-preconditioned HMC (B6), NUTS and ChEES
+(no kernel), and tempered SMC (no kernel; B1/B2 in its learned
+transports).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -162,7 +163,7 @@ before it, reads them just after and fails if any kernel launched:
    and leapfrog steps an iteration;
 19. ``[nuts infer]``: ``infer(logp, method='nuts'/'chees')`` on the 2-D
    example target of benchmarks/bench_mcmc.py:35-44, raw
-   (``precondition=None``, 128 chains, 500 + 1000: finite draws and the
+   (``precondition=None``, 128 chains, 250 + 500: finite draws and the
    acceptance range; its moments, min bulk ESS and max rhat are printed
    but not gated, since raw chains do not cross the target's modes) and
    through its exact transport (``flow=``, 128 chains, 200 + 300: mean
@@ -176,6 +177,41 @@ before it, reads them just after and fails if any kernel launched:
    evaluations a second and host reads a transition; ``torch.profiler``
    over 5: the card's busy time, its idle share and device ops a leaf or
    step; the fused HMC transition of 13 beside them as context.
+
+Tempered SMC runs after 20 (``smc_phases``), each main-path run with the
+launch counters set to 0 just before it and read just after:
+
+21. ``[smc slice]``: ``smc.smc_sample`` on the BASELINE 100-D bimodal
+   mixture 1/2 N(1.5 1, I) + 1/2 N(-1.5 1, I) (benchmarks/bench_smc.py:
+   108-117), 32,768 particles, mutation_steps=8, 10 leapfrog steps, f32,
+   no transport: no kernel launch, beta reaches 1, draws finite,
+   |log Z - 50 log 2 pi| < 0.5, the weighted mass with x_0 > 0 within
+   [0.4, 0.6]; then the same run in float64 under the same gates;
+22. ``[smc transport]``: the f32 run with the default fitter
+   (``make_transport_fitter``: a ScaleShift, 100 Adam steps a temperature
+   on the even half): exactly T (100 + 1) B1 and T 100 B2 launches for T
+   temperatures, and the same gates;
+23. ``[smc transport 2d]``: bench_smc.py:150-169's 2-D transport
+   configuration (N((3, -2), 0.25 I), 65,536 particles, nsteps=60) beside
+   the run without a transport: fewer temperatures with it, the launch
+   counts, log Z within 0.1 and the weighted mean within 0.05
+   (tests/test_smc.py:84-105);
+24. ``[smc B1/B2 hold]``: the last fitted 100-D transport on the particles
+   it was fitted on (the 16,384 even rows and all 32,768): B1's y and
+   ladj against the plain version run in float64 within the B1
+   tolerances, B2 on the fitter's own loss cotangents (gx, and the
+   parameter gradients by ``grads_ok``); the kernels' and the plain
+   versions' device times (profiler) beside the byte bound;
+25. ``[smc infer]``: ``infer(method='smc')`` on tests/test_infer.py's 2-D
+   Gaussian at 65,536 particles, raw and through its exact ``flow=``: no
+   kernel launch, log Z within 0.1, the mean within 0.15, weight ESS
+   above 1000;
+26. ``[smc timing]``: the first 3 temperatures of the slice's
+   configuration, without and with the transport: ms a temperature, host
+   reads a temperature (``torch.cuda.set_sync_debug_mode``), then
+   ``torch.profiler``'s busy ms, device ops and idle share; the fitter's
+   ms a step through B1/B2 against the plain route (100 steps each, in
+   turns, the histories within 1e-4 relative).
 
 The script ends with its total time, the kernels line (each kernel's
 launches summed over every main-path run, by path) and the ``{"ok": true,
@@ -208,6 +244,7 @@ one card and no network; it imports nothing of JAX.
 """
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2419,7 +2456,9 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
 # the plain whitening chain) and the tree bookkeeping.
 
 TREE = dict(chains=8192, warmup=200, samples=100)
-INFER_2D = dict(chains=128, warmup=500, samples=1000)       # raw target
+# The raw target at 250 + 500 (BASELINE.md:34's row runs 500 + 1000; cut to
+# keep the script near 400 s with the SMC phases).
+INFER_2D = dict(chains=128, warmup=250, samples=500)        # raw target
 INFER_2D_FLOW = dict(chains=128, warmup=200, samples=300)   # flow= route
 INFER_PUSHFORWARD = dict(chains=1024, warmup=100, samples=100)
 TREE_ACCEPT = {"nuts": (0.6, 1.0), "chees": (0.45, 0.95)}  # test_chees.py:51
@@ -2488,7 +2527,7 @@ def tree_slice(et, NU, algorithm, target, dim, counters, gen, card):
 def infer_2d(et, method, through_flow, counters, seed, device, card):
     """``infer(logp, method=...)`` on the 2-D example target of
     benchmarks/bench_mcmc.py:35-44 (BASELINE.md:34's NUTS/ChEES row),
-    raw (``precondition=None``, 128 chains x 500 warmup + 1000 samples) or
+    raw (``precondition=None``, 128 chains x 250 warmup + 500 samples) or
     through its exact transport (``flow=``, 128 x 200 + 300, where the
     chains see N(0, I)). The target has several modes
     that raw chains started near 0 do not cross (the JAX package's own
@@ -2641,6 +2680,508 @@ def tree_timing(et, NU, algorithm, target, stats, final, hmc_ms, card,
           f"{hmc_ms:.3f} ms/transition, {hmc_ms / 64:.4f} ms a leapfrog "
           f"step [{card}]", flush=True)
     return dict(ms_per_transition=ms, ms_per_leaf=per_leaf, busy_ms=busy)
+
+
+# ------------------------------------------------------------------
+# Tempered SMC (no kernel on the raw path; the learned transport's fit and
+# application run B1 and B2).
+
+# The BASELINE SMC configuration (benchmarks/bench_smc.py:108-117,
+# BASELINE.md:36) and the 2-D transport configuration (bench_smc.py:150-169).
+SMC = dict(particles=32768, dim=100, mutation_steps=8, leapfrog_steps=10,
+           nsteps=100)
+SMC_2D = dict(particles=65536, nsteps=60)
+SMC_INFER = 65536
+SMC_TIMING_TEMPS = 3
+
+
+def smc_mixture(q):
+    """The 100-D bimodal mixture 1/2 N(1.5 1, I) + 1/2 N(-1.5 1, I),
+    unnormalized as in bench_smc.py:111-114 (log Z = 50 log 2 pi)."""
+    a = -0.5 * ((q - 1.5) ** 2).sum(-1) + math.log(0.5)
+    b = -0.5 * ((q + 1.5) ** 2).sum(-1) + math.log(0.5)
+    return torch.logaddexp(a, b)
+
+
+def smc_gauss_2d(q):
+    """bench_smc.py:139-143: N((3, -2), 0.25 I), unnormalized (no constant
+    tensor: a copy from the host would synchronize every call)."""
+    d0, d1 = q[:, 0] - 3.0, q[:, 1] + 2.0
+    return -0.5 * (d0 * d0 + d1 * d1) / 0.25
+
+
+def weighted_moments(parts, lw):
+    """(normalized weights, weighted mean, weighted variance), float64."""
+    w = torch.softmax(lw.double(), 0)
+    x = parts.double()
+    mean = w @ x
+    return w, mean, w @ (x - mean) ** 2
+
+
+def smc_run(et, target, dim, n, gen, counters, fit=None, **kw):
+    """One ``smc_sample`` run with the launch counters set to 0 just before
+    it and read just after: (particles, log weights, log Z, infos,
+    launches, wall seconds)."""
+    reset_launches(*counters)
+    t0 = time.perf_counter()
+    parts, lw, logz, infos = et.smc.smc_sample(
+        target, gen, dim=dim, num_particles=n, fit_transport=fit, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return parts, lw, logz, infos, kernel_launches(counters), wall
+
+
+def smc_launch_check(tag, launches, temps, nsteps):
+    """No kernel launches without a transport; with one, exactly
+    T (nsteps + 1) B1 launches (every fitter step, then the transport on
+    all particles) and T nsteps B2 launches, and nothing else."""
+    want = {k: 0 for k in launches}
+    if nsteps:
+        want.update(fwd=temps * (nsteps + 1), bwd=temps * nsteps)
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+
+
+def smc_mixture_gates(tag, parts, lw, logz, infos):
+    """beta reaches 1, draws finite, |log Z - 50 log 2 pi| < 0.5, the
+    weighted mass with x_0 > 0 in [0.4, 0.6]. Returns (log Z error, mass)."""
+    check(float(infos[-1].beta) == 1.0,
+          f"{tag}: beta {float(infos[-1].beta)} after {len(infos)} "
+          f"temperatures")
+    check(bool(torch.isfinite(parts).all()), f"{tag}: draws not finite")
+    err = float(logz) - 0.5 * SMC["dim"] * math.log(2 * math.pi)
+    w, _, _ = weighted_moments(parts, lw)
+    frac = float((w * (parts[:, 0] > 0)).sum())
+    check(abs(err) < 0.5, f"{tag}: log Z error {err:.4f}")
+    check(0.4 <= frac <= 0.6, f"{tag}: mass with x_0 > 0 {frac:.4f}")
+    return err, frac
+
+
+def smc_line(tag, what, infos, wall, n, launches, detail, card):
+    """The run's line: temperatures, time, particle-temperatures/s, the
+    acceptance range, how many temperatures resampled and how many moved
+    beta by less than 1e-4 (a temperature that does not resample leaves the
+    ESS just above the target, and the next bisection can only creep)."""
+    temps = len(infos)
+    acc = [float(i.accept_prob) for i in infos]
+    resampled = sum(bool(i.resampled) for i in infos)
+    betas = [0.0] + [float(i.beta) for i in infos]
+    creeping = sum(b1 - b0 < 1e-4 for b0, b1 in zip(betas, betas[1:]))
+    print(f"{tag} {what}: {temps} temperatures to beta = 1, wall "
+          f"{wall:.3f} s, {wall * 1e3 / temps:.2f} ms a temperature, "
+          f"{n * temps / wall / 1e6:.4f} M particle-temperatures/s; "
+          f"acceptance {min(acc):.3f}-{max(acc):.3f}, resampled at "
+          f"{resampled}, beta moved by less than 1e-4 at {creeping}; kernel "
+          f"launches {launches}; {detail} [{card}]", flush=True)
+
+
+def smc_slice(et, counters, device, card):
+    """``[smc slice]``: ``smc_sample`` on the 100-D mixture at 32,768
+    particles, mutation_steps=8, 10 leapfrog steps, f32, no transport: no
+    kernel launches, and the mixture gates. Then the same run in float64
+    (the same gates), to show what the ladder's length owes to float32
+    rounding. Returns the f32 run's temperatures and wall seconds."""
+    tag, out = "[smc slice]", {}
+    for dtype in (torch.float32, torch.float64):
+        parts, lw, logz, infos, launches, wall = smc_run(
+            et, smc_mixture, SMC["dim"], SMC["particles"],
+            torch.Generator(device=device).manual_seed(47), counters,
+            mutation_steps=SMC["mutation_steps"],
+            leapfrog_steps=SMC["leapfrog_steps"], dtype=dtype)
+        smc_launch_check(tag, launches, len(infos), 0)
+        err, frac = smc_mixture_gates(tag, parts, lw, logz, infos)
+        smc_line(tag, f"{SMC['particles']} particles x d={SMC['dim']}, "
+                 f"mutation_steps={SMC['mutation_steps']}, leapfrog "
+                 f"{SMC['leapfrog_steps']}, {str(dtype)[6:]}", infos, wall,
+                 SMC["particles"], sum(launches.values()),
+                 f"log Z error {err:.4f}, mass with x_0 > 0 {frac:.4f}",
+                 card)
+        out[dtype] = dict(temps=len(infos), wall=wall)
+    return out[torch.float32]
+
+
+def recording_fitter(fit):
+    """``fit`` as a user's ``fit_transport`` that keeps its last transport
+    and the arguments it was fitted on (for [smc B1/B2 hold])."""
+    last = {}
+
+    def fit_transport(key, particles, log_weights, beta, beta_next):
+        T = fit(key, particles, log_weights, beta, beta_next)
+        last.update(T=T, particles=particles, log_weights=log_weights,
+                    beta_next=beta_next)
+        return T
+
+    return fit_transport, last
+
+
+def smc_transport(et, counters, gen, card):
+    """``[smc transport]``: the slice's run with the default transport
+    fitter (nsteps=100): exactly T (nsteps + 1) B1 and T nsteps B2
+    launches, and the mixture gates. Returns the fitter's last inputs."""
+    tag = "[smc transport]"
+    fit, last = recording_fitter(et.smc.make_transport_fitter(
+        et.std_normal_logpdf_sum, smc_mixture, nsteps=SMC["nsteps"]))
+    parts, lw, logz, infos, launches, wall = smc_run(
+        et, smc_mixture, SMC["dim"], SMC["particles"], gen, counters, fit,
+        mutation_steps=SMC["mutation_steps"],
+        leapfrog_steps=SMC["leapfrog_steps"])
+    smc_launch_check(tag, launches, len(infos), SMC["nsteps"])
+    err, frac = smc_mixture_gates(tag, parts, lw, logz, infos)
+    smc_line(tag, f"the slice with the default ScaleShift transport, "
+             f"nsteps={SMC['nsteps']} (fit on {SMC['particles'] // 2} "
+             f"rows, applied to {SMC['particles']})", infos, wall,
+             SMC["particles"], launches,
+             f"log Z error {err:.4f}, mass with x_0 > 0 {frac:.4f}", card)
+    return dict(temps=len(infos), wall=wall, fwd=launches["fwd"],
+                bwd=launches["bwd"]), last
+
+
+def smc_transport_2d(et, counters, device, card):
+    """``[smc transport 2d]``: bench_smc.py's 2-D transport configuration
+    (65,536 particles, nsteps=60) beside the same run without a transport:
+    fewer temperatures with it, exact B1/B2 counts, log Z within 0.1 and
+    the weighted mean within 0.05 (tests/test_smc.py:84-105)."""
+    tag = "[smc transport 2d]"
+    n, nsteps = SMC_2D["particles"], SMC_2D["nsteps"]
+    true_logz = math.log(2 * math.pi * 0.25)
+    out = {}
+    for with_t in (False, True):
+        fit = et.smc.make_transport_fitter(
+            et.std_normal_logpdf_sum, smc_gauss_2d, nsteps=nsteps) \
+            if with_t else None
+        gen = torch.Generator(device=device).manual_seed(50)
+        parts, lw, logz, infos, launches, wall = smc_run(
+            et, smc_gauss_2d, 2, n, gen, counters, fit)
+        smc_launch_check(tag, launches, len(infos), nsteps if with_t else 0)
+        check(float(infos[-1].beta) == 1.0
+              and bool(torch.isfinite(parts).all()),
+              f"{tag}: beta {float(infos[-1].beta)}, finite "
+              f"{bool(torch.isfinite(parts).all())}")
+        _, mean, _ = weighted_moments(parts, lw)
+        mean_err = float((mean.cpu() - torch.tensor([3.0, -2.0],
+                                                    dtype=torch.float64))
+                         .abs().max())
+        err = float(logz) - true_logz
+        if with_t:
+            check(abs(err) < 0.1 and mean_err < 0.05,
+                  f"{tag}: log Z error {err:.4f}, mean error "
+                  f"{mean_err:.4f}")
+        out[with_t] = (len(infos), launches)
+        how = f"transport nsteps={nsteps}" if with_t else "no transport"
+        smc_line(tag, f"{n} particles x d=2, {how}", infos, wall, n,
+                 launches,
+                 f"log Z error {err:.4f}, mean error {mean_err:.4f}"
+                 f"{'' if with_t else ' (not gated)'}", card)
+    check(out[True][0] < out[False][0],
+          f"{tag}: {out[True][0]} temperatures with the transport, "
+          f"{out[False][0]} without")
+    return {"fwd": out[True][1]["fwd"], "bwd": out[True][1]["bwd"]}
+
+
+def smc_hold(et, EW, last, card):
+    """``[smc B1/B2 hold]``: the last fitted 100-D transport on the
+    particles it was fitted on: B1 on all 32,768 (the application) and on
+    the even 16,384 (the fitter's batch), y and ladj against the plain
+    version run in float64 within the [B1] tolerances; B2 on the fitter's
+    own cotangents (its loss's, with x wanting a gradient too) at both
+    sizes, gx within the [B2] tolerance of the plain f32 run and the
+    parameter gradients by ``grads_ok``. Then each kernel timed against
+    its plain version (CUDA events, in turns) beside the byte bound.
+    Returns {n: {"fwd": ..., "bwd": ...}}."""
+    T, beta = last["T"], last["beta_next"]
+    x_all = last["particles"].contiguous()
+    lw = last["log_weights"]
+    d = x_all.shape[1]
+    T64 = copy.deepcopy(T).double()
+    params, params64 = dict(T.named_parameters()), dict(T64.named_parameters())
+    out = {}
+    for what, x, w in (
+            ("fit batch", x_all[0::2].contiguous(),
+             torch.softmax(lw[0::2], 0)),
+            ("application", x_all, torch.softmax(lw, 0))):
+        n = x.shape[0]
+
+        def loss_of(y, ladj, w=w):
+            logp = (1.0 - beta) * et.std_normal_logpdf_sum(y) \
+                + beta * smc_mixture(y)
+            return -(w.to(y) * (logp + ladj)).sum()
+
+        def grads(chain, xx, forward, ps):
+            xr = xx.clone().requires_grad_(True)
+            y, ladj = forward(chain, xr)
+            gs = torch.autograd.grad(loss_of(y, ladj), [xr, *ps.values()])
+            return y.detach(), ladj.detach(), gs[0], dict(zip(ps, gs[1:]))
+
+        y, ladj, gx, g = grads(T, x, EW.fused_forward_and_ladj, params)
+        _, _, gx0, g0 = grads(T, x, EW.forward_and_ladj_plain, params)
+        y64, l64, _, g64 = grads(T64, x.double(), EW.forward_and_ladj_plain,
+                                 params64)
+        torch.cuda.synchronize()
+        check(torch.allclose(y.double(), y64, rtol=Y_TOL, atol=Y_TOL),
+              f"smc B1 y ({what}): max|dy| {max_abs(y.double(), y64):.3e}")
+        check(torch.allclose(ladj.double(), l64, rtol=LADJ_TOL,
+                             atol=LADJ_TOL),
+              f"smc B1 ladj ({what}): {max_abs(ladj.double(), l64):.3e}")
+        check(torch.allclose(gx, gx0, rtol=G_RTOL, atol=G_ATOL),
+              f"smc B2 gx ({what}): max|diff| {max_abs(gx, gx0):.3e}")
+        worst = grads_ok(g, g0, g64)
+
+        with torch.no_grad():
+            plan, bufs = EW._chain_plan(T, d, x.device)
+            bufs = tuple(b.detach() for b in bufs)
+            y1, l1 = EW._launch("fwd", plan, x, bufs)
+        yr = y1.clone().requires_grad_(True)
+        lr = l1.clone().requires_grad_(True)
+        gy, gl = torch.autograd.grad(loss_of(yr, lr), [yr, lr])
+        xr = x.clone().requires_grad_(True)
+        y0, l0 = EW.forward_and_ladj_plain(T, xr)
+        runs = {
+            "fwd": (lambda: EW._launch("fwd", plan, x, bufs),
+                    lambda: EW.forward_and_ladj_plain(T, x)),
+            "bwd": (lambda: EW._launch("bwd", plan, x, bufs, gy, gl),
+                    lambda: torch.autograd.grad(
+                        [y0, l0], [xr, *params.values()], [gy, gl],
+                        retain_graph=True))}
+        # At these sizes a call costs the host more than the card, so CUDA
+        # events around a run of calls measure the host's rate: the device
+        # times come from calls queued behind a sleep, in turns.
+        dev_ms, host_ms = {}, {}
+        with torch.no_grad():
+            for key, (kernel, plain) in runs.items():
+                host_ms[key] = interleaved_ms(plain, kernel)
+                p1, k1, k2, p2 = (queued_ms(f) for f in (plain, kernel,
+                                                         kernel, plain))
+                dev_ms[key] = (min(k1, k2), min(p1, p2))
+        err_f = max(max_abs(y.double(), y64), max_abs(ladj.double(), l64))
+        err_b = max(max_abs(gx, gx0), worst)
+        # B1: x read, y and ladj written; B2: x and gy read, gladj read, gx
+        # written. A ScaleShift does 2 FLOP an element forward, ~4 back; its
+        # log|a| is taken once a column, so no special function runs per
+        # element.
+        b_fwd = bound_of(4 * n * (2 * d + 1), 2 * n * d)
+        b_bwd = bound_of(4 * n * (3 * d + 1), 4 * n * d)
+        out[n] = {key: dict(max_abs_err=err, ms=dev_ms[key][0],
+                            plain_ms=dev_ms[key][1], **bound)
+                  for key, err, bound in (("fwd", err_f, b_fwd),
+                                          ("bwd", err_b, b_bwd))}
+        timing = "; ".join(
+            f"{label} {dev_ms[key][0]:.4f} ms device time (queued; B2 with "
+            f"its partial sums), plain {dev_ms[key][1]:.4f}; at the host's "
+            f"rate (events around unqueued calls) {host_ms[key][1]:.4f} "
+            f"against plain {host_ms[key][0]:.4f}; bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})"
+            for label, key, bound in (("B1", "fwd", b_fwd),
+                                      ("B2", "bwd", b_bwd)))
+        print(f"[smc B1/B2 hold] the fitted ScaleShift at d={d}, n={n} "
+              f"({what}): B1 max|dy|, |dladj| vs f64 {err_f:.3e}; B2 "
+              f"max|dgx| {max_abs(gx, gx0):.3e}, max|dgrad| {worst:.3e}; "
+              f"{timing}; 0 special functions per element; "
+              f"{smc_geometry_text(EW, plan, n)} [{card}]",
+              flush=True)
+    return out
+
+
+def queued_ms(fn, iters=20, sleep_cycles=50_000_000, attempts=4):
+    """Device milliseconds a call of ``fn``: CUDA events around ``iters``
+    calls queued behind a sleep kernel, so that the card runs them back to
+    back whatever the host's rate. The sleep starts at ``sleep_cycles``
+    (~25 ms); when it ended before the host had queued the calls, the next
+    attempt sleeps four times the host's measured queueing time, at the
+    clock rate the last sleep showed, and queues half as many calls (in
+    case the launch queue filled). Fails if no attempt kept the card
+    asleep until the calls were queued."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        before, slept, start, end = ev
+        before.record()
+        torch.cuda._sleep(int(sleep_cycles))
+        slept.record()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms, queued = 1e3 * (time.perf_counter() - t0), iters
+        end.record()
+        asleep = not slept.query()
+        end.synchronize()
+        if asleep:
+            return start.elapsed_time(end) / iters
+        cycles_per_ms = sleep_cycles / max(before.elapsed_time(slept), 1e-3)
+        sleep_cycles = max(2 * sleep_cycles, 4 * host_ms * cycles_per_ms)
+        iters = max(2, iters // 2)
+    check(False, f"queued_ms: in {attempts} attempts the sleep ended before "
+          f"the calls were queued (last: {host_ms:.1f} ms to queue "
+          f"{queued} calls)")
+
+
+def smc_geometry_text(EW, plan, n):
+    """B1's and B2's launch for ``plan`` at n rows: lanes a sample,
+    elements a lane, block, grid, blocks per SM and registers."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parts = []
+    for mode in ("fwd", "bwd"):
+        geo = EW.chain_geometry(
+            plan, n, mode, lambda b, sm: EW.occupancy(mode, plan.E, b,
+                                                      sm)[0], sms)
+        bps, regs, _ = EW.occupancy(mode, plan.E, geo.block, geo.smem)
+        parts.append(f"{mode} G={plan.G} E={plan.E} block {geo.block} grid "
+                     f"{geo.grid}, {bps} blocks/SM, {regs} registers")
+    return "; ".join(parts)
+
+
+def smc_infer(et, counters, device, card):
+    """``[smc infer]``: ``infer(method='smc')`` on tests/test_infer.py's
+    2-D Gaussian (mean (1.5, -0.5), sd (1, 2)) at 65,536 particles, raw
+    and through its exact ``flow=``: no kernel launch, log Z within 0.1,
+    the mean within 0.15, weight ESS above 1000."""
+    mu = torch.tensor([1.5, -0.5], device=device)
+    sd = torch.tensor([1.0, 2.0], device=device)
+    logp = lambda q: -0.5 * (((q - mu) / sd) ** 2).sum(-1)
+    true_logz = math.log(2 * math.pi) + float(torch.log(sd).sum())
+    for through_flow in (False, True):
+        tag = f"[smc infer] {'flow' if through_flow else 'raw'}"
+        kw = dict(flow=et.ScaleShift(sd.clone(), mu.clone())) \
+            if through_flow else dict(precondition=None)
+        reset_launches(*counters)
+        t0 = time.perf_counter()
+        res = et.infer(logp, dim=2, key=torch.Generator(device=device)
+                       .manual_seed(60 + through_flow), method="smc",
+                       num_particles=SMC_INFER, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches(counters)
+        check(not any(launches.values()), f"{tag}: launched {launches}")
+        d = res.diagnostics
+        mean_err = float(abs(d["mean"] - mu.cpu().numpy()).max())
+        err = d["log_z"] - true_logz
+        check(res.draws.shape == (SMC_INFER, 2)
+              and bool(torch.isfinite(res.draws).all()),
+              f"{tag}: draws {tuple(res.draws.shape)} not finite")
+        check(abs(err) < 0.1 and mean_err < 0.15 and d["weight_ess"] > 1000,
+              f"{tag}: log Z error {err:.4f}, mean error {mean_err:.4f}, "
+              f"weight ESS {d['weight_ess']:.0f}")
+        print(f"{tag}: infer(method='smc') {SMC_INFER} particles x d=2, "
+              f"{len(res.stats)} temperatures: log Z error {err:.4f}, mean "
+              f"error {mean_err:.4f}, sd {d['sd'].round(4).tolist()}, weight "
+              f"ESS {d['weight_ess']:.0f}; kernel launches "
+              f"{sum(launches.values())}; wall {wall:.3f} s [{card}]",
+              flush=True)
+
+
+def smc_timing(et, EW, counters, last, slices, device, card):
+    """``[smc timing]``: the slice's configuration, without and with the
+    transport, over its first ``SMC_TIMING_TEMPS`` temperatures: ms a
+    temperature (host clock ending in a synchronize), host reads a
+    temperature (``torch.cuda.set_sync_debug_mode``, a warning for each
+    synchronizing call), then ``torch.profiler`` over the same
+    temperatures: the card's busy ms and device ops a temperature and its
+    idle share against the unprofiled ms. Then the fitter's ms a step at
+    the slice's last temperature, through B1/B2 against the plain route
+    (100 steps each, timed plain, fused, fused, plain)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from enflows_tpu_torch.smc import flow_transport as TF
+    from enflows_tpu_torch.train import vi as VI
+
+    temps = SMC_TIMING_TEMPS
+    kw = dict(mutation_steps=SMC["mutation_steps"],
+              leapfrog_steps=SMC["leapfrog_steps"], max_temps=temps)
+    n, d = SMC["particles"], SMC["dim"]
+    for name, nsteps in (("no transport", 0), ("transport", SMC["nsteps"])):
+        fit = (et.smc.make_transport_fitter(
+            et.std_normal_logpdf_sum, smc_mixture, nsteps=nsteps)
+            if nsteps else None)
+
+        def run(seed):
+            return smc_run(et, smc_mixture, d, n, torch.Generator(
+                device=device).manual_seed(seed), counters, fit, **kw)
+
+        run(70)
+        *_, infos, _, wall = run(71)
+        check(len(infos) == temps, f"[smc timing] {len(infos)} temperatures")
+        ms = wall * 1e3 / temps
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run(72)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        reads = sum("synchroniz" in str(c.message) for c in caught)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(73)
+        by_name, ops = device_kernel_us(prof)
+        busy = sum(by_name.values()) / 1e3 / temps
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        prof_text = (
+            f"profiler: device busy {busy:.3f} ms a temperature in "
+            f"{ops / temps:.0f} device ops, idle {100 * (1 - busy / ms):.1f}%"
+            f" of the unprofiled ms; top kernels (ms a temperature) "
+            + ", ".join(f"{k[:36]} {us / 1e3 / temps:.3f}" for k, us in top)
+            if busy else "profiler: no device time in the trace (not "
+            "measured)")
+        full = slices[name]
+        print(f"[smc timing] {name}, {n} x d={d}, the first {temps} "
+              f"temperatures (host clock): {ms:.2f} ms a temperature, "
+              f"{n / ms / 1e3:.4f} M particle-temperatures/s, "
+              f"{reads / temps:.2f} host reads a temperature; {prof_text}; "
+              f"the whole ladder: {full['temps']} temperatures, "
+              f"{full['wall'] * 1e3 / full['temps']:.2f} ms a temperature "
+              f"[{card}]", flush=True)
+
+    # The fitter alone, fused against plain, on the slice's last fit.
+    args = (et.std_normal_logpdf_sum, smc_mixture, TF.default_optimizer,
+            SMC["nsteps"], last["particles"], last["log_weights"],
+            last["beta_next"])
+    times = {"plain": [], "fused": []}
+    hist = {}
+    for route in ("plain", "fused", "fused", "plain"):
+        forward = (VI._plain_forward if route == "plain"
+                   else EW.fused_forward_and_ladj)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = TF._fit(*args, TF.default_template(last["particles"]),
+                            forward=forward)
+        torch.cuda.synchronize()
+        times[route].append((time.perf_counter() - t0) * 1e3 / SMC["nsteps"])
+        hist[route] = losses
+    rel = float(((hist["fused"] - hist["plain"]).abs()
+                 / hist["plain"].abs()).max())
+    check(rel <= SLICE_RTOL, f"[smc timing] fitter history fused vs plain "
+          f"{rel:.3e}")
+    print(f"[smc timing] transport fitter, {SMC['nsteps']} Adam steps on "
+          f"{n // 2} x d={d} (host clock): fused (B1 + B2) "
+          f"{min(times['fused']):.3f} ms a step, plain "
+          f"{min(times['plain']):.3f}; loss histories within {rel:.2e} "
+          f"relative [{card}]", flush=True)
+
+
+def smc_phases(et, EW, counters, device, card):
+    """The SMC phases, each main-path run with the launch counters set to 0
+    just before it and read just after. Returns B1/B2 launches by path and
+    the kernels' times at the SMC shapes."""
+    slices = {"no transport": smc_slice(et, counters, device, card)}
+    slices["transport"], last = smc_transport(
+        et, counters, torch.Generator(device=device).manual_seed(47), card)
+    l2d = smc_transport_2d(et, counters, device, card)
+    held = smc_hold(et, EW, last, card)
+    smc_infer(et, counters, device, card)
+    smc_timing(et, EW, counters, last, slices, device, card)
+
+    def path(name, d, n, key):
+        apply = f", {n} apply" if key == "fwd" else ""
+        return f"{name} (d={d}, n={n // 2} fit{apply})"
+
+    paths = {key: {path("smc transport", SMC["dim"], SMC["particles"], key):
+                   slices["transport"][key],
+                   path("smc transport 2d", 2, SMC_2D["particles"], key):
+                   l2d[key]}
+             for key in ("fwd", "bwd")}
+    return paths, held
 
 
 def main():
@@ -2803,6 +3344,11 @@ def main():
         tree_timing(et, NU, alg, target, *tree[alg],
                     hmc_t["fused_ms_per_transition"], smi)
 
+    # Tempered SMC: no kernel on the raw ladder; B1 and B2 in the learned
+    # transport's fit and application. Each phase draws from generators of
+    # its own.
+    smc_paths, smc_held = smc_phases(et, EW, counters, device, smi)
+
     src = "enflows_tpu_torch/ops/csrc/elementwise.cu"
     pallas = "enflows_tpu/ops/pallas/elementwise.py"
     # Each row's launches over every main-path run that launched it, by path
@@ -2810,10 +3356,21 @@ def main():
     ew_paths = {key: {"whitening slice (d=2, n=2^20)": launches[key],
                       "vi elementwise (d=50, n=2^17)": vi_ew[False][key],
                       "vi elementwise stl (d=50, n=2^17)": vi_ew[True][key],
-                      "vi example (d=1, n=200)": vi_ex[key]}
+                      "vi example (d=1, n=200)": vi_ex[key],
+                      **smc_paths[key]}
                 for key in ("fwd", "bwd")}
     b2 = {**b2, **{f"{k}_d50": b2_d50[k]
                    for k in ("ms", "plain_ms", "bound_ms")}}
+    # B1 and B2 at the SMC transport's shapes: the fit's even half and the
+    # application to all particles.
+    for key, vals in (("fwd", b1), ("bwd", b2)):
+        for n_rows, what in ((SMC["particles"] // 2, "fit"),
+                             (SMC["particles"], "apply")):
+            held = smc_held[n_rows][key]
+            vals.update({f"{k}_smc_{what}": held[k]
+                         for k in ("ms", "plain_ms", "bound_ms")})
+            vals["max_abs_err"] = max(vals["max_abs_err"],
+                                      held["max_abs_err"])
     rows = [("B1 fused_forward_and_ladj", ew_paths["fwd"], src,
              f"{pallas}:441", b1),
             ("B2 fused forward backward", ew_paths["bwd"], src,
@@ -2857,7 +3414,9 @@ def main():
             "library_ms", "ms_without_b5_rows", "ms_recomputing",
             "ms_vi_template", "tile_vi_template", "plain_ms_vi_template",
             "library_ms_vi_template", "bound_ms_vi_template", "ms_d50",
-            "plain_ms_d50", "bound_ms_d50")
+            "plain_ms_d50", "bound_ms_d50", "ms_smc_fit", "plain_ms_smc_fit",
+            "bound_ms_smc_fit", "ms_smc_apply", "plain_ms_smc_apply",
+            "bound_ms_smc_apply")
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s, the "
           f"build included [{smi}]", flush=True)
     print(json.dumps({"kernels": [

@@ -13,13 +13,16 @@ convergence diagnostics, the fused leapfrog kernel B6
 (``ops/csrc/leapfrog.cu``) and ``infer``'s HMC routes; and flow-VI:
 ``optimize_elbo`` with the standard and sticking-the-landing estimators
 (through B1/B2 or B4/B5 on the card) and ``infer``'s two transport
-templates. The kernels are written in CUDA C++ for Hopper and built at
-first use. The package imports ``torch`` and never ``jax``;
+templates; and tempered SMC (``smc``): the adaptive-tempering ladder,
+systematic resampling, ensemble-preconditioned HMC mutations and learned
+annealing transports (fitted and applied through B1/B2 on the card), with
+``infer``'s SMC route. The kernels are written in CUDA C++ for Hopper and
+built at first use. The package imports ``torch`` and never ``jax``;
 ``interop`` carries weights over from the JAX package without importing
 it.
 """
 
-from . import bijectors, distributions, mcmc, ops, train
+from . import bijectors, distributions, mcmc, ops, smc, train
 from .bijectors import (
     AffineCoupling, Bijector, Chain, CenterContract, CenterStretch,
     ElementwiseRQSpline, Householder, Identity, Johnson, JohnsonInv,

@@ -2,6 +2,10 @@
 
 Counterpart of ``enflows_tpu/infer.py``. Ported routes:
 
+* with ``method='smc'``, the raw target (``precondition=None``) or an
+  explicit ``flow=``: tempered SMC (``smc.smc_sample``) over all particles,
+  pushed forward through the flow, with weighted moments, log Z and the
+  weights' ESS (``infer.py:454-485``);
 * with ``method='hmc'``, a target declared as ``mcmc.FlowPushforwardTarget``
   whose whitening chain B6 takes: ``mcmc.fused_flow_hmc_sample`` over that
   chain, each trajectory in one launch of kernel B6, draws directly in data
@@ -17,8 +21,8 @@ ELBO ascent: ``default_flow_template`` and ``coupling_flow_template``
 (``enflows_tpu/infer.py:45-114``). Every other route raises
 ``NotImplementedError`` naming its ROADMAP item: ``precondition='auto'``
 without a flow (the VI-fitted transport and its escalation ladder, A.9),
-``data=`` (MLE-whitening preconditioner, A.9), ``method='smc'`` (A.8),
-``mesh=`` (A.10) and ``refine_rounds`` (A.9).
+``data=`` (MLE-whitening preconditioner, A.9), ``mesh=`` (A.10) and
+``refine_rounds`` (A.9).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from .mcmc.diagnostics import (_host, bfmi, bulk_ess,
                                rank_normalized_rhat_per_dim, tail_ess)
 from .mcmc.fused_hmc import fused_flow_hmc_sample
 from .mcmc.sample import _unported
+from .smc import smc_sample
 
 
 class InferenceResult(NamedTuple):
@@ -149,6 +154,33 @@ def _fused_hmc_accepts(sampler_kw: dict) -> bool:
     return all(k in accepted for k in sampler_kw)
 
 
+def _infer_smc(target, pre, flow, gen, dim, default_particles, dtype,
+               sampler_kw) -> InferenceResult:
+    """``infer``'s SMC route (``enflows_tpu/infer.py:454-485``): the
+    particles of ``smc_sample`` on ``target``, pushed forward through the
+    preconditioner ``pre`` if any, and their weighted moments."""
+    n_particles = sampler_kw.pop("num_particles", default_particles)
+    particles, log_w, log_z, infos = smc_sample(
+        target, gen, dim=dim, num_particles=n_particles, dtype=dtype,
+        **sampler_kw)
+    if pre is not None:
+        with torch.no_grad():
+            particles = pre.push_forward(particles)
+    x = _host(particles, np.float64)
+    lw = _host(log_w, np.float64)
+    w = np.exp(lw - lw.max())
+    w /= w.sum()
+    mean_w = (w[:, None] * x).sum(axis=0)
+    # Clamp the variance radicand: near-degenerate weights can make
+    # E[x^2] - E[x]^2 slightly negative in floating point.
+    var_w = np.maximum((w[:, None] * x**2).sum(axis=0) - mean_w**2, 0.0)
+    diagnostics = {"mean": mean_w, "sd": np.sqrt(var_w),
+                   "log_z": float(log_z),
+                   "weight_ess": float(1.0 / np.sum(w**2))}
+    return InferenceResult(draws=particles, diagnostics=diagnostics,
+                           stats=infos, flow=flow)
+
+
 def infer(logdensity_fn: Callable, *, dim: int, key=None,
           method: str = "nuts", num_chains: int = 16,
           num_warmup: int = 500, num_samples: int = 1000,
@@ -163,9 +195,13 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     ``mcmc.FlowPushforwardTarget``. ``key``: the ``torch.Generator`` of every
     draw; its device is where the chains run. Without one, a generator
     seeded 0 on ``device`` (the card unless the caller asks for the CPU).
-    ``method``: 'nuts', 'hmc' or 'chees' ('smc' is not ported yet); the
-    sampler's keywords (``max_depth=``, ``num_steps=``, ...) pass through
-    ``sampler_kw``.
+    ``method``: 'nuts', 'hmc', 'chees' or 'smc'; the sampler's keywords
+    (``max_depth=``, ``num_steps=``, ``mutation_steps=``, ...) pass through
+    ``sampler_kw``. For 'smc', ``num_chains * num_samples`` is the particle
+    count unless ``num_particles`` is passed; the draws are the (n, dim)
+    particles, ``stats`` the list of ``smc.SMCInfo``, and the diagnostics
+    the weighted ``mean`` and ``sd``, ``log_z`` and ``weight_ess``, on the
+    host in float64.
 
     A target declared as ``FlowPushforwardTarget`` with a chain that B6
     takes runs ``method='hmc'`` through the fused leapfrog kernel, with no
@@ -173,9 +209,7 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     (whitened -> data) preconditions the target, or ``precondition=None``
     samples it raw. Draws are returned in data space.
     """
-    if method == "smc":
-        raise _unported("method='smc'", "A.8")
-    if method not in ("nuts", "hmc", "chees"):
+    if method not in ("nuts", "hmc", "chees", "smc"):
         raise ValueError(f"method must be 'nuts', 'hmc', 'chees' or 'smc', "
                          f"got {method!r}")
     if mesh is not None:
@@ -201,13 +235,16 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
                                diagnostics=summarize_draws(draws, stats),
                                stats=stats, flow=logdensity_fn.transport)
 
-    if refine_rounds > 0:
-        raise _unported("refine_rounds", "A.9")
     if flow is None and precondition == "auto":
         raise _unported("precondition='auto' (the VI-fitted transport)",
                         "A.9")
     pre = None if flow is None else flow_preconditioned(logdensity_fn, flow)
     target = logdensity_fn if pre is None else pre.logdensity_fn
+    if method == "smc":
+        return _infer_smc(target, pre, flow, gen, dim,
+                          num_chains * num_samples, dtype, sampler_kw)
+    if refine_rounds > 0:
+        raise _unported("refine_rounds", "A.9")
     draws, _final, stats = sample(
         target, gen, dim=dim, num_chains=num_chains, num_warmup=num_warmup,
         num_samples=num_samples, algorithm=method, dtype=dtype,

@@ -32,8 +32,11 @@ class DualAveragingState(NamedTuple):
 
 def da_init(initial_step_size, dtype=torch.float32,
             device=None) -> DualAveragingState:
-    """``initial_step_size``: a float or a 0-d tensor (its device is kept
-    unless ``device`` is given)."""
+    """``initial_step_size``: a float or a 0-d tensor. The state lies on
+    ``device``; without one, on the tensor's device, and for a float on the
+    card."""
+    if device is None and not isinstance(initial_step_size, torch.Tensor):
+        device = "cuda"
     s = torch.as_tensor(initial_step_size, dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=s.device)
     return DualAveragingState(log_step=torch.log(s),
@@ -61,7 +64,9 @@ class WelfordState(NamedTuple):
     count: torch.Tensor    # scalar
 
 
-def welford_init(dim, dtype=torch.float32, device=None) -> WelfordState:
+def welford_init(dim, dtype=torch.float32, device="cuda") -> WelfordState:
+    """Empty running moments of ``dim`` coordinates on ``device`` (the card
+    unless the caller asks for the CPU)."""
     return WelfordState(mean=torch.zeros(dim, dtype=dtype, device=device),
                         m2=torch.zeros(dim, dtype=dtype, device=device),
                         count=torch.zeros((), dtype=dtype, device=device))

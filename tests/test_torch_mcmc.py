@@ -96,7 +96,7 @@ def test_pareto_khat_matches_jax(n):
 def test_dual_averaging_matches_jax_step_by_step():
     acc = np.random.default_rng(0).uniform(0.2, 1.0, size=60)
     dj = JM.da_init(0.3, DT)
-    dt = TM.da_init(0.3, T64)
+    dt = TM.da_init(0.3, T64, device="cpu")
     for a in acc:
         dj = JM.da_update(dj, jnp.asarray(a, DT), target=0.75)
         dt = TM.da_update(dt, torch.tensor(a, dtype=T64), target=0.75)
@@ -106,7 +106,7 @@ def test_dual_averaging_matches_jax_step_by_step():
 
 def test_welford_matches_jax():
     X = np.random.default_rng(1).normal(size=(64, 3)) * [1.0, 2.0, 0.5] + 1
-    sj, st = JM.welford_init(3, DT), TM.welford_init(3, T64)
+    sj, st = JM.welford_init(3, DT), TM.welford_init(3, T64, device="cpu")
     for x in X[:10]:
         sj = JM.welford_update(sj, jnp.asarray(x))
         st = TM.welford_update(st, _t(x))
@@ -121,6 +121,22 @@ def test_welford_matches_jax():
             _np(JM.welford_variance(sj, reg)), rtol=1e-12)
     np.testing.assert_allclose(_np(TM.welford_variance(st, False)),
                                X.var(0, ddof=1), rtol=1e-10)
+
+
+def test_adaptation_state_defaults_to_the_card():
+    """Without a device, ``da_init`` of a float and ``welford_init`` build
+    their state on the card (here, with no card, they fail asking for
+    CUDA); ``da_init`` of a tensor keeps the tensor's device."""
+    assert all(t.device.type == "cpu"
+               for t in TM.da_init(torch.tensor(0.3, dtype=T64)))
+    makers = (lambda: TM.da_init(0.3), lambda: TM.welford_init(3))
+    if torch.cuda.is_available():
+        for make in makers:
+            assert all(t.device.type == "cuda" for t in make())
+    else:
+        for make in makers:
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+                make()
 
 
 @pytest.mark.parametrize("num_warmup", [0, 19, 20, 100, 150, 200, 1000])
@@ -388,7 +404,7 @@ def test_summarize_draws_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(method="smc"), "A.8"), (dict(), "A.9"),
+    (dict(method="smc"), "A.9"), (dict(), "A.9"),
     (dict(data=np.zeros((8, 2))), "A.9"), (dict(mesh=object()), "A.10"),
     (dict(precondition=None, refine_rounds=1), "A.9"),
 ])
