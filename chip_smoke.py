@@ -1,8 +1,9 @@
 """Drive the PyTorch port's main paths once on one CUDA card: the
 whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5),
 flow-VI (B1/B2 and B4/B5), flow-preconditioned HMC (B6), NUTS and ChEES
-(no kernel), and tempered SMC (no kernel; B1/B2 in its learned
-transports).
+(no kernel), tempered SMC (no kernel; B1/B2 in its learned transports)
+and infer's default path (the auto ladder through B1/B2 and B4/B5,
+data= through B3).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -212,6 +213,62 @@ launch counters set to 0 just before it and read just after:
    ``torch.profiler``'s busy ms, device ops and idle share; the fitter's
    ms a step through B1/B2 against the plain route (100 steps each, in
    turns, the histories within 1e-4 relative).
+
+infer's default path runs after 26 (``infer_phases``), each call with the
+launch counters set to 0 just before it and read just after, every phase
+from generators of its own:
+
+27. ``[infer auto 50d]``: BASELINE.json configs[3], the equicorrelated
+   Gaussian of bench_mcmc.py:174-181 (rho 0.9, d=50) through
+   ``et.infer(logp, dim=50)``: the default ladder (vi_steps=500,
+   vi_batch=512), NUTS over 128 chains x 20 + 20 at max_depth=4.
+   Exactly the launches the dispatch rule gives its fits
+   (``expected_launches``): 500 B1 and 500 B2 for the elementwise rung;
+   the spline rung's 1,024 rows and the rescue's 40 take the plain path
+   (``coupling_batch_held``, ROADMAP C-3); draws finite; the family, the
+   draws' moments and rhat printed, not gated: which transport the ladder
+   keeps turns on the seed, and NUTS does not mix through the spline one,
+   in JAX as in the port (ROADMAP C-12);
+28. ``[infer spline 50d]``: the same with ``precondition_kind='spline'``:
+   the family and the launches gated, the moments printed;
+   ``[infer elementwise 50d]``: the same with
+   ``precondition_kind='elementwise'`` and the configuration's NUTS, 300
+   + 500 at max_depth 10, over 32 chains: 500 B1 and 500 B2, the mean
+   within 0.1 and the sd within 10% of 1 in every dimension, rhat < 1.05;
+   divergences printed (C-12);
+29. ``[infer escalation 2d]``: tests/test_infer.py's bimodal target
+   (:303, its settings but NUTS at 100 + 200: 0.12-0.40 of the draws right
+   of 0, the x0 mean within 0.35 of -1.125) and its hard target (:353,
+   whiten_batches=16): the ladder ends on the SMC rescue and escalates to
+   SMC on the raw target, with exactly the rule's launches (5 B1 and 5
+   B2; the spline rung and the whitening on the plain path), the
+   unweighted share right of 0 printed, not gated (ROADMAP C-10);
+30. ``[infer data 2d]``: examples/one_call_infer.py's case [2] with
+   100,000 draws as ``data=``, whiten_batches=200, whiten_epochs=8, NUTS
+   at 8 chains x 100 + 200:
+   exactly 1,600 B3 launches, rhat < 1.05, the mean within
+   test_infer.py:92-94's bound;
+31. ``[infer refine]``: test_infer.py:101's target and gates, one
+   refinement round;
+32. ``[infer B4/B5 hold]`` (ROADMAP C-3): B4 and B5 on every coupling flow
+   a rung or the rescue trained above and on the affine template's fits
+   (``c3_fits``), at its own row count and at 2^17 rows: y, ladj, gx and
+   every parameter gradient against the [B4]/[B5] TF32 gate, held where
+   the dispatch sends such batches to the kernels (d=50 at 2^17 rows) and
+   read elsewhere, beside the same gate against the plain version on the
+   kernels' own TF32-rounded operands and the rows that set gx's max
+   error with their distance to a knot. ``python3 chip_smoke.py
+   --infer-probe`` runs this sweep alone at 2^10-2^17 rows on standalone
+   fits, every reading printed, then ``[infer elementwise 50d]``;
+33. ``[infer timing]``: ms a step fused against plain (host clock) for a VI
+   step at each rung's shape and a whitening step at the rescue's 40 and
+   256 rows and the data fit's 500 (the coupling steps forced through
+   B4/B5, to read what the kernels would give at the sizes the rule keeps
+   from them); each kernel's time at these shapes (B1-B3 device time by
+   ``queued_ms``, B4/B5 by CUDA events) against its plain version, the
+   bound and, for B4/B5, TF32 torch.matmul. Each infer phase's line splits
+   its call's seconds into the VI fit, the probes, the rescue, the
+   sampling and the diagnostics.
 
 The script ends with its total time, the kernels line (each kernel's
 launches summed over every main-path run, by path) and the ``{"ok": true,
@@ -963,6 +1020,51 @@ COUPLING_SLICE_RTOL, COUPLING_CALM_RTOL = 1e-3, 1e-4
 BASELINE = dict(dim=64, n_layers=4, hidden=(512, 512))   # BASELINE.md:150
 
 
+def tf32_round(x):
+    """x rounded to TF32 as the kernels round an operand
+    (``cvt.rna.tf32.f32``: the 13 low mantissa bits, half away from
+    zero)."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+class _Tf32Product(torch.autograd.Function):
+    """h @ W on TF32-rounded operands with f32 products, the backward's
+    products on the rounded cotangent as well: the kernels' own rounding,
+    for C-3's diagnosis."""
+
+    @staticmethod
+    def forward(ctx, h, W):
+        hr, Wr = tf32_round(h), tf32_round(W)
+        ctx.save_for_backward(hr, Wr)
+        return _MATMUL(hr, Wr)
+
+    @staticmethod
+    def backward(ctx, g):
+        hr, Wr = ctx.saved_tensors
+        gr = tf32_round(g)
+        return _MATMUL(gr, Wr.t()), _MATMUL(hr.t(), gr)
+
+
+_MATMUL = torch.matmul
+
+
+class tf32_emulated:
+    """torch.matmul of f32 operands as ``_Tf32Product`` inside the block,
+    in full f32 otherwise."""
+
+    def __enter__(self):
+        self.was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.matmul = lambda a, b: (
+            _Tf32Product.apply(a, b) if a.dtype == torch.float32
+            else _MATMUL(a, b))
+
+    def __exit__(self, *exc):
+        torch.matmul = _MATMUL
+        torch.backends.cuda.matmul.allow_tf32 = self.was
+
+
 class matmul_tf32:
     """torch.matmul in TF32 (``flag`` True) or in full f32 inside the block,
     the setting outside restored after it. TF32 is the plain version's
@@ -999,9 +1101,10 @@ class Held(NamedTuple):
                 f"{self.scale:.3e}, limit {self.limit:.3e})")
 
 
-def tf32_gate(got, plain_tf32, ref64, gate, what):
+def tf32_gate(got, plain_tf32, ref64, gate, what, enforce=True):
     """The kernel's max error against the float64 run within slack x the
-    TF32 plain run's, or floor x (max|f64| + 1). Returns a ``Held``."""
+    TF32 plain run's, or floor x (max|f64| + 1). Returns a ``Held``;
+    ``enforce=False`` only reads it."""
     slack, floor = gate
     if not ref64.numel():
         return Held(0.0, 0.0, 0.0, 0.0)
@@ -1009,7 +1112,8 @@ def tf32_gate(got, plain_tf32, ref64, gate, what):
     err_t = max_abs(plain_tf32.double(), ref64)
     scale = float(ref64.abs().max())
     held = Held(err_k, err_t, scale, max(slack * err_t, floor * (scale + 1)))
-    check(err_k <= held.limit, f"{what}: |kernel - f64| {held}")
+    check(err_k <= held.limit or not enforce,
+          f"{what}: |kernel - f64| {held}")
     return held
 
 
@@ -1189,17 +1293,15 @@ def fused_recomputing(C):
 KNOT_EPS = 1e-4
 
 
-def drop_near_knot_rows(et, chain, x):
-    """``x`` without the rows where some spline coupling's input passes
-    within KNOT_EPS of an interior knot, found by a float64 pass. There f32
-    rounding may put the element in either bin: y and ladj are continuous
-    across a knot, but ladj's derivative jumps, so a kernel and a plain
-    version that pick different bins give gradients that differ by that
-    jump times the ladj cotangent, on either side of the float64 answer."""
+def knot_distance(et, chain, x):
+    """Per row of ``x``, the least distance, in a float64 pass, from a
+    spline coupling's input to one of its interior knots (inf for a chain
+    without a spline coupling)."""
     from enflows_tpu_torch.bijectors.spline import _knots
 
     chain64 = copy.deepcopy(chain).double()
-    bad = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    dist = torch.full((x.shape[0],), math.inf, dtype=torch.float64,
+                      device=x.device)
     t = x.double()
     with torch.no_grad():
         for s in chain64.stages:
@@ -1210,9 +1312,20 @@ def drop_near_knot_rows(et, chain, x):
                                                           3 * K - 1)
                 raw = p[..., K:2 * K] if s.inverted else p[..., :K]
                 _, knots = _knots(raw, s.bound, 1e-3)
-                near = (xb[..., None] - knots[..., 1:-1]).abs() < KNOT_EPS
-                bad |= near.any(-1).any(-1)
+                near = (xb[..., None] - knots[..., 1:-1]).abs()
+                dist = torch.minimum(dist, near.amin(-1).amin(-1))
             t = s(t)
+    return dist
+
+
+def drop_near_knot_rows(et, chain, x):
+    """``x`` without the rows where some spline coupling's input passes
+    within KNOT_EPS of an interior knot, found by a float64 pass. There f32
+    rounding may put the element in either bin: y and ladj are continuous
+    across a knot, but ladj's derivative jumps, so a kernel and a plain
+    version that pick different bins give gradients that differ by that
+    jump times the ladj cotangent, on either side of the float64 answer."""
+    bad = knot_distance(et, chain, x) < KNOT_EPS
     return x[~bad].contiguous(), int(bad.sum())
 
 
@@ -3184,6 +3297,850 @@ def smc_phases(et, EW, counters, device, card):
     return paths, held
 
 
+# ------------------------------------------------------------------
+# infer's default path: the precondition="auto" ladder, data= and
+# refine_rounds. Each call with the launch counters set to 0 just before it
+# and read just after; every phase draws from generators of its own.
+
+# BASELINE.json configs[3]: bench_mcmc.py:174-181's equicorrelated Gaussian
+# through et.infer(logp, dim=50) with the default ladder, 128 chains.
+# NUTS cut from 300 + 500 to 20 + 20 at max_depth=4 (PERF.md §4): the
+# ladder's pick between the elementwise and the spline transport turns on
+# the seed in both packages, and NUTS through the spline transport runs to
+# depth 10, ~120 leaves a transition, at ~36 ms of host work a leaf
+# (ROADMAP C-12); the forced spline transport's NUTS too. The
+# configuration's NUTS (300 + 500, max_depth 10) runs, gated, through the
+# elementwise transport, the family that whitens this target exactly, at 32
+# chains.
+INFER_50D = dict(dim=50, rho=0.9, chains=128, warmup=20, samples=20,
+                 max_depth=4)
+INFER_ELEMENTWISE_50D = dict(chains=32, warmup=300, samples=500,
+                             max_depth=10)
+# tests/test_infer.py:303 and :353; examples/one_call_infer.py case [2];
+# test_infer.py:101.
+INFER_BIMODAL = dict(vi_steps=200, vi_batch=256, whiten_batches=16,
+                     whiten_epochs=8, num_chains=8, num_warmup=100,
+                     num_samples=200)
+INFER_HARD = dict(vi_steps=5, vi_batch=128, whiten_batches=16,
+                  whiten_epochs=8, num_chains=8, num_warmup=150,
+                  num_samples=300)
+# The example's NUTS (8 chains x 400 + 500) cut to 100 + 200, the bimodal
+# test's (200 + 400) to 100 + 200 (PERF.md §4).
+INFER_DATA = dict(n=100_000, whiten_batches=200, whiten_epochs=8,
+                  num_chains=8, num_warmup=100, num_samples=200)
+INFER_REFINE = dict(num_chains=8, num_warmup=300, num_samples=400)
+INFER_SEEDS = dict(auto=50, spline=51, elementwise=57, bimodal=52, hard=53,
+                   data=55, refine=56)
+_LOG_2PI = 1.8378770664093453
+
+
+def equicorr_logp(d, rho):
+    """bench_mcmc.py:174-181's target, -q P q / 2 with P the inverse of
+    rho 1 1^T + (1 - rho) I, in closed form, batched."""
+    a = 1.0 / (1.0 - rho)
+    c = rho / ((1.0 - rho) * (1.0 + (d - 1) * rho))
+
+    def logp(q):
+        s = q.sum(-1)
+        return -0.5 * (a * (q * q).sum(-1) - c * s * s)
+    return logp
+
+
+def bimodal_2d(w_left, m_left, s_left, w_right, m_right, s_right):
+    """tests/test_infer.py:281-294 and :337-350: x0 a two-Gaussian mixture,
+    x1 | x0 ~ N(0.5 x0, 0.8^2), batched."""
+    def logp(z):
+        x0, x1 = z[..., 0], z[..., 1]
+        m = torch.logaddexp(
+            math.log(w_left) - 0.5 * ((x0 - m_left) / s_left) ** 2
+            - math.log(s_left),
+            math.log(w_right) - 0.5 * ((x0 - m_right) / s_right) ** 2
+            - math.log(s_right)) - 0.5 * _LOG_2PI
+        return m - 0.5 * ((x1 - 0.5 * x0) / 0.8) ** 2 - 0.5 * _LOG_2PI \
+            - math.log(0.8)
+    return logp
+
+
+class infer_clock:
+    """Inside the block, the seconds ``infer`` spends in each part (each
+    ending in a synchronize) and the flows its trainers fit, with the rows
+    of each step: the VI fits (``optimize_elbo``), the probes
+    (``_fit_quality``), the SMC rescue, the ``data=`` whitening, the
+    sampling and the host-side diagnostics."""
+    PARTS = {"optimize_elbo": "vi fit", "_fit_quality": "probes",
+             "_smc_rescue": "rescue", "_whitening_transport": "data fit",
+             "sample": "sampling", "_infer_smc": "sampling",
+             "summarize_draws": "diagnostics"}
+
+    def __init__(self, TI):
+        self.TI = TI
+        self.seconds = {}
+        self.fits = []          # (trainer, flow, rows a step)
+
+    def _wrap(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            part = self.PARTS.get(name)
+            if part is not None:
+                self.seconds[part] = self.seconds.get(part, 0.0) \
+                    + time.perf_counter() - t0
+            if name == "optimize_elbo":
+                self.fits.append(("vi", out.result, 2 * k["batch_size"]))
+            elif name == "optimize_whitening":
+                self.fits.append(("whitening", out.result,
+                                  a[0].shape[0] // k["nbatches"]))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.TI, name)
+                      for name in (*self.PARTS, "optimize_whitening")}
+        for name, fn in self.saved.items():
+            setattr(self.TI, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.TI, name, fn)
+
+    def text(self, wall):
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in self.seconds.items())
+        return f"{wall:.2f} s ({parts})"
+
+
+def infer_call(et, TI, counters, logp, forbid_mcmc=None, **kw):
+    """``et.infer(logp, **kw)`` with the launch counters set to 0 just
+    before and read just after. ``forbid_mcmc``: a message; the MCMC
+    sampler, if called, fails the run with it (a ladder that was to
+    escalate to SMC did not). Returns (result, launches, wall, clock)."""
+    real_sample = TI.sample
+    if forbid_mcmc is not None:
+        def refuse(*a, **k):
+            check(False, forbid_mcmc)
+        TI.sample = refuse
+    try:
+        reset_launches(*counters)
+        with infer_clock(TI) as clock:
+            t0 = time.perf_counter()
+            res = et.infer(logp, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_launches(counters)
+    finally:
+        TI.sample = real_sample
+    return res, launches, wall, clock
+
+
+def expected_launches(C, clock, steps):
+    """The launches the dispatch rule gives the fits ``clock`` recorded,
+    ``steps[trainer]`` steps each: B1 + B2 a VI step of a fusible chain, B3
+    a whitening step of one, B4 + B5 a step of a fusible coupling stack at
+    the batches ``coupling_batch_held`` admits, nothing else."""
+    want = {"leapfrog": 0, "fwd": 0, "bwd": 0, "negll": 0,
+            "coupling_fwd": 0, "coupling_bwd": 0}
+    for trainer, flow, rows in clock.fits:
+        d = flow_width(flow)
+        if C.is_fusible_coupling_stack(flow, d, torch.float32):
+            keys = ("coupling_fwd", "coupling_bwd") \
+                if C.coupling_batch_held(rows, d) else ()
+        elif trainer == "vi":
+            keys = ("fwd", "bwd")
+        else:
+            keys = ("negll",)
+        for k in keys:
+            want[k] += steps[trainer]
+    return want
+
+
+def launch_text(launches):
+    return ", ".join(f"{k} {v}" for k, v in launches.items() if v) or "none"
+
+
+def infer_50d(et, TI, counters, kind, device, card):
+    """``[infer auto 50d]`` (``kind`` None: the default ladder), ``[infer
+    spline 50d]`` and ``[infer elementwise 50d]`` (``precondition_kind``):
+    the equicorrelated Gaussian at d=50 through ``et.infer(logp, dim=50)``
+    with vi_steps=500, vi_batch=512 (1,024 rows a step). Exactly the
+    launches the dispatch rule gives the fits (``expected_launches``): 500
+    B1 and 500 B2 for the elementwise rung; the spline rung's 1,024 rows
+    and the rescue's 40 take the plain path. Draws finite. The auto call
+    and the spline one (NUTS 128 x 20 + 20, max_depth=4) print
+    the family, k-hat, gap, the draws' mean and sd against 1 (weighted
+    where the ladder escalated to SMC), rhat and the tree depths: which
+    transport the ladder keeps turns on the seed, and NUTS does not mix
+    through the spline one here, in JAX as in the port (ROADMAP C-12). The
+    elementwise call runs the configuration's NUTS (300 + 500, max_depth
+    10, 32 chains) and holds the mean within 0.1 and the sd within 10% of
+    1 in every dimension, and rhat below 1.05; its divergences are printed
+    (the reference diverges on ~9% of its transitions here, C-12)."""
+    cfg = {**INFER_50D,
+           **(INFER_ELEMENTWISE_50D if kind == "elementwise" else {})}
+    d = cfg["dim"]
+    tag = f"[infer {kind or 'auto'} 50d]"
+    kw = dict(max_depth=cfg["max_depth"])
+    if kind is not None:
+        kw["precondition_kind"] = kind
+    res, launches, wall, clock = infer_call(
+        et, TI, counters, equicorr_logp(d, cfg["rho"]), dim=d,
+        key=torch.Generator(device=device).manual_seed(
+            INFER_SEEDS[kind or "auto"]),
+        num_chains=cfg["chains"], num_warmup=cfg["warmup"],
+        num_samples=cfg["samples"], **kw)
+    dg = res.diagnostics
+    family = dg["precondition_family"]
+    rungs = sum(1 for t, _, _ in clock.fits if t == "vi")
+    whitened = sum(1 for t, _, _ in clock.fits if t == "whitening")
+    want = expected_launches(et.ops.coupling, clock,
+                             {"vi": 500, "whitening": 1000})
+    check(launches == want, f"{tag}: launches {launches}, want {want} "
+          f"({rungs} rungs, {whitened} rescue)")
+    gated = kind == "elementwise"
+    if "log_z" in dg:           # escalated to SMC: weighted moments
+        mean_err = float(abs(dg["mean"]).max())
+        sd_err = float(abs(dg["sd"] - 1.0).max())
+        chain_text = (f"SMC on the raw target, {res.draws.shape[0]} "
+                      f"particles, log Z {dg['log_z']:.4f}, weight ESS "
+                      f"{dg['weight_ess']:.0f}")
+    else:
+        x = res.draws.reshape(-1, d).double()
+        mean_err = float(x.mean(0).abs().max())
+        sd_err = float((x.std(0) - 1.0).abs().max())
+        rhat = float(dg["rhat"].max())
+        steps = res.stats.num_steps.double()
+        chain_text = (f"NUTS {cfg['chains']} chains x {cfg['warmup']} + "
+                      f"{cfg['samples']} at max_depth {cfg['max_depth']}, "
+                      f"max rhat {rhat:.4f}, min bulk ESS "
+                      f"{dg['min_bulk_ess']:.0f}, divergences "
+                      f"{dg['divergences']} (not gated, ROADMAP C-12), accept"
+                      f" {dg['accept_prob']:.3f}, step size "
+                      f"{float(res.stats.step_size):.4f}, leaves a "
+                      f"transition mean {float(steps.mean()):.1f} max "
+                      f"{float(steps.max()):.0f}")
+        if gated:
+            check(mean_err < 0.1 and sd_err < 0.1 and rhat < 1.05,
+                  f"{tag}: mean err {mean_err:.4f}, sd err {sd_err:.4f}, "
+                  f"max rhat {rhat:.4f}")
+    check(bool(torch.isfinite(res.draws).all()), f"{tag}: draws not finite")
+    check(kind is None or family == kind, f"{tag}: family {family}")
+    chain_text += (" (gated: mean err < 0.1, sd err < 0.1, rhat < 1.05)"
+                   if gated else " (moments not gated: ROADMAP C-12)")
+    print(f"{tag} infer(logp, dim={d}, {kw!r}): "
+          f"family {family}, k-hat {dg['precondition_khat']:.4f}, gap "
+          f"{dg['precondition_coverage_gap']:.4f} after {rungs} rung(s)"
+          f"{' and the rescue' if whitened else ''}; launches "
+          f"{launch_text(launches)}; {chain_text}: mean err {mean_err:.4f}, "
+          f"sd err {sd_err:.4f}; wall {clock.text(wall)} [{card}]",
+          flush=True)
+    return launches, clock, res
+
+
+def infer_escalation(et, TI, counters, device, card):
+    """``[infer escalation 2d]``: tests/test_infer.py's bimodal target
+    (:303, its settings, NUTS cut to 100 + 200) must put 0.12-0.40 of the
+    draws right of 0 with the x0 mean within 0.35 of -1.125; its hard
+    target (:353, its settings, whiten_batches=16) must end on the SMC
+    rescue, which samples the raw target by SMC, with exactly the launches
+    the dispatch rule gives (``expected_launches``: 5 B1 and 5 B2 for the
+    elementwise rung's VI; the spline rung's 256 rows and the rescue's
+    inverted spline take the plain path, ROADMAP C-3). The hard run's share
+    of the unweighted final particles right of 0 is printed, not gated
+    (ROADMAP C-10). The rescue's whitening at the default whiten_batches
+    (40 rows a step) is timed in ``[infer timing]`` and read in the C-3
+    sweep."""
+    out = {}
+    res, launches, wall, clock = infer_call(
+        et, TI, counters, bimodal_2d(0.75, -2.0, 0.4, 0.25, 1.5, 0.7),
+        dim=2, key=torch.Generator(device=device).manual_seed(
+            INFER_SEEDS["bimodal"]), **INFER_BIMODAL)
+    x = res.draws.reshape(-1, 2).double()
+    frac = float((x[:, 0] > 0).double().mean())
+    mean0 = float(x[:, 0].mean())
+    dg = res.diagnostics
+    check(0.12 < frac < 0.40 and abs(mean0 + 1.125) < 0.35,
+          f"[infer escalation 2d] bimodal: frac right {frac:.3f}, x0 mean "
+          f"{mean0:.3f} (family {dg['precondition_family']})")
+    print(f"[infer escalation 2d] bimodal (test_infer.py:303): family "
+          f"{dg['precondition_family']}, k-hat "
+          f"{dg['precondition_khat']:.4f}, gap "
+          f"{dg['precondition_coverage_gap']:.4f}; frac right {frac:.4f}, x0 "
+          f"mean {mean0:.4f}; launches {launch_text(launches)}; wall "
+          f"{clock.text(wall)} [{card}]", flush=True)
+    out["bimodal"] = (launches, clock)
+    batches = INFER_HARD["whiten_batches"]
+    tag = f"[infer escalation 2d] hard, whiten_batches={batches}"
+    res, launches, wall, clock = infer_call(
+        et, TI, counters, bimodal_2d(0.70, -3.0, 0.3, 0.30, 2.5, 0.5),
+        forbid_mcmc=f"{tag}: the ladder did not end on the rescue",
+        dim=2, key=torch.Generator(device=device).manual_seed(
+            INFER_SEEDS["hard"]), **INFER_HARD)
+    dg = res.diagnostics
+    whiten = batches * INFER_HARD["whiten_epochs"]
+    check(dg["precondition_family"] == "smc+spline-whitening"
+          and dg.get("method_escalated_to") == "smc",
+          f"{tag}: family {dg['precondition_family']}")
+    want = expected_launches(et.ops.coupling, clock, {
+        "vi": INFER_HARD["vi_steps"], "whitening": whiten})
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    x = res.draws.double()
+    frac = float((x[:, 0] > 0).double().mean())
+    check(bool(torch.isfinite(x).all()), f"{tag}: draws not finite")
+    print(f"{tag} (test_infer.py:353): family "
+          f"{dg['precondition_family']}, k-hat "
+          f"{dg['precondition_khat']:.4f}, gap "
+          f"{dg['precondition_coverage_gap']:.4f}, escalated to "
+          f"{dg['method_escalated_to']}; {x.shape[0]} SMC particles, "
+          f"weighted x0 mean {dg['mean'][0]:.4f} (mixture -1.35), "
+          f"unweighted frac right {frac:.4f} (not gated, C-10), log Z "
+          f"{dg['log_z']:.4f}; launches {launch_text(launches)} (the "
+          f"rescue's {whiten} whitening steps at {4096 // batches} rows "
+          f"and the spline rung's on the plain path, ROADMAP C-3); wall "
+          f"{clock.text(wall)} [{card}]",
+          flush=True)
+    out["hard"] = (launches, clock)
+    return out
+
+
+def infer_data_2d(et, TI, counters, device, card):
+    """``[infer data 2d]``: examples/one_call_infer.py's case [2] (the
+    bimodal CenterStretch pushforward, 100,000 draws as data) through
+    ``infer(data=X, whiten_batches=200, whiten_epochs=8)``: exactly 1,600 B3
+    launches (the inverted elementwise template's whitening steps) and no
+    other kernel; rhat < 1.05 and the mean within test_infer.py:92-94's
+    bound of the data's."""
+    cfg = INFER_DATA
+    v = lambda *a: torch.tensor(a, device=device)
+    f2 = et.compose(et.ScaleShift(v(1.3, 0.4), v(2.5, -1.2)),
+                    et.Householder(v(1.0, 0.3)[None]),
+                    et.CenterStretch(v(4.0, 4.1), v(2.0, 2.1), v(3.0, 3.1)))
+    t2 = et.FlowDistribution(f2).requires_grad_(False)
+    gen = torch.Generator(device=device).manual_seed(INFER_SEEDS["data"])
+    with torch.no_grad():
+        X = t2.sample(gen, (cfg["n"],), dim=2)
+    res, launches, wall, clock = infer_call(
+        et, TI, counters, t2.logpdf, dim=2, key=gen, data=X,
+        whiten_batches=cfg["whiten_batches"],
+        whiten_epochs=cfg["whiten_epochs"], num_chains=cfg["num_chains"],
+        num_warmup=cfg["num_warmup"], num_samples=cfg["num_samples"])
+    steps = cfg["whiten_batches"] * cfg["whiten_epochs"]
+    check({k: v for k, v in launches.items() if v} == {"negll": steps},
+          f"[infer data 2d]: launches {launches}, want {steps} B3")
+    dg = res.diagnostics
+    true_mean, true_sd = X.double().mean(0), X.double().std(0)
+    bound = 5 * float(true_sd.max()) / math.sqrt(dg["min_bulk_ess"]) + 0.05
+    mean_err = float((torch.as_tensor(dg["mean"]) - true_mean.cpu())
+                     .abs().max())
+    rhat = float(dg["rhat"].max())
+    check(rhat < 1.05 and mean_err < bound,
+          f"[infer data 2d]: rhat {rhat:.4f}, mean err {mean_err:.4f} "
+          f"(bound {bound:.4f})")
+    print(f"[infer data 2d] one_call_infer.py [2], {cfg['n']} draws, "
+          f"whiten_batches={cfg['whiten_batches']}, whiten_epochs="
+          f"{cfg['whiten_epochs']}: launches {launch_text(launches)}; max "
+          f"rhat {rhat:.4f}, mean err {mean_err:.4f} (bound {bound:.4f}), "
+          f"min bulk ESS {dg['min_bulk_ess']:.0f}, divergences "
+          f"{dg['divergences']}; wall {clock.text(wall)} [{card}]",
+          flush=True)
+    return launches, clock, X
+
+
+def infer_refine(et, TI, counters, device, card):
+    """``[infer refine]``: test_infer.py:101's warped heavy-tail target, a raw
+    first pass and one refinement round (8 chains x 300 + 400 each): the
+    refined round fits a transport (its whitening B3 launches counted),
+    rhat < 1.05, mean and sd within the test's bounds of 200,000 draws,
+    min bulk ESS above 0.55 x 3,200 draws and above 0.8 x the raw
+    round's."""
+    v = lambda *a: torch.tensor(a, device=device)
+    f_true = et.compose(et.ScaleShift(v(1.3, 0.4), v(2.5, -1.2)),
+                        et.JohnsonInv(v(0.5, -0.3), v(2.0, 2.5),
+                                      v(0.0, 0.0), v(1.0, 1.5)))
+    target = et.FlowDistribution(f_true).requires_grad_(False)
+    seed = INFER_SEEDS["refine"]
+    raw, _, _, _ = infer_call(
+        et, TI, counters, target.logpdf, dim=2, precondition=None,
+        key=torch.Generator(device=device).manual_seed(seed), **INFER_REFINE)
+    res, launches, wall, clock = infer_call(
+        et, TI, counters, target.logpdf, dim=2, precondition=None,
+        refine_rounds=1, key=torch.Generator(device=device).manual_seed(seed),
+        **INFER_REFINE)
+    with torch.no_grad():
+        X = target.sample(torch.Generator(device=device).manual_seed(
+            seed + 1), (200_000,), dim=2).double().cpu().numpy()
+    dg = res.diagnostics
+    rhat = float(dg["rhat"].max())
+    bound = 5 * X.std(0).max() / math.sqrt(dg["min_bulk_ess"]) + 0.05
+    mean_err = float(abs(dg["mean"] - X.mean(0)).max())
+    sd_rel = float(abs(dg["sd"] / X.std(0) - 1).max())
+    total = INFER_REFINE["num_chains"] * INFER_REFINE["num_samples"]
+    ess, raw_ess = dg["min_bulk_ess"], raw.diagnostics["min_bulk_ess"]
+    check(res.flow is not None and rhat < 1.05 and mean_err < bound
+          and sd_rel < 0.15 and ess > 0.55 * total and ess > 0.8 * raw_ess,
+          f"[infer refine]: rhat {rhat:.4f}, mean err {mean_err:.4f} "
+          f"(bound {bound:.4f}), sd rel {sd_rel:.4f}, min bulk ESS {ess:.0f}"
+          f" (raw {raw_ess:.0f})")
+    print(f"[infer refine] test_infer.py:101, refine_rounds=1: launches "
+          f"{launch_text(launches)}; max rhat {rhat:.4f}, mean err "
+          f"{mean_err:.4f} (bound {bound:.4f}), sd rel err {sd_rel:.4f}, "
+          f"min bulk ESS {ess:.0f} against the raw round's {raw_ess:.0f}; "
+          f"wall {clock.text(wall)} [{card}]", flush=True)
+    return launches, clock
+
+
+def hold_coupling_flow(et, C, label, flow, d, n, gen, device, card,
+                       scale=1.0, enforce=None):
+    """``[infer B4/B5 hold]``: B4 and B5 on a coupling flow that a rung, the
+    rescue or an affine fit trained, at ``n`` rows: y, ladj, gx and every
+    parameter gradient, for random cotangents, against the [B4]/[B5] TF32
+    gate (the plain version run in TF32 and in float64, as
+    ``hold_vi_template``). ``enforce`` None holds the gate where the
+    trainers' dispatch sends such a batch to the kernels
+    (``coupling_batch_held``) and reads it elsewhere; False reads it only.
+    Inputs ``scale`` x N(0, 1), rows near a spline knot dropped. The
+    diagnosis of ROADMAP C-3: the rows where the kernel's gx is further
+    from float64 than the plain TF32 run's worst row, and the reverse, with
+    their least distance to a knot (``gx_diagnosis``). Returns (the largest
+    y / ladj error where held, else 0, and the readings over the gate)."""
+    if enforce is None:
+        enforce = C.coupling_batch_held(n, d)
+    x, dropped = drop_near_knot_rows(
+        et, flow, scale * torch.randn(n, d, generator=gen, device=device))
+    m = x.shape[0]
+    gy = torch.randn(m, d, generator=gen, device=device)
+    gl = torch.randn(m, generator=gen, device=device)
+    got = vjp_run(flow, C.fused_coupling_forward_and_ladj, x, gy, gl)
+    with matmul_tf32(True):
+        ref = vjp_run(flow, plain_coupling(C), x, gy, gl)
+    ref64 = vjp_run(copy.deepcopy(flow).double(), plain_coupling(C),
+                    x.double(), gy, gl)
+    pairs = [(got[0], ref[0], ref64[0], C_FWD_GATE, f"{label} y"),
+             (got[1], ref[1], ref64[1], C_FWD_GATE, f"{label} ladj"),
+             (got[2], ref[2], ref64[2], C_BWD_GATE, f"{label} gx")]
+    pairs += [(got[3][k], ref[3][k], ref64[3][k], C_BWD_GATE,
+               f"{label} grad {k}") for k in ref64[3]]
+    helds = [(tf32_gate(*args, what, enforce), what)
+             for *args, what in pairs]
+    nearest = max(helds, key=lambda h: h[0].share)
+    over = sum(1 for h, _ in helds if h.err > h.limit)
+    # C-3's diagnosis: the same gate against the plain version run on the
+    # kernels' own TF32-rounded operands, read only.
+    with tf32_emulated():
+        emu = vjp_run(flow, plain_coupling(C), x, gy, gl)
+    emu_pairs = [(got[0], emu[0], ref64[0], C_FWD_GATE),
+                 (got[1], emu[1], ref64[1], C_FWD_GATE),
+                 (got[2], emu[2], ref64[2], C_BWD_GATE)]
+    emu_pairs += [(got[3][k], emu[3][k], ref64[3][k], C_BWD_GATE)
+                  for k in ref64[3]]
+    emu_helds = [(tf32_gate(*args, what, False), what) for args, (_, what)
+                 in zip(emu_pairs, helds)]
+    emu_near = max(emu_helds, key=lambda h: h[0].share)
+    emu_over = sum(1 for h, _ in emu_helds if h.err > h.limit)
+    emu_text = (f"against the plain version on TF32-rounded operands: "
+                f"{emu_over} of {len(emu_helds)} over, nearest "
+                f"{emu_near[1]} {emu_near[0]} "
+                f"({100 * emu_near[0].share:.0f}%)")
+    st = C._stack_structure(flow, d)
+    verdict = ("within the TF32 gate" if enforce else
+               f"read against the TF32 gate, not held: {over} of "
+               f"{len(helds)} readings over it")
+    print(f"[infer B4/B5 hold] {label}: d={d}, n={m} ({dropped} rows within "
+          f"{KNOT_EPS} of a knot dropped), B4 tile "
+          f"{C._pick_tile(st, False)}, B5 tile {C._pick_tile(st, True)}: y, "
+          f"ladj, gx and {len(ref64[3])} parameter gradients {verdict}; "
+          f"nearest its limit: {nearest[1]}, {nearest[0]} "
+          f"({100 * nearest[0].share:.0f}%); {emu_text}; "
+          f"{gx_diagnosis(et, flow, x, got, ref, ref64)} [{card}]",
+          flush=True)
+    return (max(h.err for h, _ in helds[:2]) if enforce else 0.0), over, \
+        emu_over
+
+
+def gx_diagnosis(et, flow, x, got, ref, ref64):
+    """ROADMAP C-3's reading of one hold: which rows set gx's max error.
+    The rows where the kernel's gx is further from float64 than the plain
+    TF32 run's worst row, and the reverse, with the largest of their least
+    knot distances against the batch's median; and both runs' gx error on
+    the half of the rows furthest from a knot."""
+    e_k = (got[2].double() - ref64[2]).abs().amax(-1)
+    e_t = (ref[2].double() - ref64[2]).abs().amax(-1)
+    dist = knot_distance(et, flow, x)
+    if not bool(torch.isfinite(dist).any()):
+        return (f"gx max error kernel {float(e_k.max()):.3e}, plain TF32 "
+                f"{float(e_t.max()):.3e} (no spline)")
+    median = dist.median()
+    k_over, t_over = e_k > e_t.max(), e_t > e_k.max()
+    far = dist >= median
+    near = lambda rows: (f"{int(rows.sum())}" + (
+        f" (knot distance {float(dist[rows].max()):.2e} or less)"
+        if bool(rows.any()) else ""))
+    return (f"gx rows the kernel misses by more than the plain TF32 run's "
+            f"worst: {near(k_over)}, the reverse: {near(t_over)}; median "
+            f"knot distance {float(median):.2e}; on the {int(far.sum())} "
+            f"rows at least that far, gx max error kernel "
+            f"{float(e_k[far].max()):.3e}, plain TF32 "
+            f"{float(e_t[far].max()):.3e}")
+
+
+def step_ms(run, steps):
+    """Milliseconds a step of ``run()`` (``steps`` steps ending in a
+    synchronize), on the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def fused_against_plain(fused, plain, steps):
+    """(fused, plain) ms a step, the smaller of two runs each, timed plain,
+    fused, fused, plain."""
+    p1, f1, f2, p2 = (step_ms(r, steps) for r in (plain, fused, fused,
+                                                   plain))
+    return min(f1, f2), min(p1, p2)
+
+
+def ew_kernel_times(EW, flow, x, mode):
+    """Device ms (queued) of B1 ("fwd"), B2 ("bwd", random cotangents) or B3
+    ("negll") on ``flow`` at x, against the plain version (B2 as autograd
+    over a retained plain forward, B3 as ``negll_value_and_grad_plain``)."""
+    n, d = x.shape
+    params = list(flow.parameters())
+    with torch.no_grad():
+        plan, bufs = EW._chain_plan(flow, d, x.device)
+        bufs = tuple(b.detach() for b in bufs)
+    gen = torch.Generator(device=x.device).manual_seed(9)
+    gy = torch.randn(n, d, generator=gen, device=x.device)
+    gl = torch.randn(n, generator=gen, device=x.device)
+    if mode == "fwd":
+        kernel = lambda: EW._launch("fwd", plan, x, bufs)
+        plain = lambda: EW.forward_and_ladj_plain(flow, x)
+    elif mode == "bwd":
+        xr = x.clone().requires_grad_(True)
+        y0, l0 = EW.forward_and_ladj_plain(flow, xr)
+        kernel = lambda: EW._launch("bwd", plan, x, bufs, gy, gl)
+        plain = lambda: torch.autograd.grad([y0, l0], [xr, *params],
+                                            [gy, gl], retain_graph=True)
+    else:
+        kernel = lambda: EW._launch("negll", plan, x, bufs)
+        plain = lambda: EW.negll_value_and_grad_plain(flow, x)
+    with torch.no_grad() if mode == "fwd" else torch.enable_grad():
+        p1, k1, k2, p2 = (queued_ms(f) for f in (plain, kernel, kernel,
+                                                 plain))
+    return min(k1, k2), min(p1, p2), plan
+
+
+def coupling_kernel_times(C, flow, x):
+    """Ms by CUDA events of B4 writing B5's rows and of B5 on them (a fresh
+    store each call: B4 + B5 less B4), against the plain forward and
+    autograd over a retained plain forward, and the conditioner products
+    alone in TF32 torch.matmul, with the TF32 bounds: {"b4": ..., "b5":
+    ...}."""
+    n, d = x.shape
+    st = C._stack_structure(flow, d)
+    with torch.no_grad():
+        wbuf, pbuf = C._stack_plan(flow, st, torch.float32, x.device)
+        y, ladj, _ = C._launch_fwd(st, x, wbuf, pbuf)
+    gy, gl = torch.cos(y), 2.0 * ladj
+
+    def b4b5():
+        _, _, saved = C._launch_fwd(st, x, wbuf, pbuf, True)
+        C._launch_bwd(st, x, wbuf, pbuf, gy, gl, saved)
+
+    xr = x.clone().requires_grad_(True)
+    y0, l0 = plain_coupling(C, physical_order=True)(flow, xr)
+    params = list(flow.parameters())
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    mats = [(torch.randn(n, K, generator=gen, device=x.device),
+             torch.randn(K, N, generator=gen, device=x.device),
+             torch.randn(n, N, generator=gen, device=x.device))
+            for K, N in st.layers]
+
+    def products(backward):
+        for h, W, g in mats:
+            if backward:
+                torch.matmul(g, W.t())
+                torch.matmul(h.t(), g)
+            else:
+                torch.matmul(h, W)
+
+    # The wrappers read the card's free memory (``_rows_fit``) and sync,
+    # so calls cannot queue behind a sleep: CUDA events, paced by the host
+    # at these sizes.
+    with torch.no_grad():
+        b4 = cuda_ms(lambda: C._launch_fwd(st, x, wbuf, pbuf, True))
+        both = cuda_ms(b4b5)
+        plain4 = cuda_ms(lambda: C.coupling_forward_plain(st, wbuf, pbuf, x))
+        with matmul_tf32(True):
+            lib4 = cuda_ms(lambda: products(False))
+            lib5 = cuda_ms(lambda: products(True))
+    plain5 = cuda_ms(lambda: torch.autograd.grad(
+        [y0, l0], [xr, *params], [gy, gl], retain_graph=True))
+    flops = conditioner_flops(st) * n
+    return {"b4": {**bound_of(4 * (n * (2 * d + 1) + st.w_len), flops,
+                              TF32_FLOP_PER_S),
+                   "ms": b4, "plain_ms": plain4, "library_ms": lib4},
+            "b5": {**bound_of(4 * (n * (3 * d + 1) + 2 * st.w_len),
+                              2 * flops, TF32_FLOP_PER_S),
+                   "ms": both - b4, "plain_ms": plain5, "library_ms": lib5}}
+
+
+def shape_text(t):
+    return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} {t['bound_by']}"
+            + ("" if t["library_ms"] is None else
+               f", TF32 matmul {t['library_ms']:.4f}") + ")")
+
+
+def infer_timing(et, EW, C, VI, TI, fits, data_x, device, card):
+    """``[infer timing]``: ms a step through the kernels (forced for the
+    coupling templates, which the dispatch rule sends to the plain path at
+    these sizes, ROADMAP C-3) against the plain route forced (host clock,
+    plain, fused, fused, plain): a VI step at each rung's shape and a
+    whitening step at the rescue's and the data fit's; then each kernel's
+    device time at the shapes the infer phases gave it (calls queued behind
+    a sleep, ``queued_ms``) on the flows they fitted, against its plain
+    version, the bound and, for B4/B5, the conditioner products alone in
+    TF32 torch.matmul. Returns {kernel key: {shape: times}}."""
+    gen = lambda: torch.Generator(device=device).manual_seed(60)
+    rows = []
+    for label, d, n, make, logp in (
+            ("vi elementwise", 50, 1024, et.default_flow_template,
+             equicorr_logp(50, 0.9)),
+            ("vi spline", 50, 1024, et.coupling_flow_template(kind="spline"),
+             equicorr_logp(50, 0.9)),
+            ("vi spline", 2, 512, et.coupling_flow_template(kind="spline"),
+             bimodal_2d(0.75, -2.0, 0.4, 0.25, 1.5, 0.7)),
+            ("vi spline", 2, 256, et.coupling_flow_template(kind="spline"),
+             bimodal_2d(0.70, -3.0, 0.3, 0.30, 2.5, 0.5))):
+        flow = make(d, gen())
+        kernels = True if label == "vi spline" else None
+        run = lambda route: lambda: VI.optimize_elbo(
+            logp, flow, dim=d, batch_size=n // 2, nsteps=20, key=gen(),
+            use_fused_coupling=route)
+        fused, plain = fused_against_plain(run(kernels), run(False), 20)
+        rows.append(f"{label} d={d} n={n}: fused {fused:.3f} ms/step, plain "
+                    f"{plain:.3f}")
+    for label, make, n, nb, ne in (
+            ("rescue whitening (inverted spline template)",
+             et.coupling_flow_template(kind="spline"), 4000, 100, 1),
+            ("rescue whitening (inverted spline template)",
+             et.coupling_flow_template(kind="spline"), 4096, 16, 2),
+            ("data whitening (inverted elementwise template, B3)",
+             et.default_flow_template, 100_000, 200, 1)):
+        white = TI._whitening_start(make(2, gen()))
+        X = 2.0 * torch.randn(n, 2, generator=gen(), device=device)
+        kernels = "coupling" if label.startswith("rescue") else True
+        run = lambda route: lambda: et.optimize_whitening(
+            X, white, nbatches=nb, nepochs=ne, use_fused=route)
+        fused, plain = fused_against_plain(run(kernels), run(False),
+                                           nb * ne)
+        rows.append(f"{label} d=2 n={n // nb}: fused {fused:.3f} ms/step, "
+                    f"plain {plain:.3f}")
+    print(f"[infer timing] steps (host clock): {'; '.join(rows)} [{card}]",
+          flush=True)
+
+    shapes = {k: {} for k in ("fwd", "bwd", "negll", "coupling_fwd",
+                              "coupling_bwd")}
+    g = gen()
+    by = {}             # the first fit of each (phase, trainer)
+    for label, trainer, flow, _ in fits:
+        by.setdefault((label, trainer), flow)
+    auto = by[("infer auto 50d", "vi")]
+    x50 = torch.randn(1024, 50, generator=g, device=device)
+    for key in ("fwd", "bwd"):
+        ms, plain, _ = ew_kernel_times(EW, auto, x50, key)
+        # x (and gy) read, y and ladj (gx) written; the Householder
+        # product's multiply-adds, twice in the backward.
+        nbytes = 4 * 1024 * ((2 if key == "fwd" else 3) * 50 + 1)
+        flops = 1024 * hh_flops(50, 4) * (1 if key == "fwd" else 2)
+        shapes[key]["d=50 n=1024 (infer auto 50d)"] = {
+            **bound_of(nbytes, flops), "ms": ms, "plain_ms": plain}
+    white = by[("infer data 2d", "whitening")]
+    x = data_x[:data_x.shape[0] // INFER_DATA["whiten_batches"]]
+    ms, plain, _ = ew_kernel_times(EW, white, x, "negll")
+    shapes["negll"][f"d=2 n={x.shape[0]} (infer data 2d)"] = {
+        **bound_of(4 * x.numel(), 3 * x.shape[0] * hh_flops(2, 2)),
+        "ms": ms, "plain_ms": plain}
+    seen = set()
+    for label, trainer, flow, n in fits:
+        d = flow_width(flow)
+        inverted = trainer == "whitening"
+        if not C.is_fusible_coupling_stack(flow, d, torch.float32) or \
+                (d, n, inverted) in seen:
+            continue
+        seen.add((d, n, inverted))
+        t = coupling_kernel_times(C, flow, (2.0 if inverted else 1.0)
+                                  * torch.randn(n, d, generator=g,
+                                                device=device))
+        shape = f"d={d} n={n} ({label} {trainer})"
+        shapes["coupling_fwd"][shape] = t["b4"]
+        shapes["coupling_bwd"][shape] = t["b5"]
+    for key, times in shapes.items():
+        how = "CUDA events" if key.startswith("coupling") else \
+            "device time, queued"
+        print(f"[infer timing] {key} ({how}): "
+              + "; ".join(f"{s} {shape_text({'library_ms': None, **t})}"
+                          for s, t in times.items()) + f" [{card}]",
+              flush=True)
+    return shapes
+
+
+def flow_width(flow):
+    """d of a chain whose first stage is a ScaleShift (every template and
+    its whitening start)."""
+    return flow.stages[0].a.shape[0]
+
+
+# C-3's sweep: each trained coupling flow read at its own rows and at these.
+C3_ROWS = (1024, 4096, 16384, 65536, 1 << 17)
+
+
+def mixture_draws(n, gen, device):
+    """n exact draws of tests/test_infer.py:353's hard target (x0 a 0.70 /
+    0.30 mixture of N(-3, 0.3^2) and N(2.5, 0.5^2), x1 | x0 ~ N(0.5 x0,
+    0.8^2))."""
+    right = torch.rand(n, generator=gen, device=device) < 0.30
+    e = torch.randn(n, 2, generator=gen, device=device)
+    x0 = torch.where(right, 2.5 + 0.5 * e[:, 0], -3.0 + 0.3 * e[:, 0])
+    return torch.stack([x0, 0.5 * x0 + 0.8 * e[:, 1]], -1)
+
+
+def c3_fits(et, TI, device, splines):
+    """The trained coupling flows C-3's sweep reads besides the infer
+    phases', fitted by the trainers' dispatch rule: the affine template
+    (infer's ``precondition_kind="affine"`` rung) by VI at d=50 on the
+    equicorrelated Gaussian (500 steps of 1,024 rows) and at d=2 on the
+    hard bimodal target (200 steps of 256 rows), and its whitening start on
+    4,096 draws of that target (100 x 2 steps of 40 rows). ``splines``
+    (``--infer-probe``): the ladder's spline fits too, standalone: the
+    spline rung at d=50 (500 x 1,024 rows) and d=2 (200 x 512 rows on the
+    bimodal target), the rescue's inverted spline on the hard target's
+    draws (16 x 8 steps of 256 rows, 100 x 2 of 40) and on 4,096 draws of
+    the Gaussian (100 x 2 of 40). Returns [(label, trainer, flow, rows)]."""
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    fits = []
+
+    def vi(label, kind, d, logp, batch, steps, seed):
+        flow = et.coupling_flow_template(kind=kind)(d, gen(seed))
+        out = et.optimize_elbo(logp, flow, dim=d, batch_size=batch,
+                               nsteps=steps, key=gen(seed + 1))
+        fits.append((label, "vi", out.result, 2 * batch))
+
+    def whiten(label, kind, X, nb, ne, seed):
+        white = TI._whitening_start(et.coupling_flow_template(kind=kind)(
+            X.shape[1], gen(seed)))
+        out = et.optimize_whitening(X, white, nbatches=nb, nepochs=ne)
+        fits.append((label, "whitening", out.result, X.shape[0] // nb))
+
+    hard = bimodal_2d(0.70, -3.0, 0.3, 0.30, 2.5, 0.5)
+    X2 = mixture_draws(4096, gen(70), device)
+    vi("c3 affine 50d", "affine", 50, equicorr_logp(50, 0.9), 512, 500, 71)
+    vi("c3 affine 2d", "affine", 2, hard, 128, 200, 73)
+    whiten("c3 affine 2d", "affine", X2, 100, 2, 75)
+    if splines:
+        rho = 0.9
+        L = torch.linalg.cholesky(rho * torch.ones(50, 50, device=device)
+                                  + (1 - rho) * torch.eye(50, device=device))
+        X50 = torch.randn(4096, 50, generator=gen(76), device=device) @ L.T
+        vi("c3 spline 50d", "spline", 50, equicorr_logp(50, rho), 512, 500,
+           77)
+        vi("c3 spline 2d", "spline", 2,
+           bimodal_2d(0.75, -2.0, 0.4, 0.25, 1.5, 0.7), 256, 200, 79)
+        whiten("c3 spline 2d", "spline", X2, 16, 8, 81)
+        whiten("c3 spline 2d", "spline", X2, 100, 2, 83)
+        whiten("c3 spline 50d", "spline", X50, 100, 2, 85)
+        for kind in ("affine", "spline"):
+            flow = et.coupling_flow_template(kind=kind, hidden=(512, 512))(
+                50, gen(87))
+            out = et.optimize_elbo(equicorr_logp(50, rho), flow, dim=50,
+                                   batch_size=512, nsteps=100, key=gen(88))
+            fits.append((f"c3 {kind} 50d (512, 512)", "vi", out.result,
+                         1024))
+    return fits
+
+
+def c3_sweep(et, C, fits, device, card, enforce=None, sizes=C3_ROWS):
+    """B4 and B5 held (``hold_coupling_flow``) on each trained coupling flow
+    of ``fits`` at its own rows and at ``sizes``; ``enforce`` None holds the
+    gate where the dispatch rule sends such batches to the kernels, False
+    reads it only. Prints each flow's readings over the gate by rows.
+    Returns the largest y / ladj error where held."""
+    g = torch.Generator(device=device).manual_seed(61)
+    worst, table = 0.0, []
+    for label, trainer, flow, n in fits:
+        d = flow_width(flow)
+        if not C.is_fusible_coupling_stack(flow, d, torch.float32):
+            continue
+        overs = []
+        for rows in sorted({n, *sizes}):
+            err, over, emu_over = hold_coupling_flow(
+                et, C, f"{label} {trainer} at {rows} rows", flow, d, rows, g,
+                device, card, scale=2.0 if trainer == "whitening" else 1.0,
+                enforce=enforce)
+            worst = max(worst, err)
+            overs.append(f"{rows}: {over} ({emu_over})")
+        table.append(f"{label} {trainer} (trained at {n} rows) "
+                     f"{', '.join(overs)}")
+    print("[infer B4/B5 hold] readings over the TF32 gate by rows (over it "
+          "against the plain version on TF32-rounded operands): "
+          + "; ".join(table) + f" [{card}]", flush=True)
+    return worst
+
+
+def infer_phases(et, EW, C, counters, device, card):
+    """The infer phases, then the B4/B5 hold and sweep on every coupling
+    flow they and ``c3_fits`` trained (C-3) and ``[infer timing]``. Returns
+    (launches by path, the kernels' times at the new shapes by launch key,
+    the worst B4/B5 y / ladj error where held)."""
+    import importlib
+    from enflows_tpu_torch.train import vi as VI
+    TI = importlib.import_module("enflows_tpu_torch.infer")
+    runs, fits = {}, []
+
+    def keep(label, shape, launches, clock):
+        runs[f"{label} ({shape})"] = launches
+        fits.extend((label, *fit) for fit in clock.fits)
+
+    for kind in (None, "spline", "elementwise"):
+        launches, clock, _ = infer_50d(et, TI, counters, kind, device, card)
+        keep(f"infer {kind or 'auto'} 50d", "d=50, vi n=1024", launches,
+             clock)
+    shapes = {"bimodal": "d=2, vi n=512",
+              "hard": "d=2, vi n=256, whitening n=256"}
+    for name, (launches, clock) in infer_escalation(
+            et, TI, counters, device, card).items():
+        keep(f"infer escalation 2d {name}", shapes[name], launches, clock)
+    launches, clock, data_x = infer_data_2d(et, TI, counters, device, card)
+    keep("infer data 2d", "d=2, whitening n=500", launches, clock)
+    launches, clock = infer_refine(et, TI, counters, device, card)
+    keep("infer refine", "d=2, whitening n=32", launches, clock)
+
+    # C-3: B4/B5 on every coupling flow trained above and on the affine
+    # fits, at its own rows (read) and at 2^17 rows (held at d=50; the
+    # sweep over 2^10-2^17 is --infer-probe's).
+    fits += c3_fits(et, TI, device, splines=False)
+    worst = c3_sweep(et, C, fits, device, card, sizes=(1 << 17,))
+    times = infer_timing(et, EW, C, VI, TI, fits, data_x, device, card)
+    return runs, times, worst
+
+
+def infer_probe(et, C, device, card):
+    """``--infer-probe``: the C-3 sweep alone, on ``c3_fits``'s flows with
+    the ladder's spline fits made standalone, every reading printed and
+    none held; then ``[infer elementwise 50d]``."""
+    import importlib
+    TI = importlib.import_module("enflows_tpu_torch.infer")
+    t0 = time.perf_counter()
+    fits = c3_fits(et, TI, device, splines=True)
+    print(f"[infer probe] fits {time.perf_counter() - t0:.1f} s", flush=True)
+    c3_sweep(et, C, fits, device, card, enforce=False)
+    from enflows_tpu_torch.ops import elementwise as EW
+    from enflows_tpu_torch.ops import leapfrog as TL
+    infer_50d(et, TI, (TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES), "elementwise",
+              device, card)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3216,6 +4173,11 @@ def main():
     print(f"[build] nvcc {seconds:.1f} s -> {os.path.relpath(so, HERE)}; "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
     ew_ptxas(report)
+    if "--infer-probe" in sys.argv[1:]:
+        infer_probe(et, C, device, smi)
+        print(f"[time] chip_smoke.py --infer-probe "
+              f"{time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
+        raise SystemExit(0)
 
     gen = torch.Generator(device=device).manual_seed(0)
     b1 = phase_b1(et, EW, 2, 1 << 24, gen, device, smi)
@@ -3349,6 +4311,15 @@ def main():
     # its own.
     smc_paths, smc_held = smc_phases(et, EW, counters, device, smi)
 
+    # infer's default path: the auto ladder (B1/B2, B4/B5), data= (B3),
+    # refine_rounds, the B4/B5 hold at the ladder's shapes and the timing.
+    # Each phase draws from generators of its own.
+    infer_runs, infer_times, infer_hold_err = infer_phases(
+        et, EW, C, counters, device, smi)
+
+    def infer_paths(key):
+        return {path: n[key] for path, n in infer_runs.items() if n[key]}
+
     src = "enflows_tpu_torch/ops/csrc/elementwise.cu"
     pallas = "enflows_tpu/ops/pallas/elementwise.py"
     # Each row's launches over every main-path run that launched it, by path
@@ -3357,7 +4328,7 @@ def main():
                       "vi elementwise (d=50, n=2^17)": vi_ew[False][key],
                       "vi elementwise stl (d=50, n=2^17)": vi_ew[True][key],
                       "vi example (d=1, n=200)": vi_ex[key],
-                      **smc_paths[key]}
+                      **smc_paths[key], **infer_paths(key)}
                 for key in ("fwd", "bwd")}
     b2 = {**b2, **{f"{k}_d50": b2_d50[k]
                    for k in ("ms", "plain_ms", "bound_ms")}}
@@ -3371,13 +4342,16 @@ def main():
                          for k in ("ms", "plain_ms", "bound_ms")})
             vals["max_abs_err"] = max(vals["max_abs_err"],
                                       held["max_abs_err"])
+    # The kernels' times at the infer phases' shapes.
+    for key, vals in (("fwd", b1), ("bwd", b2), ("negll", b3)):
+        vals["infer_shapes"] = infer_times[key]
     rows = [("B1 fused_forward_and_ladj", ew_paths["fwd"], src,
              f"{pallas}:441", b1),
             ("B2 fused forward backward", ew_paths["bwd"], src,
              f"{pallas}:641", b2),
             ("B3 fused_negll_value_and_grad",
-             {"whitening slice (d=2, n=2^20)": launches["negll"]}, src,
-             f"{pallas}:852", b3)]
+             {"whitening slice (d=2, n=2^20)": launches["negll"],
+              **infer_paths("negll")}, src, f"{pallas}:852", b3)]
     csrc = "enflows_tpu_torch/ops/csrc/coupling.cu"
     cpallas = "enflows_tpu/ops/pallas/coupling.py"
     for k in ("affine", "spline"):
@@ -3385,22 +4359,28 @@ def main():
                        coupling_launches[k][key],
                        **{f"vi coupling {k}{' stl' if stl else ''} template "
                           f"(d=64, n=2^17)": n_l[key]
-                          for stl, n_l in vi_c[k].items()}}
+                          for stl, n_l in vi_c[k].items()},
+                       # every infer rung and rescue fits a spline template
+                       **(infer_paths(key) if k == "spline" else {})}
                  for key in ("coupling_fwd", "coupling_bwd")}
         t = vi_tiles[k]
         yard = {b: {f"{key}_vi_template": v[key] for key in
                     ("plain_ms", "library_ms", "bound_ms")}
                 for b, v in t["yardsticks"].items()}
+        infer = {} if k == "affine" else {
+            "infer_hold_max_abs_err": infer_hold_err}
         rows += [(f"B4 fused_coupling_forward_and_ladj ({k} BASELINE)",
                   paths["coupling_fwd"], csrc, f"{cpallas}:677",
                   {**b4[k], "ms_vi_template": t["b4_ms_vi_template"],
                    "tile_vi_template": t["b4_tile_vi_template"],
-                   **yard["b4"]}),
+                   **yard["b4"], **infer, **({} if k == "affine" else {
+                       "infer_shapes": infer_times["coupling_fwd"]})}),
                  (f"B5 fused coupling backward ({k} BASELINE)",
                   paths["coupling_bwd"], csrc, f"{cpallas}:616",
                   {**b5[k], "ms_vi_template": t["ms_vi_template"],
                    "tile_vi_template": t["tile_vi_template"],
-                   **yard["b5"]})]
+                   **yard["b5"], **infer, **({} if k == "affine" else {
+                       "infer_shapes": infer_times["coupling_bwd"]})})]
     rows.append((f"B6 fused_leapfrog (BASELINE {LF['chains']} x {d_lf} x "
                  f"{LF['steps']})",
                  {"hmc slice (8192 x d=50 x L=64)": hmc_launches["leapfrog"],
@@ -3416,7 +4396,7 @@ def main():
             "library_ms_vi_template", "bound_ms_vi_template", "ms_d50",
             "plain_ms_d50", "bound_ms_d50", "ms_smc_fit", "plain_ms_smc_fit",
             "bound_ms_smc_fit", "ms_smc_apply", "plain_ms_smc_apply",
-            "bound_ms_smc_apply")
+            "bound_ms_smc_apply", "infer_hold_max_abs_err", "infer_shapes")
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s, the "
           f"build included [{smi}]", flush=True)
     print(json.dumps({"kernels": [

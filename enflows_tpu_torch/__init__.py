@@ -16,7 +16,9 @@ convergence diagnostics, the fused leapfrog kernel B6
 templates; and tempered SMC (``smc``): the adaptive-tempering ladder,
 systematic resampling, ensemble-preconditioned HMC mutations and learned
 annealing transports (fitted and applied through B1/B2 on the card), with
-``infer``'s SMC route. The kernels are written in CUDA C++ for Hopper and
+``infer``'s SMC route; and ``infer``'s default path: the
+``precondition="auto"`` ladder with its SMC rescue, ``data=`` and
+``refine_rounds``. The kernels are written in CUDA C++ for Hopper and
 built at first use. The package imports ``torch`` and never ``jax``;
 ``interop`` carries weights over from the JAX package without importing
 it.

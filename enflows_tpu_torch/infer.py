@@ -1,32 +1,41 @@
-"""One-call inference: sample -> diagnose.
+"""One-call inference: precondition -> sample -> diagnose.
 
-Counterpart of ``enflows_tpu/infer.py``. Ported routes:
+Counterpart of ``enflows_tpu/infer.py``, batch-first: targets are batched,
+``(n, dim) -> (n,)``, and every draw comes from a ``torch.Generator`` on the
+device where the work runs. Routes:
 
-* with ``method='smc'``, the raw target (``precondition=None``) or an
-  explicit ``flow=``: tempered SMC (``smc.smc_sample``) over all particles,
-  pushed forward through the flow, with weighted moments, log Z and the
-  weights' ESS (``infer.py:454-485``);
+* ``precondition='auto'`` (the default) without a flow: a transport fitted
+  by ELBO ascent (``train.optimize_elbo``) along a family ladder judged by
+  PSIS k-hat and the inflated-probe coverage gap, with a tempered-SMC
+  rescue whitened by a spline stack (``infer.py:338-444``);
+* ``data=``: a whitening flow fitted to the data by maximum likelihood
+  (``train.optimize_whitening``), its inverse the transport
+  (``infer.py:322-335``);
+* an explicit ``flow=`` (whitened -> data), or ``precondition=None`` for the
+  raw target;
+* ``method='nuts'``, ``'hmc'`` or ``'chees'`` through ``mcmc.sample``, or
+  ``'smc'`` through ``smc.smc_sample`` (weighted moments, log Z and the
+  weights' ESS); ``refine_rounds`` re-fits the whitening transport on each
+  round's draws and samples again (``infer.py:502-512``);
 * with ``method='hmc'``, a target declared as ``mcmc.FlowPushforwardTarget``
-  whose whitening chain B6 takes: ``mcmc.fused_flow_hmc_sample`` over that
-  chain, each trajectory in one launch of kernel B6, draws directly in data
-  space (``infer.py:299-320``);
-* with ``method='nuts'``, ``'hmc'`` or ``'chees'``, an explicit ``flow=``
-  (whitened -> data): the flow-preconditioned target through
-  ``mcmc.sample``, draws pushed back to data space; with
-  ``precondition=None`` and no flow, the raw target (a declared
-  pushforward with a tree method included).
+  whose whitening chain B6 takes: ``mcmc.fused_flow_hmc_sample``, each
+  trajectory one launch of kernel B6 (``infer.py:299-320``).
 
-It also holds the transport templates that ``precondition='auto'`` fits by
-ELBO ascent: ``default_flow_template`` and ``coupling_flow_template``
-(``enflows_tpu/infer.py:45-114``). Every other route raises
-``NotImplementedError`` naming its ROADMAP item: ``precondition='auto'``
-without a flow (the VI-fitted transport and its escalation ladder, A.9),
-``data=`` (MLE-whitening preconditioner, A.9), ``mesh=`` (A.10) and
-``refine_rounds`` (A.9).
+On the card the trainers dispatch by the port's rule: the elementwise
+template's VI steps run B1 + B2 and the whitening of an inverted elementwise
+template B3, at any size; a coupling template (the spline and affine rungs,
+the rescue's inverted spline) takes B4 + B5 only at batches of at least
+``ops.coupling.COUPLING_MIN_ROWS`` rows and ``COUPLING_MIN_DIM`` wide
+(``ops.coupling.coupling_batch_held``, ROADMAP C-3), so at the ladder's
+batches of 40-1,024 rows the coupling rungs and the rescue run the plain
+path.
+``mesh=`` raises ``NotImplementedError`` (ROADMAP A.10).
 """
 from __future__ import annotations
 
+import hashlib
 import inspect
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -34,19 +43,24 @@ import torch
 
 from .bijectors import (CenterStretch, Householder, JohnsonInv, ScaleShift,
                         coupling_stack, spline_coupling_stack)
-from .bijectors.base import Bijector, Chain, compose
+from .bijectors.base import Bijector, Chain, compose, invert
+from .distributions.base import std_normal_logpdf_sum
 from .mcmc import FlowPushforwardTarget, flow_preconditioned, sample
-from .mcmc.diagnostics import (_host, bfmi, bulk_ess,
+from .mcmc.diagnostics import (_host, bfmi, bulk_ess, pareto_khat,
                                rank_normalized_rhat_per_dim, tail_ess)
 from .mcmc.fused_hmc import fused_flow_hmc_sample
 from .mcmc.sample import _unported
 from .smc import smc_sample
+from .train import optimize_elbo, optimize_whitening
+
+
+_SMC_KEYWORDS = frozenset(inspect.signature(smc_sample).parameters)
 
 
 class InferenceResult(NamedTuple):
-    draws: torch.Tensor       # (chains, steps, dim)
+    draws: torch.Tensor       # MCMC: (chains, steps, dim); SMC: (n, dim)
     diagnostics: dict         # host-side scalars/arrays (see summarize_draws)
-    stats: Any                # raw sampler stats (SampleStats/FusedHMCStats)
+    stats: Any                # raw sampler stats (SampleStats/.../SMCInfo)
     flow: Optional[Bijector]  # preconditioner used (whitened -> data), if any
 
 
@@ -154,11 +168,226 @@ def _fused_hmc_accepts(sampler_kw: dict) -> bool:
     return all(k in accepted for k in sampler_kw)
 
 
+# ------------------------------------------------------------------
+# Generators of the ladder's roles.
+
+class _Keys:
+    """The generators of ``infer``'s roles, derived from the caller's
+    generator ``gen`` without advancing it: a role's generator lies on
+    ``gen``'s device and is seeded with the first 8 bytes (63 bits) of the
+    BLAKE2b hash of ``gen.get_state()`` and the role's path. The paths
+    follow JAX's keys (``enflows_tpu/infer.py:295``): ``fit()`` is k_fit,
+    ``fit(n)`` is ``fold_in(k_fit, n)`` (the rung's template n, the probes
+    101 + i and 201 + i, the rescue 7 and its template 8), ``refine(r)``
+    the key of refinement round r. The sampler draws from ``gen``
+    itself."""
+
+    def __init__(self, gen: torch.Generator):
+        self.device = gen.device
+        self._state = gen.get_state().numpy().tobytes()
+
+    def _child(self, *path) -> torch.Generator:
+        digest = hashlib.blake2b(
+            self._state + repr(path).encode(), digest_size=8).digest()
+        seed = int.from_bytes(digest, "little") & ((1 << 63) - 1)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def fit(self, *fold: int) -> torch.Generator:
+        return self._child("fit", *fold)
+
+    def refine(self, rounds: int) -> torch.Generator:
+        return self._child("refine", rounds)
+
+
+def _probe_draws(generator: torch.Generator, n: int, dim: int,
+                 dtype) -> torch.Tensor:
+    """A probe's (n, dim) standard normals from ``generator``. The one place
+    the probes draw, so that a test can hand them another framework's
+    draws (``train.vi._base_draws`` is the model)."""
+    return torch.randn(n, dim, generator=generator, dtype=dtype,
+                       device=generator.device)
+
+
+def _rescue_resample(generator: torch.Generator,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """The rescue's multinomial resample: len(weights) indices drawn with
+    replacement by the normalized ``weights``, from ``generator``. JAX
+    draws them from a fixed ``np.random.default_rng(0)`` whatever its key
+    (``enflows_tpu/infer.py:407``, ROADMAP C-4); the port draws from the
+    rescue's generator. A test hook, as ``_probe_draws``."""
+    return torch.multinomial(weights, weights.numel(), replacement=True,
+                             generator=generator)
+
+
+def _transport_khat(logdensity_fn: Callable, flow: Bijector, dim: int,
+                    key: torch.Generator, dtype, n: int = 2048) -> float:
+    """PSIS k-hat of the transport fit (``enflows_tpu/infer.py:168-184``):
+    z = flow(xi) for n base draws xi from ``key``, importance-weighted
+    against the batched target ``logdensity_fn`` and the weight tail fitted
+    (``mcmc.diagnostics.pareto_khat``). k-hat > 0.7: q's tail under-covers
+    p where q has support; blind to a mode q misses entirely
+    (``_transport_coverage_gap`` covers that)."""
+    with torch.no_grad():
+        xi = _probe_draws(key, n, dim, dtype)
+        z, ladj = flow.forward_and_ladj(xi)
+        log_q = std_normal_logpdf_sum(xi) - ladj
+        return pareto_khat(logdensity_fn(z) - log_q)
+
+
+def _transport_coverage_gap(logdensity_fn: Callable, flow: Bijector,
+                            dim: int, key: torch.Generator, dtype,
+                            n: int = 2048, inflate: float = 4.0) -> float:
+    """Hard-mode-collapse detector (``enflows_tpu/infer.py:187-211``): probe
+    with the pushforward r of the base scaled ``inflate`` x through the same
+    flow and return the p-mass-weighted standard deviation of log q - log p
+    (self-normalized importance sampling through r), in nats: ~0 where q
+    tracks p, large where r reaches a mode q misses (threshold 3.0)."""
+    with torch.no_grad():
+        xi = _probe_draws(key, n, dim, dtype) * inflate
+        z, ladj = flow.forward_and_ladj(xi)
+        log_r = (-0.5 * ((xi / inflate) ** 2).sum(-1)
+                 - dim * (0.5 * math.log(2 * math.pi) + math.log(inflate))
+                 - ladj)
+        log_q = std_normal_logpdf_sum(xi) - ladj
+        logp = logdensity_fn(z)
+        w = torch.softmax(logp - log_r, dim=0)
+        # Probe points where the target is -inf (bounded support) carry
+        # zero p-mass; mask them rather than evaluating 0 * inf -> NaN.
+        ri = torch.where(w > 0.0, log_q - logp, torch.zeros_like(logp))
+        mean = (w * ri).sum()
+        return float(torch.sqrt((w * (ri - mean) ** 2).sum()))
+
+
+def _fit_quality(logdensity_fn, flow, dim, keys: _Keys, i: int, dtype):
+    """(severity, k-hat, gap) of a fitted transport, its probes from
+    ``keys.fit(101 + i)`` and ``keys.fit(201 + i)``. The severity is
+    scale-free: 1.0 is the threshold of the worse of the two diagnostics."""
+    kh = _transport_khat(logdensity_fn, flow, dim, keys.fit(101 + i), dtype)
+    gap = _transport_coverage_gap(logdensity_fn, flow, dim,
+                                  keys.fit(201 + i), dtype)
+    return max(kh / 0.7, gap / 3.0), kh, gap
+
+
+def _ladder(precondition_kind: str, flow_template, dim: int) -> list:
+    """The families to try, in cost order (``enflows_tpu/infer.py:
+    345-364``)."""
+    if flow_template is not None:
+        return [("custom", flow_template)]
+    if precondition_kind == "elementwise" or dim < 2:
+        return [("elementwise", default_flow_template)]
+    if precondition_kind in ("affine", "spline"):
+        return [(precondition_kind,
+                 coupling_flow_template(kind=precondition_kind))]
+    if precondition_kind == "auto":
+        return [("elementwise", default_flow_template),
+                ("spline", coupling_flow_template(kind="spline"))]
+    raise ValueError(f"precondition_kind must be 'auto'|'elementwise'|"
+                     f"'affine'|'spline', got {precondition_kind!r}")
+
+
+def _whitening_start(template: Bijector) -> Bijector:
+    """The identity-initialized whitening flow ``invert(template)`` in JAX's
+    parametrization: JAX inverts a ScaleShift into a new ScaleShift(1/a,
+    -b/a) whose own leaves the optimizer moves
+    (``enflows_tpu/bijectors/scale_shift.py:36``), where the port's inverse
+    shares a and b. So each inverted ScaleShift becomes a plain one with
+    those values, and a whitening fit takes JAX's steps."""
+    white = invert(template)
+    if not isinstance(white, Chain):
+        return white
+    return Chain([ScaleShift(1.0 / s.a.detach(), -s.b.detach() / s.a.detach())
+                  if isinstance(s, ScaleShift) and s.inverted else s
+                  for s in white.stages])
+
+
+def _smc_rescue(logdensity_fn, dim, keys: _Keys, dtype, vi_optimizer,
+                whiten_batches, whiten_epochs) -> Bijector:
+    """The mode-covering rescue (``enflows_tpu/infer.py:391-419``): tempered
+    SMC over 4096 particles from ``keys.fit(7)``, a multinomial resample by
+    the weights from the same generator, then the inverted spline template
+    (``keys.fit(8)``) whitened on those draws; its inverse is the
+    transport."""
+    gen = keys.fit(7)
+    parts, log_w, _log_z, _ = smc_sample(logdensity_fn, gen, dim=dim,
+                                         num_particles=4096, dtype=dtype)
+    w = torch.exp(log_w.double() - log_w.double().max())
+    draws = parts[_rescue_resample(gen, w / w.sum())].to(dtype)
+    white = _whitening_start(coupling_flow_template(kind="spline")(
+        dim, keys.fit(8), dtype))
+    fit = optimize_whitening(draws, white, vi_optimizer,
+                             nbatches=whiten_batches, nepochs=whiten_epochs)
+    return invert(fit.result)
+
+
+def _precondition_auto(logdensity_fn, dim, keys: _Keys, method: str,
+                       precondition_kind, flow_template, vi_steps, vi_batch,
+                       vi_optimizer, whiten_batches, whiten_epochs, dtype):
+    """The family ladder (``enflows_tpu/infer.py:338-444``). Each rung fits
+    its template (drawn from ``keys.fit(i)``) by ``vi_steps`` ELBO steps of
+    ``vi_batch`` antithetic pairs (the VI draws from ``keys.fit()``, the
+    same for every rung, as JAX's k_fit) and stops at the first severity
+    <= 1.0. If the best is still > 1.0, the ladder has more than one rung
+    and the method is not SMC, the SMC rescue runs and replaces the best
+    fit when its severity is lower; if it wins for an MCMC method, the
+    sampling escalates to SMC on the raw target.
+
+    Returns (flow, diagnostics, method, raw_sampling)."""
+    best = None                 # (severity, khat, gap, name, flow)
+    ladder = _ladder(precondition_kind, flow_template, dim)
+    for i, (name, template_fn) in enumerate(ladder):
+        vi = optimize_elbo(logdensity_fn,
+                           template_fn(dim, keys.fit(i), dtype),
+                           vi_optimizer, dim=dim, batch_size=vi_batch,
+                           nsteps=vi_steps, key=keys.fit(), dtype=dtype)
+        sev, kh, gap = _fit_quality(logdensity_fn, vi.result, dim, keys, i,
+                                    dtype)
+        if best is None or sev < best[0]:
+            best = (sev, kh, gap, name, vi.result)
+        if sev <= 1.0:
+            break
+    if best[0] > 1.0 and len(ladder) > 1 and method != "smc":
+        rescue = _smc_rescue(logdensity_fn, dim, keys, dtype, vi_optimizer,
+                             whiten_batches, whiten_epochs)
+        sev, kh, gap = _fit_quality(logdensity_fn, rescue, dim, keys, 9,
+                                    dtype)
+        if sev < best[0]:
+            best = (sev, kh, gap, "smc+spline-whitening", rescue)
+    diag = {"precondition_family": best[3],
+            "precondition_khat": float(best[1]),
+            "precondition_coverage_gap": float(best[2])}
+    raw_sampling = False
+    if best[3] == "smc+spline-whitening" and method in ("nuts", "hmc",
+                                                        "chees"):
+        # A continuous bijection bridges the modes through low-density
+        # base-space regions that HMC-family chains do not cross, so the
+        # final sampling runs tempered SMC on the raw target; the fitted
+        # transport is still returned (enflows_tpu/infer.py:424-444).
+        diag["method_escalated_to"] = "smc"
+        method, raw_sampling = "smc", True
+    return best[4], diag, method, raw_sampling
+
+
+def _whitening_transport(data, dim, keys: _Keys, flow_template,
+                         vi_optimizer, whiten_batches, whiten_epochs,
+                         dtype) -> Bijector:
+    """``data=``'s transport (``enflows_tpu/infer.py:322-335``): the template
+    (drawn from ``keys.fit()``) inverted is an identity-initialized
+    whitening flow; it is fitted to ``data`` by ``optimize_whitening`` and
+    its inverse, sharing its parameters, is the transport."""
+    white = _whitening_start((flow_template or default_flow_template)(
+        dim, keys.fit(), dtype))
+    x = torch.as_tensor(data).to(device=keys.device, dtype=dtype)
+    fit = optimize_whitening(x, white, vi_optimizer, nbatches=whiten_batches,
+                             nepochs=whiten_epochs)
+    return invert(fit.result)
+
+
 def _infer_smc(target, pre, flow, gen, dim, default_particles, dtype,
-               sampler_kw) -> InferenceResult:
+               sampler_kw, pre_diag) -> InferenceResult:
     """``infer``'s SMC route (``enflows_tpu/infer.py:454-485``): the
     particles of ``smc_sample`` on ``target``, pushed forward through the
-    preconditioner ``pre`` if any, and their weighted moments."""
+    preconditioner ``pre`` if any, and their weighted moments, with the
+    ladder's diagnostics ``pre_diag``."""
     n_particles = sampler_kw.pop("num_particles", default_particles)
     particles, log_w, log_z, infos = smc_sample(
         target, gen, dim=dim, num_particles=n_particles, dtype=dtype,
@@ -176,7 +405,7 @@ def _infer_smc(target, pre, flow, gen, dim, default_particles, dtype,
     var_w = np.maximum((w[:, None] * x**2).sum(axis=0) - mean_w**2, 0.0)
     diagnostics = {"mean": mean_w, "sd": np.sqrt(var_w),
                    "log_z": float(log_z),
-                   "weight_ess": float(1.0 / np.sum(w**2))}
+                   "weight_ess": float(1.0 / np.sum(w**2)), **pre_diag}
     return InferenceResult(draws=particles, diagnostics=diagnostics,
                            stats=infos, flow=flow)
 
@@ -185,45 +414,78 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
           method: str = "nuts", num_chains: int = 16,
           num_warmup: int = 500, num_samples: int = 1000,
           precondition: Optional[str] = "auto",
+          precondition_kind: str = "auto",
           flow: Optional[Bijector] = None, data=None,
+          flow_template: Optional[Callable] = None,
+          vi_steps: int = 500, vi_batch: int = 512, vi_optimizer=None,
+          whiten_batches: int = 100, whiten_epochs: int = 10,
           refine_rounds: int = 0, mesh=None, dtype=torch.float32,
           device="cuda", **sampler_kw) -> InferenceResult:
-    """Sample an unnormalized target density, end to end.
+    """Sample an unnormalized target density, end to end
+    (``enflows_tpu/infer.py:214-517``, the same keywords and defaults).
 
     ``logdensity_fn``: a batched target, (n, dim) -> (n,)
     (``mcmc.per_sample`` adapts a per-sample one), or a
     ``mcmc.FlowPushforwardTarget``. ``key``: the ``torch.Generator`` of every
-    draw; its device is where the chains run. Without one, a generator
-    seeded 0 on ``device`` (the card unless the caller asks for the CPU).
-    ``method``: 'nuts', 'hmc', 'chees' or 'smc'; the sampler's keywords
-    (``max_depth=``, ``num_steps=``, ``mutation_steps=``, ...) pass through
-    ``sampler_kw``. For 'smc', ``num_chains * num_samples`` is the particle
-    count unless ``num_particles`` is passed; the draws are the (n, dim)
-    particles, ``stats`` the list of ``smc.SMCInfo``, and the diagnostics
-    the weighted ``mean`` and ``sd``, ``log_z`` and ``weight_ess``, on the
-    host in float64.
+    draw; its device is where the fits and the chains run. Without one, a
+    generator seeded 0 on ``device`` (the card unless the caller asks for
+    the CPU). The sampler draws from ``key`` itself; the fits, probes and
+    rescue from generators derived from its state (``_Keys``), which is
+    read, not advanced. ``method``: 'nuts', 'hmc', 'chees' or 'smc'; the
+    sampler's keywords (``max_depth=``, ``num_steps=``,
+    ``mutation_steps=``, ...) pass through ``sampler_kw``. For 'smc',
+    ``num_chains * num_samples`` is the particle count unless
+    ``num_particles`` is passed; the draws are the (n, dim) particles,
+    ``stats`` the list of ``smc.SMCInfo``, and the diagnostics the weighted
+    ``mean`` and ``sd``, ``log_z`` and ``weight_ess``, on the host in
+    float64.
 
     A target declared as ``FlowPushforwardTarget`` with a chain that B6
     takes runs ``method='hmc'`` through the fused leapfrog kernel, with no
-    flow fit (the declared chain is the exact transport). Otherwise ``flow``
-    (whitened -> data) preconditions the target, or ``precondition=None``
-    samples it raw. Draws are returned in data space.
+    flow fit. Otherwise the transport (whitened -> data) is ``flow`` as
+    given; else, with ``data=`` ((n, dim) draws from or near the target),
+    the inverse of the template (``flow_template`` or
+    ``default_flow_template``) inverted and whitened on the data by
+    ``optimize_whitening`` (``whiten_batches`` batches, ``whiten_epochs``
+    epochs, mode-covering); else, with ``precondition='auto'``, a
+    transport fitted by ``optimize_elbo`` (``vi_steps`` steps of
+    ``vi_batch`` antithetic pairs) along the family ladder:
+    ``precondition_kind`` 'elementwise' (``default_flow_template``),
+    'affine' or 'spline' (``coupling_flow_template``) pins one family,
+    'auto' tries elementwise, then spline; a ``flow_template`` pins the
+    ladder to itself, and dim < 2 to the elementwise family. Each fit is
+    judged by PSIS k-hat (<= 0.7) and the coverage gap (<= 3.0 nats); if
+    every rung of a longer ladder fails and the method is not SMC, a
+    tempered-SMC rescue whitens a spline stack on 4096 resampled
+    particles, and if it wins for an MCMC method the sampling escalates to
+    SMC on the raw target (the transport still returned), with those of
+    the sampler's keywords that ``smc_sample`` takes. The diagnostics
+    then carry ``precondition_family``, ``precondition_khat``,
+    ``precondition_coverage_gap`` and, on escalation,
+    ``method_escalated_to``. ``vi_optimizer``: an optimizer factory for
+    both trainers; None gives each its own default. ``data=`` is ignored
+    under ``flow=`` or ``precondition=None``. ``precondition=None``
+    samples the raw target. Draws are returned in data space.
+
+    ``refine_rounds=N`` (MCMC methods): after sampling, call ``infer`` again
+    with ``data=`` the round's draws, ``key`` the round's derived generator
+    and the same keywords, N times; JAX's recursion drops
+    ``vi_optimizer``, the port passes it on.
     """
     if method not in ("nuts", "hmc", "chees", "smc"):
         raise ValueError(f"method must be 'nuts', 'hmc', 'chees' or 'smc', "
                          f"got {method!r}")
     if mesh is not None:
         raise _unported("mesh=", "A.10")
-    if data is not None:
-        raise _unported("data= (the MLE-whitening preconditioner)", "A.9")
     gen = key if key is not None else \
         torch.Generator(device=device).manual_seed(0)
+    keys = _Keys(gen)
 
     # Declared-structure route: the declared chain is the exact transport,
     # and its trajectories run in kernel B6. The sampler draws q with density
     # N(whiten(q)) + ladj_whiten(q) == logdensity_fn(q): data space.
     if (method == "hmc" and isinstance(logdensity_fn, FlowPushforwardTarget)
-            and flow is None
+            and flow is None and data is None
             and logdensity_fn.fused_kernel_available(dim, dtype)
             and _fused_hmc_accepts(sampler_kw)):
         draws, _final, stats = fused_flow_hmc_sample(
@@ -235,16 +497,30 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
                                diagnostics=summarize_draws(draws, stats),
                                stats=stats, flow=logdensity_fn.transport)
 
-    if flow is None and precondition == "auto":
-        raise _unported("precondition='auto' (the VI-fitted transport)",
-                        "A.9")
-    pre = None if flow is None else flow_preconditioned(logdensity_fn, flow)
+    used_flow, pre_diag, raw_sampling = flow, {}, False
+    if used_flow is None and data is not None and precondition is not None:
+        used_flow = _whitening_transport(data, dim, keys, flow_template,
+                                         vi_optimizer, whiten_batches,
+                                         whiten_epochs, dtype)
+    if used_flow is None and precondition == "auto":
+        used_flow, pre_diag, method, raw_sampling = _precondition_auto(
+            logdensity_fn, dim, keys, method, precondition_kind,
+            flow_template, vi_steps, vi_batch, vi_optimizer, whiten_batches,
+            whiten_epochs, dtype)
+
+    sampling_flow = None if raw_sampling else used_flow
+    pre = None if sampling_flow is None else \
+        flow_preconditioned(logdensity_fn, sampling_flow)
     target = logdensity_fn if pre is None else pre.logdensity_fn
+    if raw_sampling:
+        # The caller's keywords were for the MCMC method; SMC takes those
+        # it knows (JAX passes all, a TypeError for NUTS's max_depth=).
+        sampler_kw = {k: v for k, v in sampler_kw.items()
+                      if k in _SMC_KEYWORDS}
     if method == "smc":
-        return _infer_smc(target, pre, flow, gen, dim,
-                          num_chains * num_samples, dtype, sampler_kw)
-    if refine_rounds > 0:
-        raise _unported("refine_rounds", "A.9")
+        return _infer_smc(target, pre, used_flow, gen, dim,
+                          num_chains * num_samples, dtype, sampler_kw,
+                          pre_diag)
     draws, _final, stats = sample(
         target, gen, dim=dim, num_chains=num_chains, num_warmup=num_warmup,
         num_samples=num_samples, algorithm=method, dtype=dtype,
@@ -252,6 +528,19 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     if pre is not None:
         with torch.no_grad():
             draws = pre.push_forward(draws)
-    return InferenceResult(draws=draws,
-                           diagnostics=summarize_draws(draws, stats),
-                           stats=stats, flow=flow)
+
+    if refine_rounds > 0:
+        return infer(logdensity_fn, dim=dim, key=keys.refine(refine_rounds),
+                     method=method, num_chains=num_chains,
+                     num_warmup=num_warmup, num_samples=num_samples,
+                     data=draws.reshape(-1, dim), flow_template=flow_template,
+                     vi_optimizer=vi_optimizer,
+                     whiten_batches=whiten_batches,
+                     whiten_epochs=whiten_epochs,
+                     refine_rounds=refine_rounds - 1, dtype=dtype,
+                     **sampler_kw)
+
+    diagnostics = summarize_draws(draws, stats)
+    diagnostics.update(pre_diag)
+    return InferenceResult(draws=draws, diagnostics=diagnostics,
+                           stats=stats, flow=used_flow)

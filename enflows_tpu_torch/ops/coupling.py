@@ -497,6 +497,28 @@ def is_fusible_coupling_stack(chain, dim: int, dtype=torch.float32) -> bool:
         and _pick_tile(st, backward=False) > 0
 
 
+# The trainers' dispatch sends a coupling stack's batch to B4/B5 only at the
+# sizes where the kernels were held on trained stacks (ROADMAP C-3): at
+# least this many rows and this width. chip_smoke.py [infer B4/B5 hold]
+# reads trained (32, 32) templates, affine and spline, forward and
+# inverted, at 2^10-2^17 rows against the [B4]/[B5] TF32 gate: at d=50
+# they hold at 2^17 rows (54-67% of the limit), as the d=64 BASELINE and VI
+# stacks do ([coupling slice], [vi B5 hold]); at d=2 they do not (up to
+# 4.8x), and below 2^17 rows readings fall outside it at both widths (up
+# to 71x). Against a plain run on the kernels' own TF32-rounded operands
+# the same (32, 32) templates hold in 47 of 48 holds: at these widths the
+# gate's cuBLAS TF32 yardstick is more exact than TF32 operand rounding.
+COUPLING_MIN_ROWS = 1 << 17
+COUPLING_MIN_DIM = 50
+
+
+def coupling_batch_held(rows: int, dim: int) -> bool:
+    """Whether the trainers' dispatch sends a batch of ``rows`` rows of a
+    fusible coupling stack of width ``dim`` to B4/B5 (see
+    ``COUPLING_MIN_ROWS``)."""
+    return rows >= COUPLING_MIN_ROWS and dim >= COUPLING_MIN_DIM
+
+
 # ------------------------------------------------------------------
 # Plain B4 (``_tile_apply`` :451-514 and ``_spline_slab_epilogue``
 # :322-415 over the whole batch): the kernel's arithmetic in torch.

@@ -56,7 +56,8 @@ def _fit(log_base: Callable, log_target: Callable, optimizer: Callable,
     for the batch."""
     x = particles[0::2].contiguous()
     w = torch.softmax(log_weights[0::2], 0)
-    forward = forward or _route(flow, x.shape[1], x.dtype, x.device, None)
+    forward = forward or _route(flow, x.shape[1], x.dtype, x.device, None,
+                                 x.shape[0])
 
     def logp_next(q):
         return (1.0 - beta_next) * log_base(q) + beta_next * log_target(q)

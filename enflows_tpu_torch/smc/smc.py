@@ -129,7 +129,7 @@ def _transport_forward(T: Bijector, x: torch.Tensor):
     """(T(x), ladj) without a graph, by the trainer's route: on a CUDA batch
     kernel B1 for a fusible elementwise chain (B4 for a fusible coupling
     stack, lanes in logical order), else T's own forward."""
-    forward = _route(T, x.shape[1], x.dtype, x.device, None)
+    forward = _route(T, x.shape[1], x.dtype, x.device, None, x.shape[0])
     with torch.no_grad():
         return forward(T, x)
 

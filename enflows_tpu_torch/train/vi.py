@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from ..bijectors.base import Bijector
-from ..ops.coupling import (fused_coupling_forward_and_ladj,
+from ..ops.coupling import (coupling_batch_held,
+                            fused_coupling_forward_and_ladj,
                             is_fusible_coupling_stack)
 from ..ops.elementwise import (_grads_by_name, fused_forward_and_ladj,
                                is_fusible_chain)
@@ -137,14 +138,15 @@ def _base_draws(generator: torch.Generator, step: int, batch_size: int,
 
 
 def _route(flow: Bijector, dim: int, dtype, device,
-           use_fused_coupling: bool | None) -> Callable:
-    """The forward route of every step, ``(flow, xi) -> (z, ladj)``: see
-    ``optimize_elbo``."""
+           use_fused_coupling: bool | None, rows: int) -> Callable:
+    """The forward route of a batch of ``rows`` rows, ``(flow, xi) -> (z,
+    ladj)``: see ``optimize_elbo``."""
     if use_fused_coupling is None:
         if device.type != "cuda":
             return _plain_forward
         if is_fusible_coupling_stack(flow, dim, dtype):
-            return _fused_coupling_forward
+            return (_fused_coupling_forward
+                    if coupling_batch_held(rows, dim) else _plain_forward)
         return (fused_forward_and_ladj if is_fusible_chain(flow, dim, dtype)
                 else _plain_forward)
     if use_fused_coupling:
@@ -200,12 +202,16 @@ def optimize_elbo(
     ``use_fused_coupling``: None dispatches by rule, in place of the TPU's
     batch-size thresholds: on a CUDA batch a fusible coupling stack
     (``is_fusible_coupling_stack``) runs every forward in B4 with B5 as
-    its backward, a fusible elementwise chain (``is_fusible_chain``) in B1
-    with B2 as its backward; a CPU batch, or any other flow, takes the
-    plain autograd path. False forces the plain path. True requires a
-    fusible coupling stack and raises ``ValueError`` otherwise (JAX's True
-    falls back to the jnp path silently, ``vi.py:181-182``); on a CPU
-    batch the fused wrapper then runs its plain version.
+    its backward where the kernels are held
+    (``ops.coupling.coupling_batch_held``: at least ``COUPLING_MIN_ROWS``
+    rows a step and ``COUPLING_MIN_DIM`` wide),
+    a fusible elementwise chain (``is_fusible_chain``) in B1 with B2 as its
+    backward; a CPU batch, a coupling batch the kernels are not held at, or
+    any other flow takes the plain autograd path. False forces the plain
+    path. True requires a fusible coupling stack and raises ``ValueError``
+    otherwise (JAX's True falls back to the jnp path silently,
+    ``vi.py:181-182``); on a CPU batch the fused wrapper then runs its
+    plain version.
 
     ``mesh`` (with ``batch_axis``), ``metrics``, ``checkpoint_every`` and
     ``ckpt_dir`` are not ported yet and raise ``NotImplementedError``.
@@ -233,7 +239,8 @@ def _fit(logdensity_fn, initial_flow, optimizer, draws: Callable, *, dim,
     """``optimize_elbo``'s steps, each drawing its base samples as
     ``draws(key, step, batch_size, dim, dtype, device)``."""
     device = key.device
-    forward = _route(initial_flow, dim, dtype, device, use_fused_coupling)
+    forward = _route(initial_flow, dim, dtype, device, use_fused_coupling,
+                     batch_size * (2 if antithetic else 1))
     loss_fn = _neg_elbo_stl if stl else _neg_elbo
 
     def value_and_grad(flow, xi):

@@ -23,7 +23,8 @@ import torch
 
 from ..bijectors.base import Bijector
 from ..distributions.base import std_normal_logpdf, std_normal_logpdf_sum
-from ..ops.coupling import (fused_coupling_forward_and_ladj,
+from ..ops.coupling import (coupling_batch_held,
+                            fused_coupling_forward_and_ladj,
                             is_fusible_coupling_stack)
 from ..ops.elementwise import (_grads_by_name, fused_forward_and_ladj,
                                fused_negll_value_and_grad, is_fusible_chain)
@@ -103,6 +104,23 @@ def make_train_step(optimizer: torch.optim.Optimizer,
     return step
 
 
+def _dispatch(flow: Bijector, dim: int, dtype, on_card: bool,
+              batch_size: int):
+    """``optimize_whitening``'s ``use_fused=None`` rule: True (B3) for a
+    fusible elementwise chain on the card, "coupling" (B4 + B5) for a
+    fusible coupling stack on the card where the kernels are held
+    (``ops.coupling.coupling_batch_held``: at least ``COUPLING_MIN_ROWS``
+    rows and ``COUPLING_MIN_DIM`` wide), else False."""
+    if not on_card:
+        return False
+    if is_fusible_chain(flow, dim, dtype):
+        return True
+    if is_fusible_coupling_stack(flow, dim, dtype) and \
+            coupling_batch_held(batch_size, dim):
+        return "coupling"
+    return False
+
+
 def optimize_whitening(
     samples: torch.Tensor,
     initial_flow: Bijector,
@@ -133,13 +151,15 @@ def optimize_whitening(
     pass a previous result's ``optimizer_state`` (a ``state_dict()``) as
     ``opt_state`` and its ``negll_history``, which is spliced in front.
 
-    ``use_fused``: None dispatches by rule: a CUDA batch with a fusible
-    elementwise chain (``is_fusible_chain``) takes the fused kernel B3 every
-    step, a CUDA batch with a fusible coupling stack
-    (``is_fusible_coupling_stack``) B4 and B5 every step
-    (``enflows_tpu/train/whitening.py:178-206``, without the TPU's
-    batch-size thresholds, which were measured on a v5e); a CPU batch, or a
-    chain neither kernel takes, the plain autograd path. False forces the
+    ``use_fused``: None dispatches by rule (``_dispatch``): a CUDA batch
+    with a fusible elementwise chain (``is_fusible_chain``) takes the fused
+    kernel B3 every step, a CUDA batch with a fusible coupling stack
+    (``is_fusible_coupling_stack``) where the kernels are held
+    (``coupling_batch_held``) B4 and B5 every step
+    (``enflows_tpu/train/whitening.py:178-206``, with the port's row rule
+    in place of the TPU's batch-size thresholds, which were measured on a
+    v5e); a CPU batch, a coupling batch the rule keeps from the kernels, or
+    a chain neither kernel takes, the plain autograd path. False forces the
     plain path; True requires a fusible elementwise chain and "coupling" a
     fusible coupling stack (on a CPU batch either fused wrapper runs its
     plain version).
@@ -159,14 +179,8 @@ def optimize_whitening(
         nbatches, batch_size, dim).contiguous()
 
     if use_fused is None:
-        if not samples.is_cuda:
-            use_fused = False
-        elif is_fusible_chain(initial_flow, dim, samples.dtype):
-            use_fused = True
-        elif is_fusible_coupling_stack(initial_flow, dim, samples.dtype):
-            use_fused = "coupling"
-        else:
-            use_fused = False
+        use_fused = _dispatch(initial_flow, dim, samples.dtype,
+                              samples.is_cuda, batch_size)
     elif use_fused == "coupling":
         if not is_fusible_coupling_stack(initial_flow, dim, samples.dtype):
             raise ValueError('use_fused="coupling" needs a fusible coupling '

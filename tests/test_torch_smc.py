@@ -567,16 +567,18 @@ def test_keyword_checks():
 def test_fitter_and_transport_take_the_trainers_route(monkeypatch):
     """The fitter's steps and the transport's application to all particles
     take ``train.vi``'s route for the batch's device: on the card B1 (with
-    B2 as its backward) for the default ScaleShift, here the plain path."""
+    B2 as its backward) for the default ScaleShift, here the plain path;
+    each passes the rows of its batch: the fitter's half of the particles,
+    the transport all of them."""
     assert VI._route(TF.default_template(torch.zeros(4, 100)), 100,
-                     torch.float32, torch.device("cuda"), None) \
+                     torch.float32, torch.device("cuda"), None, 4) \
         is TE.fused_forward_and_ladj
     calls = []
 
-    def route(flow, dim, dtype, device, use_fused):
+    def route(flow, dim, dtype, device, use_fused, rows):
         calls.append((type(flow).__name__, dim, dtype, device.type,
-                      use_fused))
-        return VI._route(flow, dim, dtype, device, use_fused)
+                      use_fused, rows))
+        return VI._route(flow, dim, dtype, device, use_fused, rows)
 
     monkeypatch.setattr(TF, "_route", route)
     monkeypatch.setattr(TS, "_route", route)
@@ -585,8 +587,9 @@ def test_fitter_and_transport_take_the_trainers_route(monkeypatch):
     _, _, _, infos = TSM.smc_sample(
         _gauss_target, torch.Generator().manual_seed(0), dim=2,
         num_particles=256, fit_transport=fit, max_temps=2)
-    assert calls == [("ScaleShift", 2, torch.float32, "cpu", None)] * \
-        (2 * len(infos))
+    assert sorted(calls, key=lambda c: c[-1]) == \
+        [("ScaleShift", 2, torch.float32, "cpu", None, 128)] * len(infos) + \
+        [("ScaleShift", 2, torch.float32, "cpu", None, 256)] * len(infos)
     assert TE.LAUNCHES == before
 
 

@@ -400,34 +400,46 @@ def test_cpu_batch_launches_nothing():
                                runs[0].nelbo_history.numpy(), rtol=1e-5)
     chain = from_jax(_jax_flow("chain", F32), device="cpu")
     xi = torch.from_numpy(_xi(16, 3, seed=8, dtype=np.float32))
-    on_card = VI._route(chain, 3, torch.float32, torch.device("cuda"), None)
+    on_card = VI._route(chain, 3, torch.float32, torch.device("cuda"), None,
+                        16)
     assert on_card is TE.fused_forward_and_ladj
     for private in (VI._neg_elbo, VI._neg_elbo_stl):
         vals = [private(fwd, chain, _tlogp, xi)
                 for fwd in (VI._route(chain, 3, torch.float32,
-                                      torch.device("cpu"), None), on_card)]
+                                      torch.device("cpu"), None, 16),
+                            on_card)]
         _close(vals[1], vals[0], 1e-5, private.__name__)
     assert (dict(TE.LAUNCHES), dict(TC.LAUNCHES)) == before
 
 
 def test_dispatch_rule():
-    """On a CUDA device a fusible coupling stack takes B4/B5 and a fusible
-    elementwise chain B1/B2; other flows, other dtypes and CPU batches the
-    plain path."""
+    """On a CUDA device a fusible coupling stack takes B4/B5 at the batches
+    ``ops.coupling.coupling_batch_held`` admits (at least 2^17 rows, at
+    least 50 wide: ROADMAP C-3) and the plain path at the others; a fusible
+    elementwise chain takes B1/B2 at any size; other flows, other dtypes
+    and CPU batches the plain path; True forces B4/B5."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     stack = from_jax(_jax_flow("affine", F32), device="cpu")
+    wide = et.coupling_stack(torch.Generator(), 50, 2, (8,), device="cpu")
     chain = from_jax(_jax_flow("chain", F32), device="cpu")
     odd = et.coupling_stack(torch.Generator(), 5, 2, (8,), device="cpu")
     f32 = torch.float32
     plain = VI._plain_forward
-    assert VI._route(stack, 4, f32, cuda, None) is VI._fused_coupling_forward
-    assert VI._route(chain, 3, f32, cuda, None) is TE.fused_forward_and_ladj
-    assert VI._route(odd, 5, f32, cuda, None) is plain
-    assert VI._route(stack, 4, torch.float64, cuda, None) is plain
-    for flow, d in ((stack, 4), (chain, 3)):
-        assert VI._route(flow, d, f32, cpu, None) is plain
-        assert VI._route(flow, d, f32, cuda, False) is plain
-    assert VI._route(stack, 4, f32, cpu, True) is VI._fused_coupling_forward
+    assert VI._route(wide, 50, f32, cuda, None, 1 << 17) is \
+        VI._fused_coupling_forward
+    for rows in (16, (1 << 17) - 1):
+        assert VI._route(wide, 50, f32, cuda, None, rows) is plain
+    for rows in (16, 1 << 20):
+        assert VI._route(stack, 4, f32, cuda, None, rows) is plain
+        assert VI._route(chain, 3, f32, cuda, None, rows) is \
+            TE.fused_forward_and_ladj
+        assert VI._route(odd, 5, f32, cuda, None, rows) is plain
+        assert VI._route(wide, 50, torch.float64, cuda, None, rows) is plain
+        for flow, d in ((stack, 4), (wide, 50), (chain, 3)):
+            assert VI._route(flow, d, f32, cpu, None, rows) is plain
+            assert VI._route(flow, d, f32, cuda, False, rows) is plain
+        assert VI._route(stack, 4, f32, cpu, True, rows) is \
+            VI._fused_coupling_forward
 
 
 def test_forced_fused_route_on_a_flow_it_cannot_take_raises():
