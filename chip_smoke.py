@@ -1,9 +1,10 @@
 """Drive the PyTorch port's main paths once on one CUDA card: the
 whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5),
 flow-VI (B1/B2 and B4/B5), flow-preconditioned HMC (B6), NUTS and ChEES
-(no kernel), tempered SMC (no kernel; B1/B2 in its learned transports)
-and infer's default path (the auto ladder through B1/B2 and B4/B5,
-data= through B3).
+(no kernel), tempered SMC (no kernel; B1/B2 in its learned transports),
+infer's default path (the auto ladder through B1/B2 and B4/B5, data=
+through B3) and the CLI (train through B3, killed and resumed; the ELBO
+and infer commands through B1/B2).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -104,7 +105,8 @@ exception exits non-zero and prints no result:
    Householder chain at d=129;
 12. the HMC slice, with the launch counters set to 0 just before each run:
    ``infer(FlowPushforwardTarget(transport), method="hmc")`` with
-   8192 chains x d=50, 200 warmup + 100 samples of L=64 on the BASELINE
+   8192 chains x d=50, 200 warmup + 50 samples (100 before PR 12) of L=64
+   on the BASELINE
    chain (exactly one B6 launch per transition), then the d=8 example of
    examples/fused_pushforward_hmc.py (256 chains, its mean/var base,
    200 + 500 transitions of L=16). Each run's draws are finite, its
@@ -164,10 +166,10 @@ before it, reads them just after and fails if any kernel launched:
    and leapfrog steps an iteration;
 19. ``[nuts infer]``: ``infer(logp, method='nuts'/'chees')`` on the 2-D
    example target of benchmarks/bench_mcmc.py:35-44, raw
-   (``precondition=None``, 128 chains, 250 + 500: finite draws and the
+   (``precondition=None``, 128 chains, 100 + 150: finite draws and the
    acceptance range; its moments, min bulk ESS and max rhat are printed
    but not gated, since raw chains do not cross the target's modes) and
-   through its exact transport (``flow=``, 128 chains, 200 + 300: mean
+   through its exact transport (``flow=``, 128 chains, 100 + 100: mean
    within 0.1 sd, sd within 10% of Monte-Carlo truth); then
    ``infer(target, method='nuts', precondition=None)`` on the BASELINE
    pushforward at 1024 chains, 100 + 100, through ``mcmc.sample``, with no
@@ -221,7 +223,7 @@ from generators of its own:
 27. ``[infer auto 50d]``: BASELINE.json configs[3], the equicorrelated
    Gaussian of bench_mcmc.py:174-181 (rho 0.9, d=50) through
    ``et.infer(logp, dim=50)``: the default ladder (vi_steps=500,
-   vi_batch=512), NUTS over 128 chains x 20 + 20 at max_depth=4.
+   vi_batch=512), NUTS over 128 chains x 10 + 10 at max_depth=4.
    Exactly the launches the dispatch rule gives its fits
    (``expected_launches``): 500 B1 and 500 B2 for the elementwise rung;
    the spline rung's 1,024 rows and the rescue's 40 take the plain path
@@ -232,10 +234,10 @@ from generators of its own:
 28. ``[infer spline 50d]``: the same with ``precondition_kind='spline'``:
    the family and the launches gated, the moments printed;
    ``[infer elementwise 50d]``: the same with
-   ``precondition_kind='elementwise'`` and the configuration's NUTS, 300
-   + 500 at max_depth 10, over 32 chains: 500 B1 and 500 B2, the mean
-   within 0.1 and the sd within 10% of 1 in every dimension, rhat < 1.05;
-   divergences printed (C-12);
+   ``precondition_kind='elementwise'`` and the configuration's NUTS at
+   max_depth 10, cut to 150 + 300, over 32 chains: 500 B1 and 500 B2, the
+   mean within 0.1 and the sd within 10% of 1 in every dimension, rhat <
+   1.05; divergences printed (C-12);
 29. ``[infer escalation 2d]``: tests/test_infer.py's bimodal target
    (:303, its settings but NUTS at 100 + 200: 0.12-0.40 of the draws right
    of 0, the x0 mean within 0.35 of -1.125) and its hard target (:353,
@@ -245,11 +247,11 @@ from generators of its own:
    unweighted share right of 0 printed, not gated (ROADMAP C-10);
 30. ``[infer data 2d]``: examples/one_call_infer.py's case [2] with
    100,000 draws as ``data=``, whiten_batches=200, whiten_epochs=8, NUTS
-   at 8 chains x 100 + 200:
+   at 8 chains x 100 + 100:
    exactly 1,600 B3 launches, rhat < 1.05, the mean within
    test_infer.py:92-94's bound;
 31. ``[infer refine]``: test_infer.py:101's target and gates, one
-   refinement round;
+   refinement round, NUTS at 8 chains x 150 + 100 a round;
 32. ``[infer B4/B5 hold]`` (ROADMAP C-3): B4 and B5 on every coupling flow
    a rung or the rescue trained above and on the affine template's fits
    (``c3_fits``), at its own row count and at 2^17 rows: y, ladj, gx and
@@ -269,6 +271,47 @@ from generators of its own:
    bound and, for B4/B5, TF32 torch.matmul. Each infer phase's line splits
    its call's seconds into the VI fit, the probes, the rescue, the
    sampling and the diagnostics.
+
+The run utilities and the CLI run after 33 (``cli_phases``):
+
+34. ``[cli train]``: ``python -m enflows_tpu_torch.cli train`` in a child
+   process run from the repository root (``CLI_CHILD``, which writes the
+   process's launch counts), the flagship stages as ``FlowConfig`` stages
+   at d=2 with 4 Householder reflections, on 2^22 samples of the whitening
+   slice's f_true written to an .npz, 24 epochs of 4 batches of 2^20 in
+   chunks of 2 epochs (``--train.checkpoint_every=2``, ``--checkpoint_dir``,
+   ``--metrics_path``): uninterrupted (exactly 96 B3 launches), SIGKILLed
+   once its first chunk checkpoint lands (retried as
+   tests/test_resilience.py:239-265 does), and the same command again,
+   which resumes. The resumed run's final flow and optimizer state and its
+   last chunk state (history included) equal the uninterrupted run's bit
+   for bit; the uninterrupted metrics file holds a record a step equal to
+   the history bit for bit. In this process the same trainer chunked with
+   checkpoints equals it unchunked bit for bit, and its history is held to
+   the plain path's as [vi elementwise] holds its own: 1e-4 relative
+   unless the plain path on rows reordered within each batch already
+   differs by more, then the noise rule. Printed: ms a step of the CLI run
+   (its metrics clock) and in process, and a checkpoint's milliseconds;
+35. ``[cli elbo]``, ``[cli sample]``, ``[cli infer]``: ``cli.main`` in this
+   process at tests/test_utils.py:179-290's sizes: the ELBO objective at
+   d=1 (exactly 50 B1 and 50 B2, the final loss within 0.05 of 0), ``sample``
+   with SMC at its 8192 particles on the demo target (one temperature,
+   ``logZ=1.8379``) and with HMC (4 chains x 100 + 100; no launch; rhat
+   within 1.5 unless a coordinate's 32 leapfrog steps, at the adapted step
+   size and inverse mass, turn within 0.05 of a whole number of times, as
+   python -m tests.test_torch_cli hmc shows both packages stall there), and
+   ``infer --sampler.precondition_kind=elementwise`` on the demo target
+   (``family=elementwise``, exactly 150 B1 and 150 B2). Each ELBO fit,
+   recorded from the run, is held to the plain path from the same flow and
+   generator state as [vi elementwise] holds its own (``hold_history``);
+36. ``[trace]``: ``utils.trace`` around four fused whitening steps: the
+   Chrome trace holds the trainer's range, four
+   ``enflows.cuda.fused_negll_grad`` ranges and B3 kernel events, each
+   launched inside one of them;
+37. ``[heartbeat]``: the default probe True within its deadline, a hung
+   probe False at its deadline, ``run_checkpointed`` with a failing probe
+   raising ``HeartbeatTimeout`` after its rescue save (restored onto the
+   card), and running through with the default probe.
 
 The script ends with its total time, the kernels line (each kernel's
 launches summed over every main-path run, by path) and the ``{"ok": true,
@@ -299,6 +342,7 @@ rounding. The plain references otherwise run in full f32.
 Weights are random, made from seeded ``torch.Generator`` s. The script needs
 one card and no network; it imports nothing of JAX.
 """
+import contextlib
 import copy
 import json
 import math
@@ -1709,6 +1753,21 @@ class NoiseGate(NamedTuple):
                 f"{self.calm} steps {self.noise_calm:.3e}")
 
 
+def hold_history(what, hist, plain, other):
+    """[vi elementwise]'s rule for a fused history against the plain
+    path's on the same draws: within ``SLICE_RTOL`` relative, the whitening
+    slice's gate, unless the plain path on rows reordered within each step
+    (``other``) already differs from it by more; then the coupling slice's
+    noise rule. Returns (max rel diff, the noise, the rule applied)."""
+    rel, noise = rel_diff(hist, plain), rel_diff(other, plain)
+    if noise <= SLICE_RTOL:
+        check(rel <= SLICE_RTOL, f"{what}: fused vs plain {rel:.3e}")
+        return rel, noise, f"limit {SLICE_RTOL:.0e}"
+    gate = NoiseGate.of(hist, plain, [other])
+    gate.check(what)
+    return rel, noise, f"the noise rule: {gate}"
+
+
 def coupling_slice_timing(kind, initial, X, hist, gen, card):
     """The same trainer from the same start on the plain path (the chain's
     own autograd), and warm ms/step of both, timed plain, fused, fused,
@@ -1942,14 +2001,7 @@ def phase_vi_elementwise(et, EW, C, VI, device, card):
                        use_fused_coupling=False,
                        reorder=torch.Generator(device=device).manual_seed(22)
                        ).nelbo_history.cpu()
-        rel, noise = rel_diff(hist, plain), rel_diff(other, plain)
-        if noise <= SLICE_RTOL:
-            check(rel <= SLICE_RTOL, f"{what}: fused vs plain {rel:.3e}")
-            rule = f"limit {SLICE_RTOL:.0e}"
-        else:
-            gate = NoiseGate.of(hist, plain, [other])
-            gate.check(what)
-            rule = f"the noise rule: {gate}"
+        rel, noise, rule = hold_history(what, hist, plain, other)
         print(f"[{what}] nELBO history {[round(float(v), 4) for v in hist]}"
               f"; plain path {[round(float(v), 4) for v in plain]}; fused vs "
               f"plain max rel diff {rel:.3e}, the plain path on reordered "
@@ -2173,7 +2225,7 @@ def phase_vi_example(EW, C, device, card):
 
 LF = dict(chains=8192, dim=50, steps=64)   # BASELINE.md:99, bench_mcmc.py:327
 LF_TOL = 2e-4
-HMC_WARMUP, HMC_SAMPLES = 200, 100
+HMC_WARMUP, HMC_SAMPLES = 200, 50   # samples cut from 100 in PR 12
 
 
 def leapfrog_chain(et, d, gen, device):
@@ -2569,10 +2621,12 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
 # the plain whitening chain) and the tree bookkeeping.
 
 TREE = dict(chains=8192, warmup=200, samples=100)
-# The raw target at 250 + 500 (BASELINE.md:34's row runs 500 + 1000; cut to
-# keep the script near 400 s with the SMC phases).
-INFER_2D = dict(chains=128, warmup=250, samples=500)        # raw target
-INFER_2D_FLOW = dict(chains=128, warmup=200, samples=300)   # flow= route
+# The raw target at 100 + 150 (BASELINE.md:34's row runs 500 + 1000; cut to
+# 250 + 500 to keep the script near 400 s with the SMC phases, and to 100 +
+# 150 to keep it under 950 s with the CLI phases; its moments are not
+# gated); the flow= route at 100 + 100 (200 + 300 before PR 12).
+INFER_2D = dict(chains=128, warmup=100, samples=150)        # raw target
+INFER_2D_FLOW = dict(chains=128, warmup=100, samples=100)   # flow= route
 INFER_PUSHFORWARD = dict(chains=1024, warmup=100, samples=100)
 TREE_ACCEPT = {"nuts": (0.6, 1.0), "chees": (0.45, 0.95)}  # test_chees.py:51
 
@@ -2640,8 +2694,8 @@ def tree_slice(et, NU, algorithm, target, dim, counters, gen, card):
 def infer_2d(et, method, through_flow, counters, seed, device, card):
     """``infer(logp, method=...)`` on the 2-D example target of
     benchmarks/bench_mcmc.py:35-44 (BASELINE.md:34's NUTS/ChEES row),
-    raw (``precondition=None``, 128 chains x 250 warmup + 500 samples) or
-    through its exact transport (``flow=``, 128 x 200 + 300, where the
+    raw (``precondition=None``, 128 chains x 100 warmup + 150 samples) or
+    through its exact transport (``flow=``, 128 x 100 + 100, where the
     chains see N(0, I)). The target has several modes
     that raw chains started near 0 do not cross (the JAX package's own
     NUTS at these counts leaves R-hat far above 1.1 too). So the raw run
@@ -3304,17 +3358,17 @@ def smc_phases(et, EW, counters, device, card):
 
 # BASELINE.json configs[3]: bench_mcmc.py:174-181's equicorrelated Gaussian
 # through et.infer(logp, dim=50) with the default ladder, 128 chains.
-# NUTS cut from 300 + 500 to 20 + 20 at max_depth=4 (PERF.md §4): the
+# NUTS cut from 300 + 500 to 10 + 10 at max_depth=4 (PERF.md §4): the
 # ladder's pick between the elementwise and the spline transport turns on
 # the seed in both packages, and NUTS through the spline transport runs to
 # depth 10, ~120 leaves a transition, at ~36 ms of host work a leaf
 # (ROADMAP C-12); the forced spline transport's NUTS too. The
-# configuration's NUTS (300 + 500, max_depth 10) runs, gated, through the
-# elementwise transport, the family that whitens this target exactly, at 32
-# chains.
-INFER_50D = dict(dim=50, rho=0.9, chains=128, warmup=20, samples=20,
+# configuration's NUTS (max_depth 10; 300 + 500, cut to 150 + 300 to make
+# room for the CLI phases) runs, gated, through the elementwise transport,
+# the family that whitens this target exactly, at 32 chains.
+INFER_50D = dict(dim=50, rho=0.9, chains=128, warmup=10, samples=10,
                  max_depth=4)
-INFER_ELEMENTWISE_50D = dict(chains=32, warmup=300, samples=500,
+INFER_ELEMENTWISE_50D = dict(chains=32, warmup=150, samples=300,
                              max_depth=10)
 # tests/test_infer.py:303 and :353; examples/one_call_infer.py case [2];
 # test_infer.py:101.
@@ -3324,11 +3378,11 @@ INFER_BIMODAL = dict(vi_steps=200, vi_batch=256, whiten_batches=16,
 INFER_HARD = dict(vi_steps=5, vi_batch=128, whiten_batches=16,
                   whiten_epochs=8, num_chains=8, num_warmup=150,
                   num_samples=300)
-# The example's NUTS (8 chains x 400 + 500) cut to 100 + 200, the bimodal
+# The example's NUTS (8 chains x 400 + 500) cut to 100 + 100, the bimodal
 # test's (200 + 400) to 100 + 200 (PERF.md §4).
 INFER_DATA = dict(n=100_000, whiten_batches=200, whiten_epochs=8,
-                  num_chains=8, num_warmup=100, num_samples=200)
-INFER_REFINE = dict(num_chains=8, num_warmup=300, num_samples=400)
+                  num_chains=8, num_warmup=100, num_samples=100)
+INFER_REFINE = dict(num_chains=8, num_warmup=150, num_samples=100)
 INFER_SEEDS = dict(auto=50, spline=51, elementwise=57, bimodal=52, hard=53,
                    data=55, refine=56)
 _LOG_2PI = 1.8378770664093453
@@ -3466,14 +3520,15 @@ def infer_50d(et, TI, counters, kind, device, card):
     launches the dispatch rule gives the fits (``expected_launches``): 500
     B1 and 500 B2 for the elementwise rung; the spline rung's 1,024 rows
     and the rescue's 40 take the plain path. Draws finite. The auto call
-    and the spline one (NUTS 128 x 20 + 20, max_depth=4) print
+    and the spline one (NUTS 128 x 10 + 10, max_depth=4) print
     the family, k-hat, gap, the draws' mean and sd against 1 (weighted
     where the ladder escalated to SMC), rhat and the tree depths: which
     transport the ladder keeps turns on the seed, and NUTS does not mix
     through the spline one here, in JAX as in the port (ROADMAP C-12). The
-    elementwise call runs the configuration's NUTS (300 + 500, max_depth
-    10, 32 chains) and holds the mean within 0.1 and the sd within 10% of
-    1 in every dimension, and rhat below 1.05; its divergences are printed
+    elementwise call runs the configuration's NUTS (max_depth 10, cut to
+    150 + 300 over 32 chains) and holds the mean within 0.1 and the sd
+    within 10% of 1 in every dimension, and rhat below 1.05; its
+    divergences are printed
     (the reference diverges on ~9% of its transitions here, C-12)."""
     cfg = {**INFER_50D,
            **(INFER_ELEMENTWISE_50D if kind == "elementwise" else {})}
@@ -3647,11 +3702,11 @@ def infer_data_2d(et, TI, counters, device, card):
 
 def infer_refine(et, TI, counters, device, card):
     """``[infer refine]``: test_infer.py:101's warped heavy-tail target, a raw
-    first pass and one refinement round (8 chains x 300 + 400 each): the
-    refined round fits a transport (its whitening B3 launches counted),
-    rhat < 1.05, mean and sd within the test's bounds of 200,000 draws,
-    min bulk ESS above 0.55 x 3,200 draws and above 0.8 x the raw
-    round's."""
+    first pass and one refinement round (8 chains x 150 + 100 each, cut
+    from 300 + 400 for the CLI phases): the refined round fits a transport
+    (its whitening B3 launches counted), rhat < 1.05, mean and sd within
+    the test's bounds of 200,000 draws, min bulk ESS above 0.55 x the
+    800 draws and above 0.8 x the raw round's."""
     v = lambda *a: torch.tensor(a, device=device)
     f_true = et.compose(et.ScaleShift(v(1.3, 0.4), v(2.5, -1.2)),
                         et.JohnsonInv(v(0.5, -0.3), v(2.0, 2.5),
@@ -4141,6 +4196,575 @@ def infer_probe(et, C, device, card):
               device, card)
 
 
+# ----------------------------------------------------------------------
+# The run utilities and the CLI (python -m enflows_tpu_torch.cli): the
+# whitening trainer through B3 in preemption-safe chunks, killed and
+# resumed; the ELBO, sample and infer commands; a profiler trace of the
+# kernel ranges; the heartbeat.
+
+CLI_TRAIN = dict(rows=1 << 22, nbatches=4, epochs=24, every=2)
+CLI_STAGES = ["johnson", "center_stretch_inv", "householder", "johnson",
+              "center_stretch_inv"]
+CLI_INFER_STEPS = 150
+# How near a whole number of turns HMC's 32 steps may come before the CLI
+# sample's rhat goes ungated (python -m tests.test_torch_cli hmc: every
+# seed of 20 with rhat > 1.5 turned within 0.04 of one, in both packages).
+HMC_RESONANCE = 0.05
+# ``python -m enflows_tpu_torch.cli`` as runpy runs it, then the process's
+# launch counts written to the file named first.
+CLI_CHILD = (
+    "import json, runpy, sys\n"
+    "from enflows_tpu_torch.ops import elementwise as EW\n"
+    "out = sys.argv[1]\n"
+    "sys.argv = ['enflows_tpu_torch.cli'] + sys.argv[2:]\n"
+    "try:\n"
+    "    runpy.run_module('enflows_tpu_torch.cli', run_name='__main__',\n"
+    "                     alter_sys=True)\n"
+    "except SystemExit as e:\n"
+    "    if e.code:\n"
+    "        raise\n"
+    "with open(out, 'w') as f:\n"
+    "    json.dump(dict(EW.LAUNCHES), f)\n")
+
+
+def cli_train_argv(data, root):
+    """The [cli train] command: the flagship stages at d=2 on ``data``, 4
+    batches a epoch, chunks of 2 epochs checkpointed under
+    ``root/ck/train``, the final snapshot in ``root/ck``, a metrics record a
+    step in ``root/metrics.jsonl``."""
+    return ["train", "--data", data, "--flow.dim=2",
+            f"--flow.stages={json.dumps(CLI_STAGES)}",
+            "--flow.householder_reflections=4",
+            f"--train.nbatches={CLI_TRAIN['nbatches']}",
+            f"--train.nepochs={CLI_TRAIN['epochs']}",
+            f"--train.checkpoint_every={CLI_TRAIN['every']}",
+            f"--checkpoint_dir={os.path.join(root, 'ck')}",
+            f"--metrics_path={os.path.join(root, 'metrics.jsonl')}"]
+
+
+def cli_child(argv, root, wait=True):
+    """The CLI in a child process run from the repository root (so that
+    ``--target`` and the package resolve there); with ``wait``, (its
+    printed lines, its launch counts)."""
+    out = os.path.join(root, "launches.json")
+    p = subprocess.Popen([sys.executable, "-c", CLI_CHILD, out] + argv,
+                         cwd=HERE, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+    if not wait:
+        return p
+    stdout, stderr = p.communicate(timeout=600)
+    check(p.returncode == 0, f"cli child exited {p.returncode}: "
+          f"{stderr[-3000:]}")
+    with open(out) as f:
+        return stdout.strip().splitlines(), json.load(f)
+
+
+def same_state(a, b, what):
+    """Two checkpoints' states equal leaf for leaf, bit for bit."""
+    from enflows_tpu_torch.utils import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"{what}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Tensor):
+            ok = isinstance(y, torch.Tensor) and x.dtype == y.dtype and \
+                torch.equal(x, y)
+        else:
+            ok = x == y
+        check(ok, f"{what}: leaf {i} differs")
+
+
+def load_state(path, step):
+    from enflows_tpu_torch.utils import restore_checkpoint
+    return restore_checkpoint(path, None, step=step)
+
+
+def kill_after_first_checkpoint(argv, root, attempts=3):
+    """Start the command, SIGKILL it once its first chunk checkpoint lands
+    under ``root/ck/train``, retried while the child wins the race (as
+    tests/test_resilience.py:239-265). Returns the chunks it had saved."""
+    import shutil
+    import signal
+
+    from enflows_tpu_torch.utils import latest_step
+
+    ck = os.path.join(root, "ck")
+    final = os.path.join(ck, f"step_{CLI_TRAIN['epochs'] * 4}.pt")
+    for _ in range(attempts):
+        shutil.rmtree(ck, ignore_errors=True)
+        p = cli_child(argv, root, wait=False)
+        deadline = time.time() + 600
+        while latest_step(os.path.join(ck, "train")) is None:
+            if p.poll() is not None:
+                check(False, "cli train: the child ended before its first "
+                      f"checkpoint: {p.communicate()[1][-2000:]}")
+            check(time.time() < deadline, "cli train: no checkpoint")
+            time.sleep(0.005)
+        p.send_signal(signal.SIGKILL)
+        p.communicate(timeout=60)
+        if not os.path.exists(final):
+            return latest_step(os.path.join(ck, "train"))
+    check(False, f"cli train: the child finished before {attempts} kills")
+
+
+def cli_train(et, EW, counters, device, card):
+    """``[cli train]``: the whitening slice's data (2^22 samples of f_true,
+    written to an .npz) trained by the CLI in a child process three ways:
+    uninterrupted, SIGKILLed once its first checkpoint lands, and the same
+    command again to resume. The resumed run's final flow, optimizer state
+    and history equal the uninterrupted run's bit for bit; its metrics file
+    has a record a step equal to the history bit for bit; B3 runs exactly
+    epochs x 4 times in the uninterrupted child. In this process, the same
+    trainer chunked equals it unchunked bit for bit and the plain path
+    within 1e-4 relative. Returns B3's launches by path."""
+    import tempfile
+
+    import numpy as np
+    from enflows_tpu_torch import cli
+    from enflows_tpu_torch.train import optimize_whitening
+    from enflows_tpu_torch.utils import (load_config, build_flow,
+                                         save_checkpoint)
+
+    E, nb = CLI_TRAIN["epochs"], CLI_TRAIN["nbatches"]
+    steps, chunks = E * nb, E // CLI_TRAIN["every"]
+    gen = torch.Generator(device=device).manual_seed(60)
+    f_true = example_2d_flow(et, device)
+    with torch.no_grad():
+        X = f_true(torch.randn(CLI_TRAIN["rows"], 2, generator=gen,
+                               device=device))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "X.npz")
+        np.savez(data, X=X.cpu().numpy())
+        for name in ("full", "killed"):
+            os.makedirs(os.path.join(tmp, name))
+        t0 = time.perf_counter()
+        lines, full_launches = cli_child(
+            cli_train_argv(data, os.path.join(tmp, "full")),
+            os.path.join(tmp, "full"))
+        full_s = time.perf_counter() - t0
+        check(full_launches["negll"] == steps and not full_launches["fwd"]
+              and not full_launches["bwd"],
+              f"cli train: launches {full_launches}, not {steps} B3")
+        killed_dir = os.path.join(tmp, "killed")
+        argv = cli_train_argv(data, killed_dir)
+        killed_at = kill_after_first_checkpoint(argv, killed_dir)
+        t0 = time.perf_counter()
+        resumed_lines, resumed_launches = cli_child(argv, killed_dir)
+        resumed_s = time.perf_counter() - t0
+        left = (chunks - killed_at) * CLI_TRAIN["every"] * nb
+        check(resumed_launches["negll"] == left,
+              f"cli train resumed: {resumed_launches}, not {left} B3")
+        check(lines[-1] == resumed_lines[-1],
+              f"cli train: {lines[-1]!r} against {resumed_lines[-1]!r}")
+        full_ck = os.path.join(tmp, "full", "ck")
+        res_ck = os.path.join(killed_dir, "ck")
+        same_state(load_state(full_ck, steps), load_state(res_ck, steps),
+                   "cli train: resumed final flow and optimizer state")
+        chunk_state = load_state(os.path.join(full_ck, "train"), chunks)
+        same_state(chunk_state, load_state(os.path.join(res_ck, "train"),
+                                           chunks),
+                   "cli train: resumed chunk state with its history")
+        hist = chunk_state["history"]
+        with open(os.path.join(tmp, "full", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        check([r["step"] for r in recs] == list(range(steps))
+              and [r["negll"] for r in recs] == hist.tolist(),
+              "cli train: the metrics records are not the history")
+        cli_ms = (recs[-1]["time"] - recs[0]["time"]) * 1e3 / (steps - 1)
+
+        # In this process: the same trainer unchunked, chunked, plain.
+        cfg = load_config(None, cli_train_argv(data, tmp)[3:])
+        flow0 = build_flow(cfg.flow, device)
+        opt = cli._optimizer(cfg)
+        reset_launches(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r1 = optimize_whitening(X, flow0, opt, nbatches=nb, nepochs=E)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        check(EW.LAUNCHES["negll"] == steps,
+              f"cli train in-process: {EW.LAUNCHES['negll']} B3")
+        t0 = time.perf_counter()
+        r2 = optimize_whitening(X, flow0, opt, nbatches=nb, nepochs=E,
+                                checkpoint_every=CLI_TRAIN["every"],
+                                ckpt_dir=os.path.join(tmp, "inproc"))
+        torch.cuda.synchronize()
+        chunked_ms = (time.perf_counter() - t0) * 1e3 / steps
+        runs["in-process"] = EW.LAUNCHES["negll"]
+        check(torch.equal(r1.negll_history, r2.negll_history),
+              "cli train: chunked history differs from unchunked")
+        same_state([r1.result.state_dict(), r1.optimizer_state],
+                   [r2.result.state_dict(), r2.optimizer_state],
+                   "cli train: chunked flow and optimizer state")
+        cli_same = torch.equal(r1.negll_history.cpu(), hist)
+        # The history against the plain path: within 1e-4 relative (the
+        # whitening slice's gate) unless the plain path on rows reordered
+        # within each batch already differs from it by more; then by the
+        # coupling slice's noise rule (as [vi elementwise]).
+        plain = optimize_whitening(X, flow0, opt, nbatches=nb, nepochs=E,
+                                   use_fused=False).negll_history.cpu()
+        other = optimize_whitening(
+            rows_permuted_within_batches(X, nb, torch.Generator(
+                device=device).manual_seed(62)), flow0, opt, nbatches=nb,
+            nepochs=E, use_fused=False).negll_history.cpu()
+        fused = r1.negll_history.cpu()
+        by_epoch = lambda h: [f"{r:.1e}" for r in ((h - plain).abs()
+                              / plain.abs()).view(E, nb).amax(1).tolist()]
+        rel, noise, rule = hold_history(
+            f"cli train (by epoch {by_epoch(fused)})", fused, plain, other)
+        state = {"flow": r1.result.state_dict(),
+                 "opt_state": r1.optimizer_state,
+                 "history": r1.negll_history}
+        ck_s = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(os.path.join(tmp, "timed"), state, step=i)
+            ck_s.append(time.perf_counter() - t0)
+    runs = {"cli train (d=2, n=2^20)": full_launches["negll"],
+            "cli train resumed (d=2, n=2^20)": resumed_launches["negll"],
+            "cli train in-process unchunked + chunked (d=2, n=2^20)":
+            runs["in-process"]}
+    print(f"[cli train] python -m enflows_tpu_torch.cli train, {E} epochs x "
+          f"{nb} batches of 2^20 (d=2, the flagship stages), chunks of "
+          f"{CLI_TRAIN['every']} epochs: {lines[-1]!r}; B3 {steps} launches "
+          f"uninterrupted; killed after {killed_at} of {chunks} chunks, "
+          f"resumed with {resumed_launches['negll']} B3: flow, optimizer "
+          f"state and history bit-equal; {len(recs)} metrics records equal "
+          f"to the history; child wall {full_s:.1f} s (resume "
+          f"{resumed_s:.1f} s); CLI {cli_ms:.3f} ms/step (metrics clock, "
+          f"with its chunk checkpoints and a host read a record); in "
+          f"process {step_ms:.3f} ms/step unchunked, {chunked_ms:.3f} "
+          f"chunked with checkpoints, bit-equal; CLI history bit-equal to "
+          f"the in-process run: {cli_same}; history {hist[0]:.5f} -> "
+          f"{hist[-1]:.5f}, fused vs plain max rel {rel:.3e} (by epoch "
+          f"{by_epoch(fused)}), the plain path on reordered rows vs plain "
+          f"{noise:.3e} (by epoch {by_epoch(other)}; {rule}); a "
+          f"checkpoint of the trainer state {1e3 * min(ck_s):.3f}-"
+          f"{1e3 * max(ck_s):.3f} ms [{card}]",
+          flush=True)
+    return runs, dict(cli_ms_per_step=cli_ms, ms_per_step=step_ms,
+                      chunked_ms_per_step=chunked_ms,
+                      checkpoint_ms=1e3 * min(ck_s))
+
+
+def run_cli(argv, counters, record=()):
+    """``cli.main(argv)`` in this process with the launch counters set to
+    0 just before and read just after: (printed lines, launches, wall,
+    calls). ``record`` names functions, as (owner, attribute), whose calls
+    in the run are kept (``recording``); ``calls`` holds them in order."""
+    import contextlib
+    import io
+
+    from enflows_tpu_torch import cli
+
+    out = io.StringIO()
+    calls = []
+    with contextlib.ExitStack() as stack:
+        for owner, name in record:
+            stack.enter_context(recording(owner, name, calls))
+        reset_launches(*counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches(counters)
+    check(rc == 0, f"cli {argv}: exit {rc}")
+    return out.getvalue().strip().splitlines(), launches, wall, calls
+
+
+class Call(NamedTuple):
+    args: tuple
+    kwargs: dict
+    key_state: object       # the ``key=`` generator's state before the call
+    result: object
+
+
+@contextlib.contextmanager
+def recording(owner, name, calls):
+    """Replace ``owner.name`` by a wrapper that calls it and appends a
+    ``Call`` to ``calls``; it launches nothing of its own."""
+    real = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        key = kwargs.get("key")
+        state = key.get_state().clone() if key is not None else None
+        out = real(*args, **kwargs)
+        calls.append(Call(args, kwargs, state, out))
+        return out
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+def replay_plain_elbo(VI, call, reorder_seed):
+    """A recorded ``optimize_elbo`` call again on the plain path, from the
+    same flow and generator state: once on the same draws and once with
+    each step's draws in another row order (the same samples, summed in
+    another order). Returns the two nELBO histories on the host."""
+    logp, flow = call.args[:2]
+    opt = call.args[2] if len(call.args) > 2 else call.kwargs.get(
+        "optimizer")
+    kw = call.kwargs
+    dev = kw["key"].device
+
+    def key():
+        g = torch.Generator(device=dev)
+        g.set_state(call.key_state)
+        return g
+    fit = dict(dim=kw["dim"], batch_size=kw.get("batch_size", 100),
+               nsteps=kw.get("nsteps", 1000),
+               antithetic=kw.get("antithetic", True),
+               dtype=kw.get("dtype", torch.float32), stl=kw.get("stl", False))
+    plain = VI.optimize_elbo(logp, flow, opt, key=key(),
+                             use_fused_coupling=False, **fit)
+    reorder = torch.Generator(device=dev).manual_seed(reorder_seed)
+
+    def draws(generator, step, batch_size, d, dtype, device):
+        xi = VI._base_draws(generator, step, batch_size, d, dtype, device)
+        return xi[torch.randperm(batch_size, generator=reorder,
+                                 device=device)]
+    other = VI._fit(logp, flow, opt, draws, key=key(), opt_state=None,
+                    nelbo_history=None, use_fused_coupling=False, **fit)
+    return plain.nelbo_history.cpu(), other.nelbo_history.cpu()
+
+
+def hold_cli_elbo(VI, what, call, reorder_seed):
+    """The ELBO fit of a CLI run (its recorded call, through B1 and B2) held
+    to the plain path from the same start on the same draws by
+    ``hold_history``. Returns the text for the phase's line."""
+    hist = call.result.nelbo_history.cpu()
+    check(bool(torch.isfinite(hist).all()), f"{what}: history {hist}")
+    plain, other = replay_plain_elbo(VI, call, reorder_seed)
+    rel, noise, rule = hold_history(what, hist, plain, other)
+    return (f"{len(hist)} nELBO steps {float(hist[0]):.5f} -> "
+            f"{float(hist[-1]):.5f}, fused vs plain max rel diff {rel:.3e}, "
+            f"the plain path on reordered rows vs plain {noise:.3e} "
+            f"({rule})")
+
+
+def leapfrog_turns(step_size, inv_mass_diag, num_steps):
+    """Each coordinate's rotation, in turns, over ``num_steps`` leapfrog
+    steps on a standard Gaussian: num_steps * arccos(1 - eps^2 w / 2) /
+    2 pi, w the inverse mass (nan where the steps are unstable). Near an
+    integer a trajectory ends about where it began."""
+    c = 1.0 - 0.5 * float(step_size) ** 2 * inv_mass_diag.double().cpu()
+    turns = num_steps * torch.arccos(c.clamp(-1.0, 1.0)) / (2 * math.pi)
+    return torch.where(c.abs() <= 1.0, turns, float("nan"))
+
+
+def cli_commands(counters, card):
+    """``[cli elbo]``, ``[cli sample]`` and ``[cli infer]``: the commands at
+    tests/test_utils.py:179-290's sizes on the card, each with its launch
+    counts: the ELBO fit B1 + B2 a step, no kernel in ``sample``, the
+    elementwise rung's fit B1 + B2 a step. Each ELBO fit (recorded from the
+    run) is held to the plain path from the same start by
+    ``hold_history``. HMC's rhat is held to 1.5 unless a coordinate's 32
+    leapfrog steps turn within ``HMC_RESONANCE`` of a whole number of
+    turns. Returns (B1/B2) launches by path."""
+    import re
+
+    import enflows_tpu_torch.mcmc as mcmc
+    import enflows_tpu_torch.train as train
+    from enflows_tpu_torch.train import vi as VI
+
+    infer_module = sys.modules["enflows_tpu_torch.infer"]
+
+    lines, launches, wall, calls = run_cli(
+        ["train", "--train.objective=elbo", "--flow.dim=1",
+         "--train.nsteps=50"], counters, record=[(train, "optimize_elbo")])
+    loss = float(re.fullmatch(r"final loss: (-?\d+\.\d+)", lines[-1])[1])
+    want = {**{k: 0 for k in launches}, "fwd": 50, "bwd": 50}
+    check(launches == want and abs(loss) < 0.05 and len(calls) == 1,
+          f"cli elbo: {lines}, launches {launches}, {len(calls)} fits")
+    held = hold_cli_elbo(VI, "cli elbo", calls[0], 63)
+    paths = {"cli elbo (d=1, n=200)": launches}
+    print(f"[cli elbo] train --train.objective=elbo --flow.dim=1 "
+          f"--train.nsteps=50: {lines[-1]!r}; launches {launch_text(launches)}"
+          f"; {held}; wall {wall:.2f} s [{card}]", flush=True)
+
+    lines, launches, wall, _ = run_cli(["sample", "--sampler.algorithm=smc",
+                                        "--flow.dim=2"], counters)
+    check(lines == ["SMC: 1 temperatures, logZ=1.8379"]
+          and not any(launches.values()), f"cli sample smc: {lines}")
+    print(f"[cli sample] smc, 8192 particles, the demo target (the base up "
+          f"to log 2 pi): {lines[-1]!r}; no launch; wall {wall:.2f} s "
+          f"[{card}]", flush=True)
+    lines, launches, wall, calls = run_cli([
+        "sample", "--sampler.algorithm=hmc", "--flow.dim=2",
+        "--sampler.num_warmup=100", "--sampler.num_samples=100",
+        "--sampler.num_chains=4"], counters, record=[(mcmc, "sample")])
+    m = re.fullmatch(r"hmc: rhat=(\d+\.\d+) ess_min=(\d+) "
+                     r"accept=(\d\.\d+)", lines[-1])
+    stats = calls[0].result[2]
+    turns = leapfrog_turns(stats.step_size, stats.inv_mass_diag, 32)
+    off = float((turns - turns.round()).abs().min())
+    check(m and math.isfinite(float(m[1])) and 0.5 < float(m[3]) <= 1.0
+          and (float(m[1]) <= 1.5 or off < HMC_RESONANCE)
+          and not any(launches.values()),
+          f"cli sample hmc: {lines}, turns {turns.tolist()}")
+    print(f"[cli sample] hmc, 4 chains x 100 + 100: {lines[-1]!r}; adapted "
+          f"step size {float(stats.step_size):.4f}, inverse mass "
+          f"{[round(v, 4) for v in stats.inv_mass_diag.tolist()]}, 32 steps "
+          f"turn {[round(v, 3) for v in turns.tolist()]} times (nearest "
+          f"whole number {off:.3f} away; rhat held to 1.5 unless under "
+          f"{HMC_RESONANCE}); no launch; wall {wall:.2f} s [{card}]",
+          flush=True)
+
+    n = CLI_INFER_STEPS
+    lines, launches, wall, calls = run_cli([
+        "infer", "--flow.dim=2", "--sampler.precondition_kind=elementwise",
+        "--sampler.num_warmup=150", "--sampler.num_samples=150",
+        "--sampler.num_chains=4", f"--train.nsteps={n}"], counters,
+        record=[(infer_module, "optimize_elbo")])
+    want = {**{k: 0 for k in launches}, "fwd": n, "bwd": n}
+    m = re.fullmatch(r"nuts: rhat=(\d+\.\d+) .*divergences=\d+ mean=.*",
+                     lines[-1])
+    check(len(lines) == 2 and lines[0].startswith(
+        "precondition: family=elementwise ") and m
+        and math.isfinite(float(m[1])) and launches == want
+        and len(calls) == 1,
+        f"cli infer: {lines}, launches {launches}, {len(calls)} fits")
+    held = hold_cli_elbo(VI, "cli infer", calls[0], 64)
+    paths["cli infer elementwise (d=2, n=1024)"] = launches
+    print(f"[cli infer] infer --sampler.precondition_kind=elementwise on the "
+          f"demo target, {n} VI steps, NUTS 4 x 150 + 150: {lines}; "
+          f"launches {launch_text(launches)}; the rung's fit: {held}; wall "
+          f"{wall:.2f} s [{card}]", flush=True)
+    return {key: {p: v[key] for p, v in paths.items()}
+            for key in ("fwd", "bwd")}
+
+
+def trace_phase(et, device, card, steps=4):
+    """``[trace]``: ``utils.trace`` around ``steps`` fused whitening steps
+    of the flagship flow at 2^20 samples: the exported Chrome trace holds
+    the trainer's range and a B3 wrapper's ``enflows.cuda.fused_negll_grad``
+    range a step, and B3 kernel events each launched (the runtime call of
+    the same correlation id) inside one of those ranges. Not every kernel
+    event need be in the trace: late in this script the profiler has
+    dropped the first step's (PERF.md §7), so the count is printed."""
+    import tempfile
+
+    from enflows_tpu_torch.train import optimize_whitening
+    from enflows_tpu_torch.utils import trace
+
+    gen = torch.Generator(device=device).manual_seed(61)
+    with torch.no_grad():
+        X = example_2d_flow(et, device)(torch.randn(
+            steps << 20, 2, generator=gen, device=device))
+    flow = flagship_flow(et, 2, gen, device)
+    optimize_whitening(X, flow, nbatches=steps, nepochs=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            optimize_whitening(X, flow, nbatches=steps, nepochs=1)
+        (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    name = "enflows.cuda.fused_negll_grad"
+    ranges = [e for e in events if e.get("name") == name
+              and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "ew_grad_kernel" in e.get("name", "")]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime"
+               and "correlation" in e.get("args", {})}
+    held = [0] * len(ranges)
+    for k in kernels:
+        call = runtime.get(k.get("args", {}).get("correlation"))
+        for i, r in enumerate(ranges):
+            if call is not None and r["tid"] == call["tid"] and \
+                    r["ts"] <= call["ts"] and \
+                    call["ts"] + call.get("dur", 0) <= r["ts"] + r["dur"]:
+                held[i] += 1
+    trainer = sum(e.get("name") == "enflows.train.whitening"
+                  for e in events)
+    device_events = sum(e.get("cat") == "kernel" for e in events)
+    check(len(ranges) == steps and kernels and sum(held) == len(kernels)
+          and max(held) <= 1 and trainer,
+          f"trace: {len(ranges)} {name} ranges, {len(kernels)} B3 kernel "
+          f"events, launched inside the ranges {held}, {trainer} trainer "
+          f"ranges")
+    print(f"[trace] utils.trace over {steps} fused whitening steps (2^20 "
+          f"samples): {len(events)} events ({device_events} kernel events), "
+          f"{size} bytes; {len(ranges)} {name} ranges; {len(kernels)} B3 "
+          f"kernel events in the trace, each launched inside one of them "
+          f"(by range: {held}; {kernels[0]['name'][:48]}, "
+          f"{', '.join(str(k['dur']) for k in kernels)} us); the "
+          f"enflows.train.whitening range present [{card}]", flush=True)
+
+
+def heartbeat_phase(device, card):
+    """``[heartbeat]``: the default probe (a one-element sum on the card,
+    synchronized in the watchdog thread) returns True within its
+    deadline; an injected hung probe returns False at its deadline;
+    ``run_checkpointed`` with a failing probe saves its rescue checkpoint
+    of the last step and raises ``HeartbeatTimeout``, and with the default
+    probe runs through."""
+    import tempfile
+    import threading
+
+    from enflows_tpu_torch.utils import (HeartbeatTimeout, heartbeat,
+                                         latest_step, restore_checkpoint,
+                                         run_checkpointed)
+
+    t0 = time.perf_counter()
+    ok = heartbeat(30.0)
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    check(ok is True, "heartbeat: the default probe failed")
+    t0 = time.perf_counter()
+    hung = heartbeat(1.0, _probe=lambda: threading.Event().wait())
+    hung_s = time.perf_counter() - t0
+    check(hung is False and 0.9 <= hung_s < 5.0,
+          f"heartbeat: a hung probe gave {hung} after {hung_s:.2f} s")
+
+    def step(state, i):
+        return {"x": state["x"] * 1.5 + i, "i": state["i"] + 1}
+
+    state0 = {"x": torch.ones(4, device=device), "i": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            run_checkpointed(step, state0, 10, ckpt_dir=tmp,
+                             checkpoint_every=100, heartbeat_every=5,
+                             heartbeat_timeout_s=30.0,
+                             _heartbeat_fn=lambda t: False)
+            raised = ""
+        except HeartbeatTimeout as e:
+            raised = str(e)
+        check("after step 5" in raised and "checkpoint saved" in raised
+              and latest_step(tmp) == 5,
+              f"heartbeat: rescue {raised!r}, latest {latest_step(tmp)}")
+        rescued = restore_checkpoint(tmp, state0, step=5)
+        want = state0
+        for i in range(5):
+            want = step(want, i)
+        check(torch.equal(rescued["x"], want["x"])
+              and rescued["x"].device == want["x"].device
+              and rescued["i"] == 5, "heartbeat: the rescue state differs")
+    final, _ = run_checkpointed(step, state0, 10, heartbeat_every=5)
+    check(final["i"] == 10, "heartbeat: the default probe stopped the loop")
+    print(f"[heartbeat] default probe True in {probe_ms:.2f} ms; a hung "
+          f"probe False after {hung_s:.2f} s (deadline 1 s); "
+          f"run_checkpointed with a failing probe saved step 5 and raised "
+          f"HeartbeatTimeout; with the default probe it ran 10 steps "
+          f"[{card}]", flush=True)
+
+
+def cli_phases(et, EW, counters, device, card):
+    """The run utilities' and the CLI's phases. Returns B1-B3's launches by
+    path and [cli train]'s times."""
+    train_paths, times = cli_train(et, EW, counters, device, card)
+    paths = cli_commands(counters, card)
+    paths["negll"] = train_paths
+    trace_phase(et, device, card)
+    heartbeat_phase(device, card)
+    return paths, times
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4317,6 +4941,11 @@ def main():
     infer_runs, infer_times, infer_hold_err = infer_phases(
         et, EW, C, counters, device, smi)
 
+    # The CLI (python -m enflows_tpu_torch.cli): train through B3 killed and
+    # resumed, the ELBO and infer commands through B1/B2, sample; then the
+    # profiler's kernel ranges and the heartbeat.
+    cli_paths, cli_times = cli_phases(et, EW, counters, device, smi)
+
     def infer_paths(key):
         return {path: n[key] for path, n in infer_runs.items() if n[key]}
 
@@ -4328,7 +4957,8 @@ def main():
                       "vi elementwise (d=50, n=2^17)": vi_ew[False][key],
                       "vi elementwise stl (d=50, n=2^17)": vi_ew[True][key],
                       "vi example (d=1, n=200)": vi_ex[key],
-                      **smc_paths[key], **infer_paths(key)}
+                      **smc_paths[key], **infer_paths(key),
+                      **cli_paths[key]}
                 for key in ("fwd", "bwd")}
     b2 = {**b2, **{f"{k}_d50": b2_d50[k]
                    for k in ("ms", "plain_ms", "bound_ms")}}
@@ -4345,13 +4975,15 @@ def main():
     # The kernels' times at the infer phases' shapes.
     for key, vals in (("fwd", b1), ("bwd", b2), ("negll", b3)):
         vals["infer_shapes"] = infer_times[key]
+    b3["cli_train"] = cli_times
     rows = [("B1 fused_forward_and_ladj", ew_paths["fwd"], src,
-             f"{pallas}:441", b1),
+             f"{pallas}:442", b1),
             ("B2 fused forward backward", ew_paths["bwd"], src,
-             f"{pallas}:641", b2),
+             f"{pallas}:642", b2),
             ("B3 fused_negll_value_and_grad",
              {"whitening slice (d=2, n=2^20)": launches["negll"],
-              **infer_paths("negll")}, src, f"{pallas}:852", b3)]
+              **infer_paths("negll"), **cli_paths["negll"]}, src,
+             f"{pallas}:853", b3)]
     csrc = "enflows_tpu_torch/ops/csrc/coupling.cu"
     cpallas = "enflows_tpu/ops/pallas/coupling.py"
     for k in ("affine", "spline"):
@@ -4370,13 +5002,13 @@ def main():
         infer = {} if k == "affine" else {
             "infer_hold_max_abs_err": infer_hold_err}
         rows += [(f"B4 fused_coupling_forward_and_ladj ({k} BASELINE)",
-                  paths["coupling_fwd"], csrc, f"{cpallas}:677",
+                  paths["coupling_fwd"], csrc, f"{cpallas}:678",
                   {**b4[k], "ms_vi_template": t["b4_ms_vi_template"],
                    "tile_vi_template": t["b4_tile_vi_template"],
                    **yard["b4"], **infer, **({} if k == "affine" else {
                        "infer_shapes": infer_times["coupling_fwd"]})}),
                  (f"B5 fused coupling backward ({k} BASELINE)",
-                  paths["coupling_bwd"], csrc, f"{cpallas}:616",
+                  paths["coupling_bwd"], csrc, f"{cpallas}:617",
                   {**b5[k], "ms_vi_template": t["ms_vi_template"],
                    "tile_vi_template": t["tile_vi_template"],
                    **yard["b5"], **infer, **({} if k == "affine" else {
@@ -4396,7 +5028,8 @@ def main():
             "library_ms_vi_template", "bound_ms_vi_template", "ms_d50",
             "plain_ms_d50", "bound_ms_d50", "ms_smc_fit", "plain_ms_smc_fit",
             "bound_ms_smc_fit", "ms_smc_apply", "plain_ms_smc_apply",
-            "bound_ms_smc_apply", "infer_hold_max_abs_err", "infer_shapes")
+            "bound_ms_smc_apply", "infer_hold_max_abs_err", "infer_shapes",
+            "cli_train")
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s, the "
           f"build included [{smi}]", flush=True)
     print(json.dumps({"kernels": [

@@ -18,13 +18,15 @@ systematic resampling, ensemble-preconditioned HMC mutations and learned
 annealing transports (fitted and applied through B1/B2 on the card), with
 ``infer``'s SMC route; and ``infer``'s default path: the
 ``precondition="auto"`` ladder with its SMC rescue, ``data=`` and
-``refine_rounds``. The kernels are written in CUDA C++ for Hopper and
-built at first use. The package imports ``torch`` and never ``jax``;
-``interop`` carries weights over from the JAX package without importing
-it.
+``refine_rounds``; and the run utilities (``utils``: checkpoint/resume,
+``run_checkpointed``, metrics streams, profiler ranges, NaN guards, run
+configs) with the CLI, ``python -m enflows_tpu_torch.cli``. The kernels
+are written in CUDA C++ for Hopper and built at first use. The package
+imports ``torch`` and never ``jax``; ``interop`` carries weights over from
+the JAX package without importing it.
 """
 
-from . import bijectors, distributions, mcmc, ops, smc, train
+from . import bijectors, distributions, mcmc, ops, smc, train, utils
 from .bijectors import (
     AffineCoupling, Bijector, Chain, CenterContract, CenterStretch,
     ElementwiseRQSpline, Householder, Identity, Johnson, JohnsonInv,
@@ -34,8 +36,9 @@ from .bijectors import (
     spline_coupling_stack, sum_ladjs,
 )
 from .distributions import (
-    FlowDistribution, std_normal_logpdf, std_normal_logpdf_sum,
+    FlowDistribution, JohnsonSU, std_normal_logpdf, std_normal_logpdf_sum,
 )
+from .utils.pytree import param_dtype
 from .infer import (InferenceResult, coupling_flow_template,
                     default_flow_template, infer, summarize_draws)
 from .train import (VIResult, WhiteningResult, mvnormal_negll, neg_elbo,

@@ -3,7 +3,10 @@ from .base import (
 )
 from .scale_shift import ScaleShift
 from .center_stretch import CenterStretch, CenterContract
-from .johnson import Johnson, JohnsonInv
+from .johnson import (
+    Johnson, JohnsonInv, johnson_deriv, johnson_inv_deriv, johnson_inv_ladj,
+    johnson_ladj,
+)
 from .householder import (
     Householder, householder_chain, householder_chain_dense,
     householder_matrix,
@@ -21,6 +24,7 @@ __all__ = [
     "Bijector", "Chain", "Identity", "compose", "invert",
     "forward_and_ladj", "sum_ladjs",
     "ScaleShift", "CenterStretch", "CenterContract", "Johnson", "JohnsonInv",
+    "johnson_ladj", "johnson_inv_ladj", "johnson_deriv", "johnson_inv_deriv",
     "Householder", "householder_chain", "householder_chain_dense",
     "householder_matrix",
     "AffineCoupling", "MLPConditioner", "Permute", "coupling_stack",

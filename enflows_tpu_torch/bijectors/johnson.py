@@ -34,6 +34,21 @@ def johnson_ladj(x, gamma, delta, xi, lam):
             - 0.5 * torch.log1p(u * u))
 
 
+def johnson_deriv(x, gamma, delta, xi, lam):
+    """dy/dx of the forward map (``enflows_tpu/bijectors/johnson.py:41``);
+    its log is :func:`johnson_ladj`."""
+    u = (x - xi) / lam
+    return delta / (lam * torch.sqrt(1.0 + u * u))
+
+
+def johnson_inv_deriv(y, gamma, delta, xi, lam):
+    """dx/dy of the inverse map (``enflows_tpu/bijectors/johnson.py:50``).
+    Overflows f32 for |(y - gamma) / delta| above ~88; its stable log is
+    :func:`johnson_inv_ladj`."""
+    u = (y - gamma) / delta
+    return lam * torch.cosh(u) / delta
+
+
 def _logcosh(u):
     """``enflows_tpu/bijectors/johnson.py:58``."""
     au = torch.abs(u)

@@ -34,6 +34,7 @@ import torch
 
 from .adaptation import (build_schedule, da_init, da_update, welford_init,
                          welford_update_batch, welford_variance)
+from ..utils.profiling import annotate
 from .hmc import (HMCState, init_state, initial_positions,
                   metropolis_proposal, value_and_grad)
 
@@ -188,25 +189,29 @@ def chees_warmup(logdensity_fn: Callable, initial_states: HMCState,
         initial_step_size, dtype=dtype, device=dev)), m=zero, v=zero, t=zero)
     wf = welford_init(dim, dtype, dev)
     inv_mass = torch.ones(dim, dtype=dtype, device=dev)
-    for t in range(num_warmup):
-        step_size = torch.exp(da.log_step)
-        traj = jitter[t] * torch.exp(adapt.log_h)
-        num_steps = int(_num_leapfrog_steps(traj, step_size, max_num_steps))
-        q0 = states.q
-        states, info = kernel(generator, states, step_size, inv_mass,
-                              num_steps)
-        da = da_update(da, info.accept_prob.mean(), target=target_accept)
-        adapt = _adam_ascent(adapt, _chees_grad(q0, info, traj), lr=adam_lr)
-        # Keep h within [step, max_num_steps * step] so the step count
-        # stays sane.
-        adapt = adapt._replace(log_h=torch.clamp(
-            adapt.log_h, da.log_step, max_log_h + da.log_step))
-        if in_slow[t]:
-            wf = welford_update_batch(wf, states.q)
-        if window_end[t]:
-            inv_mass = welford_variance(wf)
-            da = da_init(torch.exp(da.log_step), dtype)
-            wf = welford_init(dim, dtype, dev)
+    with annotate("enflows.mcmc.chees_warmup"):
+        for t in range(num_warmup):
+            step_size = torch.exp(da.log_step)
+            traj = jitter[t] * torch.exp(adapt.log_h)
+            num_steps = int(_num_leapfrog_steps(traj, step_size,
+                                                max_num_steps))
+            q0 = states.q
+            states, info = kernel(generator, states, step_size, inv_mass,
+                                  num_steps)
+            da = da_update(da, info.accept_prob.mean(),
+                           target=target_accept)
+            adapt = _adam_ascent(adapt, _chees_grad(q0, info, traj),
+                                 lr=adam_lr)
+            # Keep h within [step, max_num_steps * step] so the step count
+            # stays sane.
+            adapt = adapt._replace(log_h=torch.clamp(
+                adapt.log_h, da.log_step, max_log_h + da.log_step))
+            if in_slow[t]:
+                wf = welford_update_batch(wf, states.q)
+            if window_end[t]:
+                inv_mass = welford_variance(wf)
+                da = da_init(torch.exp(da.log_step), dtype)
+                wf = welford_init(dim, dtype, dev)
     return ChEESWarmupResult(states=states,
                              step_size=torch.exp(da.log_step_avg),
                              trajectory_length=torch.exp(adapt.log_h),
@@ -233,12 +238,13 @@ def run_chains_chees(logdensity_fn: Callable, states: HMCState, generator,
     acc = torch.empty(num_samples, n, dtype=dtype, device=dev)
     div = torch.empty(num_samples, n, dtype=torch.bool, device=dev)
     energy = torch.empty(n, num_samples, dtype=dtype, device=dev)
-    for t, num_steps in enumerate(nsteps.tolist()):
-        states, info = kernel(generator, states, step_size, inv_mass_diag,
-                              num_steps)
-        draws[:, t] = states.q
-        acc[t], div[t] = info.accept_prob, info.divergent
-        energy[:, t] = info.energy
+    with annotate("enflows.mcmc.chees_sampling"):
+        for t, num_steps in enumerate(nsteps.tolist()):
+            states, info = kernel(generator, states, step_size,
+                                  inv_mass_diag, num_steps)
+            draws[:, t] = states.q
+            acc[t], div[t] = info.accept_prob, info.divergent
+            energy[:, t] = info.energy
     stats = ChEESSampleStats(accept_prob=acc, divergent=div,
                              num_steps=nsteps, step_size=step_size,
                              trajectory_length=trajectory_length,

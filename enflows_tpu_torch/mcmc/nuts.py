@@ -44,6 +44,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .hmc import HMCState, kinetic_energy, value_and_grad
 
 # Lockstep cost of the transitions run so far: doublings, leaves (each one
@@ -323,10 +324,12 @@ def nuts_kernel(logdensity_fn: Callable, max_depth: int = 10,
         q = state.q
         noise = torch.randn(q.shape, generator=generator, dtype=q.dtype,
                             device=q.device)
-        return nuts_transition(
-            value_grad_fn, state, step_size, inv_mass_diag, noise,
-            _generator_draws(generator, q.shape[0], q.dtype, q.device),
-            max_depth=max_depth, divergence_threshold=divergence_threshold,
-            extra_uturn_checks=extra_uturn_checks)
+        with annotate("enflows.mcmc.nuts_transition"):
+            return nuts_transition(
+                value_grad_fn, state, step_size, inv_mass_diag, noise,
+                _generator_draws(generator, q.shape[0], q.dtype, q.device),
+                max_depth=max_depth,
+                divergence_threshold=divergence_threshold,
+                extra_uturn_checks=extra_uturn_checks)
 
     return kernel

@@ -10,8 +10,10 @@ what a kernel reads itself: NUTS its stop flags (``nuts.py``), ChEES its
 step counts (``chees.py``).
 
 ``sample`` runs ``algorithm="nuts"`` (the default), ``"hmc"`` and
-``"chees"`` (``chees.chees_sample``). The ``metrics=`` stream raises
-``NotImplementedError`` (ROADMAP A.11).
+``"chees"`` (``chees.chees_sample``). ``metrics=`` streams one record a
+transition, as JAX's does: warmup ``{warmup_accept, warmup_step_size,
+warmup_divergences}``, sampling ``{accept, divergences}``, the values read
+back only when the logger writes.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from .adaptation import (build_schedule, da_init, da_update, welford_init,
 from .chees import chees_sample
 from .hmc import HMCState, hmc_kernel, init_state, initial_positions
 from .nuts import nuts_kernel
+from ..utils.profiling import annotate
 
 
 class WarmupResult(NamedTuple):
@@ -47,9 +50,14 @@ def _unported(what: str, item: str):
                                f"yet (ROADMAP {item})")
 
 
+def _divergences(info):
+    div = getattr(info, "divergent", None)
+    return torch.zeros((), dtype=torch.int64) if div is None else div.sum()
+
+
 def window_adaptation(kernel, initial_states: HMCState, generator,
                       num_warmup: int, *, initial_step_size=0.1,
-                      target_accept=0.8) -> WarmupResult:
+                      target_accept=0.8, metrics=None) -> WarmupResult:
     """Stan-style warmup. ``kernel(generator, states, step_size, inv_mass)``
     transitions all chains of ``initial_states`` at once."""
     q = initial_states.q
@@ -60,10 +68,11 @@ def window_adaptation(kernel, initial_states: HMCState, generator,
     wf = welford_init(dim, dtype, dev)
     inv_mass = torch.ones(dim, dtype=dtype, device=dev)
     for t in range(num_warmup):
-        states, info = kernel(generator, states, torch.exp(da.log_step),
-                              inv_mass)
+        step_size = torch.exp(da.log_step)
+        states, info = kernel(generator, states, step_size, inv_mass)
         # Cross-chain consensus before the update: one shared step size.
-        da = da_update(da, info.accept_prob.mean(), target=target_accept)
+        accept_mean = info.accept_prob.mean()
+        da = da_update(da, accept_mean, target=target_accept)
         # Slow windows accumulate position moments over all chains.
         if in_slow[t]:
             wf = welford_update_batch(wf, states.q)
@@ -73,12 +82,16 @@ def window_adaptation(kernel, initial_states: HMCState, generator,
             inv_mass = welford_variance(wf)
             da = da_init(torch.exp(da.log_step), dtype)
             wf = welford_init(dim, dtype, dev)
+        if metrics is not None:
+            metrics.log(t, warmup_accept=accept_mean,
+                        warmup_step_size=step_size,
+                        warmup_divergences=_divergences(info))
     return WarmupResult(states=states, step_size=torch.exp(da.log_step_avg),
                         inv_mass_diag=inv_mass)
 
 
 def run_chains(kernel, states: HMCState, generator, num_samples: int,
-               step_size, inv_mass_diag):
+               step_size, inv_mass_diag, metrics=None):
     """Sample ``num_samples`` transitions; returns
     (positions (chains, steps, dim), final states, stats)."""
     n, dim = states.q.shape
@@ -94,6 +107,9 @@ def run_chains(kernel, states: HMCState, generator, num_samples: int,
         acc[t], div[t], nsteps[t] = (info.accept_prob, info.divergent,
                                      info.num_steps)
         energy[:, t] = info.energy
+        if metrics is not None:
+            metrics.log(t, accept=info.accept_prob.mean(),
+                        divergences=_divergences(info))
     stats = SampleStats(accept_prob=acc, divergent=div, num_steps=nsteps,
                         step_size=step_size, inv_mass_diag=inv_mass_diag,
                         energy=energy)
@@ -116,12 +132,13 @@ def sample(logdensity_fn: Callable, generator, *, dim: int,
     tensor. ``algorithm``: 'nuts' | 'hmc' | 'chees' (adaptive fixed-length
     HMC, ``mcmc.chees``; it uses its own optimal acceptance target 0.651
     and ignores ``target_accept``: call ``chees_sample`` to set it).
+    ``metrics`` (a ``utils.MetricsLogger``): one record a warmup and a
+    sampling transition (see the module's docstring); ChEES streams none,
+    as in JAX (``enflows_tpu/mcmc/sample.py:205-211``).
     """
     if algorithm not in ("nuts", "hmc", "chees"):
         raise ValueError(f"algorithm must be 'nuts', 'hmc' or 'chees', got "
                          f"{algorithm!r}")
-    if metrics is not None:
-        raise _unported("metrics=", "A.11")
     if algorithm == "chees":
         return chees_sample(
             logdensity_fn, generator, dim=dim, num_chains=num_chains,
@@ -134,9 +151,13 @@ def sample(logdensity_fn: Callable, generator, *, dim: int,
         kernel = nuts_kernel(logdensity_fn, max_depth=max_depth)
     else:
         kernel = hmc_kernel(logdensity_fn, num_steps=num_steps)
-    warm = window_adaptation(kernel, init_state(logdensity_fn, q0),
-                             generator, num_warmup,
-                             initial_step_size=initial_step_size,
-                             target_accept=target_accept)
-    return run_chains(kernel, warm.states, generator, num_samples,
-                      warm.step_size, warm.inv_mass_diag)
+    with annotate("enflows.mcmc.warmup"):
+        warm = window_adaptation(kernel, init_state(logdensity_fn, q0),
+                                 generator, num_warmup,
+                                 initial_step_size=initial_step_size,
+                                 target_accept=target_accept,
+                                 metrics=metrics)
+    with annotate("enflows.mcmc.sampling"):
+        return run_chains(kernel, warm.states, generator, num_samples,
+                          warm.step_size, warm.inv_mass_diag,
+                          metrics=metrics)

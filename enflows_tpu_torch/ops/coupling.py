@@ -66,6 +66,7 @@ from ..bijectors.coupling import (ACTIVATIONS, AffineCoupling,
                                   MLPConditioner, Permute)
 from ..bijectors.spline import (_DERIV_SHIFT, _MIN_BIN, _MIN_DERIV,
                                 RQSplineCoupling, softplus)
+from ..utils.profiling import annotate
 from .elementwise import (_APPLY, _CODE, ELEMENTWISE_KINDS,
                           _check_cuda_input, _ints, _raise_on, _sm_count,
                           _stages)
@@ -882,7 +883,8 @@ def _launch_fwd(st: _Structure, x, wbuf, pbuf, save: bool = False):
                  torch.empty(n * _sv_row(st), dtype=torch.float32,
                              device=x.device), wk)
     si, sf, li = _plan_arrays(st)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), \
+            annotate("enflows.cuda.fused_coupling_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_coupling_fwd(
             x.data_ptr(), y.data_ptr(), ladj.data_ptr(), wk.data_ptr(),
@@ -935,7 +937,7 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
     w_part = torch.empty(n_chunks * nsplit if weights else 0, pp.nat_len,
                          dtype=torch.float32, device=dev)
     p_parts = []
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate("enflows.cuda.fused_coupling_bwd"):
         stream = torch.cuda.current_stream().cuda_stream
         for c in range(n_chunks):
             r0, r1 = c * chunk, min(n, (c + 1) * chunk)

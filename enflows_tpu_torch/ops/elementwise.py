@@ -46,6 +46,7 @@ from ..bijectors.householder import Householder, householder_matrix
 from ..bijectors.johnson import Johnson, JohnsonInv
 from ..bijectors.scale_shift import ScaleShift
 from ..distributions.base import std_normal_logpdf
+from ..utils.profiling import annotate
 
 _LOG2 = 0.6931471805599453
 
@@ -543,6 +544,11 @@ def _occupancy(mode: int, E: int, block: int, smem: int) -> tuple:
 
 _NAMES = {"fwd": "B1 (fused forward)", "bwd": "B2 (fused bwd)",
           "negll": "B3 (fused negll)"}
+# Each launch's profiler range; JAX's enflows.pallas.* scopes
+# (elementwise.py:930, :1030).
+_RANGES = {"fwd": "enflows.cuda.fused_fwd_ladj",
+           "bwd": "enflows.cuda.fused_bwd",
+           "negll": "enflows.cuda.fused_negll_grad"}
 
 
 def _launch(mode: str, plan: ChainPlan, x, bufs, gy=None, gladj=None):
@@ -583,7 +589,7 @@ def _launch(mode: str, plan: ChainPlan, x, bufs, gy=None, gladj=None):
     packed = (plan.G == 1 and d == plan.E and plan.E > 1
               and all(t.data_ptr() % (4 * plan.E) == 0
                       for t in rows_io if t is not None and t.numel()))
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate(_RANGES[mode]):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_fused_chain(
             _MODE[mode], x.data_ptr(), ptr(gy), ptr(gladj), ptr(outs["y"]),

@@ -33,6 +33,7 @@ import torch
 
 from ..bijectors.householder import Householder, householder_matrix
 from ..distributions.base import _LOG_2PI
+from ..utils.profiling import annotate
 from .elementwise import (_ADJOINT, _APPLY, _CODE, _HH, _check_cuda_input,
                           _check_kinds, _ints, _raise_on, _stages,
                           is_fusible_chain, reflection_rows)
@@ -275,7 +276,7 @@ def _launch(args: LeapfrogArgs, q, p, num_steps):
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)
     lp0 = torch.empty(n, dtype=torch.float32, device=q.device)
     lpL = torch.empty_like(lp0)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), annotate("enflows.cuda.fused_leapfrog"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_fused_leapfrog(
             q.data_ptr(), p.data_ptr(), q_out.data_ptr(), p_out.data_ptr(),

@@ -47,6 +47,7 @@ from ..bijectors.base import Bijector
 from ..distributions.base import std_normal_logpdf_sum
 from ..mcmc.hmc import hmc_transition, init_state, value_and_grad
 from ..train.vi import _route
+from ..utils.profiling import annotate
 
 
 class SMCState(NamedTuple):
@@ -136,10 +137,12 @@ def _transport_forward(T: Bijector, x: torch.Tensor):
 
 def _run_ladder(generator, state: SMCState, max_temps: int,
                 compute_next_beta, step, tempered, log_base, log_target,
-                fit_transport):
+                fit_transport, metrics=None):
     """The temperature ladder: beta', the optional transport, the step, until
     beta reaches 1 or ``max_temps`` steps ran. One host read a temperature
-    (beta, for the stop test). Returns (state, [SMCInfo])."""
+    (beta, for the stop test), and with ``metrics`` one record a temperature
+    (beta, ESS, acceptance, resampled, running log Z; read when the logger
+    writes). Returns (state, [SMCInfo])."""
     infos = []
     for _ in range(max_temps):
         beta_new = compute_next_beta(state)
@@ -157,6 +160,10 @@ def _run_ladder(generator, state: SMCState, max_temps: int,
                     log_target(state.particles) - log_base(state.particles))
         state, info = step(generator, state, beta_new, lw_inc)
         infos.append(info)
+        if metrics is not None:
+            metrics.log(len(infos) - 1, beta=info.beta, ess=info.ess,
+                        accept=info.accept_prob, resampled=info.resampled,
+                        log_z=info.log_z)
         if float(state.beta) >= 1.0:
             break
     return state, infos
@@ -269,17 +276,18 @@ def make_compute_next_beta(log_base: Callable, log_target: Callable,
         def ess_at(b):
             return log_ess(state.log_weights + (b - state.beta) * log_ratio)
 
-        one = torch.ones((), dtype=dtype, device=x.device)
-        full = ess_at(one) >= target_log_ess
-        lo, hi = state.beta, one
-        halvings = _HALVINGS if torch.finfo(dtype).eps <= 2.4e-7 else 60
-        for _ in range(halvings):
-            live = hi - lo > 1e-6
-            mid = 0.5 * (lo + hi)
-            ok = ess_at(mid) >= target_log_ess
-            lo = torch.where(live & ok, mid, lo)
-            hi = torch.where(live & ~ok, mid, hi)
-        return torch.where(full, one, lo)
+        with annotate("enflows.smc.tempering"):
+            one = torch.ones((), dtype=dtype, device=x.device)
+            full = ess_at(one) >= target_log_ess
+            lo, hi = state.beta, one
+            halvings = _HALVINGS if torch.finfo(dtype).eps <= 2.4e-7 else 60
+            for _ in range(halvings):
+                live = hi - lo > 1e-6
+                mid = 0.5 * (lo + hi)
+                ok = ess_at(mid) >= target_log_ess
+                lo = torch.where(live & ok, mid, lo)
+                hi = torch.where(live & ~ok, mid, hi)
+            return torch.where(full, one, lo)
 
     return compute_next_beta
 
@@ -315,12 +323,14 @@ def make_reweight_resample_mutate(
         # so a strict < would never fire and beta would stall at the
         # boundary (ess_target == resample_threshold is the default).
         do_resample = cur_ess <= resample_threshold * n * (1.0 + 1e-6)
-        particles = torch.where(
-            do_resample,
-            systematic_resample(generator, log_weights, state.particles),
-            state.particles)
-        log_weights = torch.where(do_resample, torch.zeros_like(log_weights),
-                                  log_weights)
+        with annotate("enflows.smc.resample"):
+            particles = torch.where(
+                do_resample,
+                systematic_resample(generator, log_weights, state.particles),
+                state.particles)
+            log_weights = torch.where(do_resample,
+                                      torch.zeros_like(log_weights),
+                                      log_weights)
 
         logp_fn = tempered(beta_new)
         value_grad_fn = lambda q: value_and_grad(logp_fn, q)
@@ -334,15 +344,18 @@ def make_reweight_resample_mutate(
         inv_mass = torch.clamp(var_p, 1e-6, 1e6)
         inv_sd = torch.rsqrt(inv_mass)
 
-        step_size, accs = state.step_size, []
-        for _ in range(mutation_steps):
-            noise, u = _mutation_draws(generator, states.q)
-            states, info = hmc_transition(value_grad_fn, states, step_size,
-                                          inv_mass, leapfrog_steps,
-                                          noise * inv_sd, u)
-            acc = info.accept_prob.mean()
-            step_size = step_size * torch.exp(0.5 * (acc - target_accept))
-            accs.append(acc)
+        with annotate("enflows.smc.mutate"):
+            step_size, accs = state.step_size, []
+            for _ in range(mutation_steps):
+                noise, u = _mutation_draws(generator, states.q)
+                states, info = hmc_transition(value_grad_fn, states,
+                                              step_size, inv_mass,
+                                              leapfrog_steps, noise * inv_sd,
+                                              u)
+                acc = info.accept_prob.mean()
+                step_size = step_size * torch.exp(
+                    0.5 * (acc - target_accept))
+                accs.append(acc)
         accept_prob = (torch.stack(accs).mean() if accs else
                        torch.full_like(step_size, float("nan")))
 
@@ -392,8 +405,10 @@ def smc_sample(log_target: Callable, key: Optional[torch.Generator] = None,
     the baked one.
 
     ``in_graph`` is accepted for JAX's signature; both values run the same
-    eager ladder, whose one host read a temperature is beta. ``metrics``
-    (streaming one record a temperature) is not ported yet.
+    eager ladder, whose one host read a temperature is beta. ``metrics`` (a
+    ``utils.MetricsLogger``) streams one record a temperature, ``{beta,
+    ess, accept, resampled, log_z}``; as in JAX, it needs ``in_graph``
+    None or False.
     """
     if key is None:
         key = torch.Generator(device="cuda").manual_seed(0)
@@ -444,14 +459,12 @@ def smc_sample(log_target: Callable, key: Optional[torch.Generator] = None,
         raise ValueError(
             "in_graph=True cannot stream metrics (the ladder runs in one "
             "jit); drop metrics= or pass in_graph=False")
-    if metrics is not None:
-        raise NotImplementedError("smc_sample(metrics=...) is not ported to "
-                                  "enflows_tpu_torch yet (ROADMAP A.11)")
-    if use_in_graph and ladder is not None:
-        state, n_t, bufs = ladder(key, state, max_temps)
-        infos = [SMCInfo(*(b[i] for b in bufs)) for i in range(n_t)]
-    else:
-        state, infos = _run_ladder(key, state, max_temps, compute_next_beta,
-                                   step, tempered, log_base, log_target,
-                                   fit_transport)
+    with annotate("enflows.smc.ladder"):
+        if use_in_graph and ladder is not None:
+            state, n_t, bufs = ladder(key, state, max_temps)
+            infos = [SMCInfo(*(b[i] for b in bufs)) for i in range(n_t)]
+        else:
+            state, infos = _run_ladder(
+                key, state, max_temps, compute_next_beta, step, tempered,
+                log_base, log_target, fit_transport, metrics)
     return state.particles, state.log_weights, state.log_z, infos

@@ -27,6 +27,8 @@ from ..ops.coupling import (coupling_batch_held,
                             is_fusible_coupling_stack)
 from ..ops.elementwise import (_grads_by_name, fused_forward_and_ladj,
                                is_fusible_chain)
+from ..utils.profiling import annotate
+from ..utils.resilience import run_chunked
 from .whitening import default_optimizer, make_train_step
 
 _LOG_2PI = 1.8378770664093453
@@ -213,29 +215,40 @@ def optimize_elbo(
     ``vi.py:181-182``); on a CPU batch the fused wrapper then runs its
     plain version.
 
-    ``mesh`` (with ``batch_axis``), ``metrics``, ``checkpoint_every`` and
-    ``ckpt_dir`` are not ported yet and raise ``NotImplementedError``.
+    ``metrics`` (a ``utils.MetricsLogger``): one record a step, ``{"step",
+    "nelbo"}``, its value read when the logger writes.
+
+    ``checkpoint_every`` (steps) with ``ckpt_dir``: the steps run in chunks
+    through ``utils.run_chunked``, which saves the flow's
+    ``state_dict()``, the optimizer state, the history so far and the
+    generator's state (``key.get_state()``) at every chunk's end. JAX folds
+    the step into its key; here every step draws from one sequential
+    generator, so a resumed run restores its state and draws exactly what
+    the uninterrupted run drew, and a chunked run equals an unchunked one
+    bit for bit.
+
+    ``mesh`` (with ``batch_axis``) is not ported yet and raises
+    ``NotImplementedError`` (ROADMAP A.10).
     """
-    for name, value, item in (("mesh", mesh, "A.10"),
-                              ("metrics", metrics, "A.11"),
-                              ("checkpoint_every", checkpoint_every, "A.11"),
-                              ("ckpt_dir", ckpt_dir, "A.11")):
-        if value is not None:
-            raise NotImplementedError(
-                f"optimize_elbo({name}=...) is not ported to "
-                f"enflows_tpu_torch yet (ROADMAP {item})")
+    if mesh is not None:
+        raise NotImplementedError(
+            "optimize_elbo(mesh=...) is not ported to enflows_tpu_torch yet "
+            "(ROADMAP A.10)")
     if key is None:
         key = torch.Generator(device="cuda").manual_seed(0)
     return _fit(logdensity_fn, initial_flow, optimizer, _base_draws,
                 dim=dim, batch_size=batch_size, nsteps=nsteps,
                 antithetic=antithetic, key=key, opt_state=opt_state,
                 nelbo_history=nelbo_history, dtype=dtype,
-                use_fused_coupling=use_fused_coupling, stl=stl)
+                use_fused_coupling=use_fused_coupling, stl=stl,
+                metrics=metrics, checkpoint_every=checkpoint_every,
+                ckpt_dir=ckpt_dir)
 
 
 def _fit(logdensity_fn, initial_flow, optimizer, draws: Callable, *, dim,
          batch_size, nsteps, antithetic, key, opt_state, nelbo_history,
-         dtype, use_fused_coupling, stl) -> VIResult:
+         dtype, use_fused_coupling, stl, metrics=None, checkpoint_every=None,
+         ckpt_dir=None) -> VIResult:
     """``optimize_elbo``'s steps, each drawing its base samples as
     ``draws(key, step, batch_size, dim, dtype, device)``."""
     device = key.device
@@ -255,21 +268,30 @@ def _fit(logdensity_fn, initial_flow, optimizer, draws: Callable, *, dim,
         opt.load_state_dict(opt_state)
     step = make_train_step(opt, value_and_grad)
 
-    history = []
-    for i in range(nsteps):
-        xi = draws(key, i, batch_size, dim, dtype, device)
-        if antithetic:
-            xi = torch.cat([xi, -xi])
-        nelbo = step(flow, xi)
-        if stl:
-            # The standard nELBO differs from the STL value by the
-            # empirical-vs-analytic base entropy, computable from xi alone.
-            nb, nd = xi.shape
-            mean_log_n = -0.5 * (xi * xi).sum() / nb - 0.5 * nd * _LOG_2PI
-            nelbo = nelbo - mean_log_n - 0.5 * (_LOG_2PI + 1.0) * nd
-        history.append(nelbo)
-    history = (torch.stack(history) if history else
-               torch.zeros(0, dtype=dtype, device=device))
+    def steps(i0: int, i1: int) -> list:
+        history = []
+        for i in range(i0, i1):
+            xi = draws(key, i, batch_size, dim, dtype, device)
+            if antithetic:
+                xi = torch.cat([xi, -xi])
+            nelbo = step(flow, xi)
+            if stl:
+                # The standard nELBO differs from the STL value by the
+                # empirical-vs-analytic base entropy, computable from xi.
+                nb, nd = xi.shape
+                mean_log_n = (-0.5 * (xi * xi).sum() / nb
+                              - 0.5 * nd * _LOG_2PI)
+                nelbo = nelbo - mean_log_n - 0.5 * (_LOG_2PI + 1.0) * nd
+            if metrics is not None:
+                metrics.log(i, nelbo=nelbo)
+            history.append(nelbo)
+        return history
+
+    with annotate("enflows.train.vi"):
+        history = run_chunked(
+            steps, flow, opt, torch.zeros(nsteps, dtype=dtype, device=device),
+            nsteps, 1, every=checkpoint_every, ckpt_dir=ckpt_dir,
+            generator=key)
     if nelbo_history is not None:
         history = torch.cat([torch.as_tensor(nelbo_history).to(history),
                              history])

@@ -28,6 +28,8 @@ from ..ops.coupling import (coupling_batch_held,
                             is_fusible_coupling_stack)
 from ..ops.elementwise import (_grads_by_name, fused_forward_and_ladj,
                                fused_negll_value_and_grad, is_fusible_chain)
+from ..utils.profiling import annotate
+from ..utils.resilience import run_chunked
 
 
 def mvnormal_negll(flow: Bijector, X: torch.Tensor) -> torch.Tensor:
@@ -164,15 +166,24 @@ def optimize_whitening(
     fusible coupling stack (on a CPU batch either fused wrapper runs its
     plain version).
 
-    ``mesh``, ``metrics``, ``checkpoint_every`` and ``ckpt_dir`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``metrics`` (a ``utils.MetricsLogger``): one record a step, ``{"step":
+    e * nbatches + b, "negll"}``, its value read when the logger writes.
+
+    ``checkpoint_every`` (epochs) with ``ckpt_dir``: the epochs run in
+    chunks of ``checkpoint_every`` through ``utils.run_chunked``, which
+    saves the flow's ``state_dict()``, the optimizer state and the history
+    so far at every chunk's end; a killed run called again the same way
+    resumes from the last chunk and ends bit-identical to an uninterrupted
+    one (whitening draws nothing). A chunked run takes the same steps as an
+    unchunked one, bit for bit.
+
+    ``mesh`` is not ported yet and raises ``NotImplementedError`` (ROADMAP
+    A.10).
     """
-    for name, value in (("mesh", mesh), ("metrics", metrics),
-                        ("checkpoint_every", checkpoint_every),
-                        ("ckpt_dir", ckpt_dir)):
-        if value is not None:
-            raise NotImplementedError(
-                f"optimize_whitening({name}=...) is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "optimize_whitening(mesh=...) is not ported to enflows_tpu_torch "
+            "yet (ROADMAP A.10)")
     n, dim = samples.shape
     batch_size = n // nbatches
     batches = samples[:batch_size * nbatches].reshape(
@@ -201,10 +212,22 @@ def optimize_whitening(
                           loss_fn=mvnormal_negll_coupling)}[use_fused]
     step = make_train_step(opt, value_and_grad)
 
-    neglls = [step(flow, batches[b])
-              for _ in range(nepochs) for b in range(nbatches)]
-    history = (torch.stack(neglls) if neglls else
-               torch.zeros(0, dtype=samples.dtype, device=samples.device))
+    def epochs(e0: int, e1: int) -> list:
+        neglls = []
+        for e in range(e0, e1):
+            for b in range(nbatches):
+                negll = step(flow, batches[b])
+                if metrics is not None:
+                    metrics.log(e * nbatches + b, negll=negll)
+                neglls.append(negll)
+        return neglls
+
+    with annotate("enflows.train.whitening"):
+        history = run_chunked(
+            epochs, flow, opt, torch.zeros(nepochs * nbatches,
+                                           dtype=samples.dtype,
+                                           device=samples.device),
+            nepochs, nbatches, every=checkpoint_every, ckpt_dir=ckpt_dir)
     if negll_history is not None:
         history = torch.cat([torch.as_tensor(negll_history).to(history),
                              history])

@@ -297,9 +297,14 @@ def test_sample_hmc_gaussian_moments():
 
 
 def test_sample_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TM.sample(_tgauss, torch.Generator(), dim=3, device="cpu",
-                  algorithm="hmc", metrics=object())
+    """``metrics=`` raised until ROADMAP A.11 was ported; it now streams a
+    record a transition (tests/test_torch_utils.py holds the stream to
+    JAX's). The name is the one the test had while it raised."""
+    log = et.utils.MetricsLogger(None)
+    TM.sample(_tgauss, torch.Generator(), dim=3, device="cpu",
+              algorithm="hmc", num_chains=4, num_warmup=3, num_samples=2,
+              dtype=torch.float64, metrics=log)
+    assert [r["step"] for r in log.history] == [0, 1, 2, 0, 1]
 
 
 @pytest.mark.parametrize("algorithm", ["nuts", "chees"])
@@ -431,13 +436,18 @@ def test_infer_unported_routes_raise(kw, item):
 
 def test_infer_pushforward_with_unsupported_kwarg_takes_standard_path():
     """A kwarg the fused route does not take sends the call down the
-    standard path (tests/test_infer.py:279), which refuses metrics= as
-    unported rather than raising TypeError."""
+    standard path (tests/test_infer.py:279), whose ``sample`` streams
+    ``metrics=`` (it raised as unported until ROADMAP A.11), with no B6
+    launch."""
     target = from_jax(_d2_target(), device="cpu")
-    with pytest.raises(NotImplementedError, match="metrics"):
-        et.infer(target, dim=2, key=torch.Generator(), method="hmc",
-                 precondition=None, metrics=object(), num_warmup=2,
-                 num_samples=2)
+    log = et.utils.MetricsLogger(None)
+    before = dict(TL.LAUNCHES)
+    res = et.infer(target, dim=2, key=torch.Generator(), method="hmc",
+                   precondition=None, metrics=log, num_chains=4,
+                   num_warmup=2, num_samples=2)
+    assert TL.LAUNCHES == before
+    assert res.draws.shape == (4, 2, 2)
+    assert len(log.history) == 4
 
 
 @pytest.mark.parametrize("method", ["nuts", "chees"])

@@ -550,8 +550,11 @@ def test_keyword_checks():
     with pytest.raises(ValueError, match="in_graph=True cannot stream"):
         TSM.smc_sample(_gauss_target, gen(), metrics=object(),
                        in_graph=True, **kw)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TSM.smc_sample(_gauss_target, gen(), metrics=object(), **kw)
+    # metrics= raised as unported until ROADMAP A.11; it now streams one
+    # record a temperature (tests/test_torch_utils.py holds it to JAX).
+    log = et.utils.MetricsLogger(None)
+    *_, infos = TSM.smc_sample(_gauss_target, gen(), metrics=log, **kw)
+    assert len(log.history) == len(infos)
     fit = TSM.make_transport_fitter(t_std, _gauss_target, nsteps=2)
     with pytest.raises(ValueError, match="even particle count"):
         TSM.smc_sample(_gauss_target, gen(), dim=2, num_particles=63,
