@@ -56,10 +56,11 @@ def build_variants(out_dir):
 
 
 def short(mangled):
-    """'B1 E=2' or 'B3 E=2' from an instantiation's mangled name."""
-    args = mangled.split("ILi")[1].split("EEv")[0].split("ELi")
+    """'B1 E=2' or 'B3 E=2 bf16' from an instantiation's mangled name."""
+    storage, rest = mangled.split("_kernelI")[1].split("Li", 1)
+    args = rest.split("EEv")[0].split("ELi")
     kind = "B1" if "ew_fwd" in mangled else ("B2", "B3")[int(args[1]) - 1]
-    return f"{kind} E={args[0]}"
+    return f"{kind} E={args[0]}" + ("" if storage == "f" else " bf16")
 
 
 def load(so):

@@ -121,6 +121,43 @@ exception exits non-zero and prints no result:
    ``torch.profiler`` over 5 fused transitions: the card's busy time per
    transition, and its idle share against the unprofiled transition.
 
+bf16 runs after 9 and before flow-VI (``bf16_phases``), every phase from
+generators of its own, each bf16 variant timed against its f32 twin in
+turns, its bound (bytes at 2 per bf16 element; B4/B5 operations at 989
+TFLOP/s dense bf16) and its plain version:
+
+13a. ``[bf16 B1]``, ``[bf16 B2]``, ``[bf16 B3]``: the flagship flow at d=2
+   (n=2^24 for B1, 2^22 for B2/B3) and d=50 (n=2^17) on bf16 samples:
+   each output within one bf16 ulp of the plain version with the same
+   arithmetic beyond the f32 tolerances above (``bf16_close``), the plan
+   buffers' cotangents by ``grads_ok`` against the same function in
+   float64, B1 and B3 against float64 by tests_tpu/test_tpu_kernels.py:
+   139-185's gates;
+13b. ``[bf16 B6]``: 8192 x d=50 x L=64 on bf16 q and p, held the same way;
+13c. ``[bf16 B4/B5]``: the BASELINE affine and K=8 spline stacks with bf16
+   conditioners (bf16 mma.sync), with f32 storage and with bf16 storage,
+   against a float64 plain run of the same weights with f32 conditioners
+   within 2x the error of the plain version with bf16-rounded operands
+   and f32 products, or 8e-3 (y, ladj) / 1.6e-3 (gradients) x (max + 1)
+   (``C_FWD_GATE_BF16``), the spline's gradients on the rows no closer
+   than 1e-4 to a knot of the exact function;
+13d. ``[bf16 coupling slice]``: 12 whitening steps of each stack with bf16
+   conditioners: exactly 12 + 12 launches of the bf16 path, the history
+   held to the plain bf16-product route by the coupling slice's noise
+   rule (the noise: the same route on reordered rows and with its
+   products on the tensor cores), the bijector route's printed; then
+   ``[bf16 step diagnosis]``: one step's gradients at the fitted stack
+   within 2x the rounding-only runs' distance from float64 sums;
+13e. ``[bf16 whitening slice]``: the flagship flow on the whitening slice's
+   2^22 samples in bf16, 24 steps of 2^20: exactly 24 B3 launches of the
+   bf16 variant, then one B1 and one B2 for the fit's full-data negll and
+   gradient; the history within 2e-2 relative of the plain route, the
+   final negll printed against the f32 samples' fit;
+13f. ``[bf16 hmc]``: ``fused_flow_hmc_sample(dtype=torch.bfloat16)`` on a
+   BASELINE pushforward, 8192 chains, 20 + 20 transitions of L=64:
+   exactly one B6 bf16 launch a transition, draws finite, acceptance
+   within 0.3-1.0.
+
 Flow-VI runs after 9 and before 10, every phase from generators of its
 own (``phase_vi_*``), each main-path run with the launch counters set to 0
 just before it and read just after:
@@ -345,6 +382,7 @@ one card and no network; it imports nothing of JAX.
 import contextlib
 import copy
 import json
+import functools
 import math
 import os
 import subprocess
@@ -887,11 +925,11 @@ def phase_corners(et, EW, device):
 
 
 def ew_ptxas(report):
-    """ptxas's registers and spills of every B1-B3 instantiation; a spill
-    fails the run."""
+    """ptxas's registers and spills of every B1-B3 instantiation (float32
+    and bf16 storage); a spill fails the run."""
     ents = [e for needle in ("ew_fwd_kernel", "ew_grad_kernel")
             for e in ptxas_entries(report, needle)]
-    check(len(ents) == 9 and all(st == 0 and ld == 0
+    check(len(ents) == 18 and all(st == 0 and ld == 0
                                  for _, _, st, ld in ents),
           f"B1-B3 ptxas entries or spills: {ents}")
     print("[B1-B3 ptxas] " + " | ".join(
@@ -1186,14 +1224,15 @@ def conditioner_flops(st):
     return 2 * sum(K * N for K, N in st.layers)
 
 
-def matmul_only_ms(st, n, device, backward, tf32=False):
-    """The same conditioner products alone, in torch.matmul f32 (or TF32):
-    the forward's h @ W per layer, or the backward's g @ W^T and h^T @ g. A
-    yardstick; the port never calls it."""
+def matmul_only_ms(st, n, device, backward, tf32=False,
+                   dtype=torch.float32):
+    """The same conditioner products alone, in torch.matmul f32 (or TF32,
+    or on ``dtype`` operands): the forward's h @ W per layer, or the
+    backward's g @ W^T and h^T @ g. A yardstick; the port never calls
+    it."""
     gen = torch.Generator(device=device).manual_seed(1)
-    mats = [(torch.randn(n, K, generator=gen, device=device),
-             torch.randn(K, N, generator=gen, device=device),
-             torch.randn(n, N, generator=gen, device=device))
+    mats = [tuple(torch.randn(*s, generator=gen, device=device).to(dtype)
+                  for s in ((n, K), (K, N), (n, N)))
             for K, N in st.layers]
 
     def run():
@@ -1313,10 +1352,12 @@ def grads_of(C, chain, x, forward):
 
 
 def plain_coupling(C, physical_order=False):
-    """The plain version through the plan, as a forward function."""
+    """The plain version through the plan, as a forward function (a bf16
+    batch on the float32 plan, as the kernels read it)."""
     def forward(chain, x):
         st = C._stack_structure(chain, x.shape[1])
-        wbuf, pbuf = C._stack_plan(chain, st, x.dtype, x.device)
+        wbuf, pbuf = C._stack_plan(chain, st, torch.promote_types(
+            x.dtype, torch.float32), x.device)
         y, ladj = C.coupling_forward_plain(st, wbuf, pbuf, x)
         if not physical_order and not st.identity_out:
             y = y[:, list(st.out_map)]
@@ -1737,13 +1778,13 @@ class NoiseGate(NamedTuple):
     def limit(self):
         return max(COUPLING_SLICE_RTOL, 8 * self.noise)
 
-    def check(self, what):
+    def check(self, what, ref="plain TF32"):
         check(self.rel_calm <= self.limit_calm,
-              f"{what}: first {self.calm} steps fused vs plain TF32 "
+              f"{what}: first {self.calm} steps fused vs {ref} "
               f"{self.rel_calm:.3e}, the plain path's own rounding noise "
               f"{self.noise_calm:.3e}")
         check(self.rel <= self.limit,
-              f"{what}: fused vs plain TF32 history {self.rel:.3e}, the "
+              f"{what}: fused vs {ref} history {self.rel:.3e}, the "
               f"plain path's own rounding noise {self.noise:.3e}")
 
     def __str__(self):
@@ -2299,9 +2340,10 @@ def ptxas_entries(report, needle):
     return [(k, *v) for k, v in out.items()]
 
 
-def b6_geometry(TL, args, n, d):
+def b6_geometry(TL, args, n, d, bf16=False):
     """(G, E, block, grid, blocks per SM, registers, local bytes) of B6's
-    launch for ``args`` (the card's occupancy query)."""
+    launch for ``args`` (the card's occupancy query; the bf16-storage
+    instantiation with ``bf16``)."""
     import ctypes
 
     from enflows_tpu_torch.ops._build import load_library
@@ -2312,7 +2354,8 @@ def b6_geometry(TL, args, n, d):
                                elements=args.elements)
     vals = [ctypes.c_int(0) for _ in range(3)]
     err = load_library().enf_leapfrog_occupancy(
-        geo.E, plan.nreg, geo.block, geo.smem, *map(ctypes.byref, vals))
+        int(bf16), geo.E, plan.nreg, geo.block, geo.smem,
+        *map(ctypes.byref, vals))
     check(err == 0, f"B6 occupancy query failed: CUDA error {err}")
     return (geo.G, geo.E, geo.block, geo.grid, *(v.value for v in vals))
 
@@ -3976,13 +4019,15 @@ def infer_timing(et, EW, C, VI, TI, fits, data_x, device, card):
         fused, plain = fused_against_plain(run(kernels), run(False), 20)
         rows.append(f"{label} d={d} n={n}: fused {fused:.3f} ms/step, plain "
                     f"{plain:.3f}")
+    # The rescue's and the data fit's step shapes (40 and 500 rows), over
+    # 25 and 50 steps.
     for label, make, n, nb, ne in (
             ("rescue whitening (inverted spline template)",
-             et.coupling_flow_template(kind="spline"), 4000, 100, 1),
+             et.coupling_flow_template(kind="spline"), 1000, 25, 1),
             ("rescue whitening (inverted spline template)",
              et.coupling_flow_template(kind="spline"), 4096, 16, 2),
             ("data whitening (inverted elementwise template, B3)",
-             et.default_flow_template, 100_000, 200, 1)):
+             et.default_flow_template, 25_000, 50, 1)):
         white = TI._whitening_start(make(2, gen()))
         X = 2.0 * torch.randn(n, 2, generator=gen(), device=device)
         kernels = "coupling" if label.startswith("rescue") else True
@@ -4765,6 +4810,721 @@ def cli_phases(et, EW, counters, device, card):
     return paths, times
 
 
+# ----------------------------------------------------------------------
+# bf16: the kernels' bf16-storage variants (B1-B3, B6, B4/B5) and bf16
+# conditioners (B4/B5's bf16 mma.sync), each held to its plain version with
+# the same arithmetic and to float64, then the slices that run them.
+
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+# B4/B5 with bf16 conditioners: against a float64 plain run, within 2x the
+# error of the plain version run with bf16-rounded operands and f32
+# products, or 8e-3 (y, ladj) / 1.6e-3 (gradients) x (max + 1): the TF32
+# floors times 8, bf16's unit roundoff against TF32's.
+C_FWD_GATE_BF16, C_BWD_GATE_BF16 = (2.0, 8e-3), (2.0, 1.6e-3)
+BF16_WHITEN_RTOL = 2e-2
+BF16_HMC = dict(warmup=20, samples=20)
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at |t| (2^-7 of its binade's bottom), elementwise."""
+    m = t.float().abs()
+    return torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8).clamp(
+        min=2.0 ** -126)
+
+
+def bf16_close(got, ref, tol, what):
+    """A bf16 output against its plain version with the same arithmetic:
+    within one bf16 ulp of the plain value beyond the float32 kernels' own
+    tolerance (rtol = atol = ``tol``), since the two float32 values may
+    differ by that before each is rounded once. Returns (max |d| in ulps,
+    max |d|)."""
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    lim = bf16_ulp(torch.maximum(g.abs(), r.abs())) + tol * (1 + r.abs())
+    worst = float((d / bf16_ulp(torch.maximum(g.abs(), r.abs()))).max())
+    check(got.dtype == torch.bfloat16 and bool((d <= lim).all()),
+          f"{what}: {int((d > lim).sum())} elements beyond one bf16 ulp + "
+          f"{tol:g}; max|d| {float(d.max()):.3e} ({worst:.1f} ulps)")
+    return worst, float(d.max())
+
+
+def tpu_bf16_gate(got, yard, ref64, what):
+    """tests_tpu/test_tpu_kernels.py:139-163's gate: the kernel's max error
+    against float64 within 4x the error of the chain's own bf16 path or
+    1e-2 x (max|f64| + 1). Returns (kernel error, yardstick error)."""
+    e_k = max_abs(got.double(), ref64)
+    e_j = max_abs(yard.double(), ref64)
+    check(e_k <= max(4.0 * e_j, 1e-2 * (float(ref64.abs().max()) + 1.0)),
+          f"{what}: |kernel - f64| {e_k:.3e}, bf16 path {e_j:.3e}")
+    return e_k, e_j
+
+
+def ew_buffer_grads(EW, chain, plan, bufs, x16, mode, gy=None, gl=None,
+                    dtype=torch.float32):
+    """The plain version's cotangents of the plan's buffers (and of x for
+    B2) in ``dtype``, by autograd through ``_run_plan`` on the same bf16
+    values the kernel reads: B2 for the cotangents gy, gl; B3 for
+    -(sum logN(y) + sum ladj). Returns (gx or the loss, gp, gw, gq)."""
+    from enflows_tpu_torch.distributions.base import std_normal_logpdf
+
+    leaves = [b.detach().to(dtype).requires_grad_(True) for b in bufs]
+    xr = x16.to(dtype).requires_grad_(mode == "bwd")
+    y, ladj = EW._run_plan(chain, plan, leaves, xr)
+    zero = lambda gs, ts: [torch.zeros_like(t) if g is None else g
+                           for g, t in zip(gs, ts)]
+    if mode == "bwd":
+        gs = torch.autograd.grad([y, ladj], [xr, *leaves],
+                                 [gy.to(dtype), gl.to(dtype)],
+                                 allow_unused=True)
+        return zero(gs, [xr, *leaves])
+    loss = -(std_normal_logpdf(y).sum() + ladj.sum())
+    return (loss.detach(), *zero(torch.autograd.grad(
+        loss, leaves, allow_unused=True), leaves))
+
+
+def buffer_dict(grads):
+    """The plan buffers' cotangents by name, the empty ones left out."""
+    return {k: g for k, g in zip(("params", "rows", "dense Q"), grads)
+            if g.numel()}
+
+
+def phase_bf16_ew(et, EW, d, n_fwd, n_grad, gen, device, card):
+    """B1, B2 and B3 with bf16 storage on the flagship chain: each against
+    its plain version (``forward_and_ladj_plain`` on bf16, ``_run_plan`` on
+    the same rounded buffers) within one bf16 ulp an element beyond the
+    f32 tolerances, the buffers' cotangents (float32) by ``grads_ok``
+    against the same function in float64; B1 and B3 against float64 by the
+    TPU reference's bf16 gates (tests_tpu/test_tpu_kernels.py:139-185).
+    Each timed against its float32 twin in turns, and its plain version."""
+    chain = flagship_flow(et, d, gen, device)
+    chain16 = copy.deepcopy(chain).to(torch.bfloat16)
+    chain64 = copy.deepcopy(chain).double()
+    x = torch.randn(n_fwd, d, generator=gen, device=device)
+    x16 = x.to(torch.bfloat16)
+    out = {}
+    with torch.no_grad():
+        y, ladj = EW.fused_forward_and_ladj(chain, x16)
+        yp, lp = EW.forward_and_ladj_plain(chain, x16)
+        torch.cuda.synchronize()
+        uy = bf16_close(y, yp, Y_TOL, f"B1 bf16 y d={d}")
+        ul = bf16_close(ladj, lp, LADJ_TOL, f"B1 bf16 ladj d={d}")
+        y64, l64 = EW.forward_and_ladj_plain(chain64, x.double())
+        yj, lj = chain16.forward_and_ladj(x16)
+        gy_ = tpu_bf16_gate(y, yj, y64, f"B1 bf16 y d={d} vs f64")
+        gl_ = tpu_bf16_gate(ladj, lj, l64, f"B1 bf16 ladj d={d} vs f64")
+        del y64, l64, yj, lj, yp, lp
+        plan16, bufs16 = EW._chain_plan(chain, d, device, torch.bfloat16)
+        plan, bufs = EW._chain_plan(chain, d, device)
+        bufs16 = tuple(b.detach() for b in bufs16)
+        bufs = tuple(b.detach() for b in bufs)
+        t32, t16 = interleaved_ms(
+            lambda: EW._launch("fwd", plan, x, bufs),
+            lambda: EW._launch("fwd", plan16, x16, bufs16))
+        plain_ms = cuda_ms(lambda: EW.forward_and_ladj_plain(chain, x16),
+                           iters=3)
+    bound = bound_of(2 * n_fwd * (2 * d + 1), n_fwd * hh_flops(d, 4))
+    out["fwd"] = dict(max_abs_err=max(uy[1], ul[1]), ms=t16,
+                      ms_f32_twin=t32, plain_ms=plain_ms, **bound)
+    print(f"[bf16 B1] flagship d={d} n={n_fwd}: kernel vs plain bf16 y "
+          f"{uy[0]:.1f} ulps (max|d| {uy[1]:.3e}), ladj {ul[0]:.1f} ulps; "
+          f"vs f64 y {gy_[0]:.3e} (the chain's bf16 path {gy_[1]:.3e}), "
+          f"ladj {gl_[0]:.3e} ({gl_[1]:.3e}); kernel {t16:.4f} ms, f32 "
+          f"twin {t32:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]",
+          flush=True)
+    del x, x16, y, ladj
+
+    x, dropped = drop_exact_zero_rows(et, EW, chain, torch.randn(
+        n_grad, d, generator=gen, device=device).to(torch.bfloat16).float())
+    x16 = x.to(torch.bfloat16)
+    with torch.no_grad():
+        y, ladj = EW._launch("fwd", plan16, x16, bufs16)
+    gy, gl = torch.cos(y.float()).to(torch.bfloat16), \
+        (2.0 * ladj.float()).to(torch.bfloat16)
+    gx, *gk = EW._launch("bwd", plan16, x16, bufs16, gy, gl)
+    gxp, *gp = ew_buffer_grads(EW, chain, plan16, bufs16, x16, "bwd", gy, gl)
+    _, *g64 = ew_buffer_grads(EW, chain, plan16, bufs16, x16, "bwd", gy, gl,
+                              torch.float64)
+    torch.cuda.synchronize()
+    ux = bf16_close(gx, gxp.to(torch.bfloat16), G_RTOL, f"B2 bf16 gx d={d}")
+    worst = grads_ok(*(buffer_dict(g) for g in (gk, gp, g64)))
+    t32, t16 = interleaved_ms(
+        lambda: EW._launch("bwd", plan, x, bufs, gy.float(), gl.float()),
+        lambda: EW._launch("bwd", plan16, x16, bufs16, gy, gl))
+    plain_ms = cuda_ms(lambda: ew_buffer_grads(EW, chain, plan16, bufs16,
+                                               x16, "bwd", gy, gl), iters=3)
+    bound = bound_of(2 * x.shape[0] * (3 * d + 1),
+                     3 * x.shape[0] * hh_flops(d, 4))
+    out["bwd"] = dict(max_abs_err=max(ux[1], worst), ms=t16, ms_f32_twin=t32,
+                      plain_ms=plain_ms, **bound)
+    print(f"[bf16 B2] flagship d={d} n={n_grad} ({dropped} exact-zero rows "
+          f"dropped): gx vs plain bf16 {ux[0]:.1f} ulps; buffer cotangents "
+          f"max|kernel - plain| {worst:.3e} (held to float64); kernel "
+          f"{t16:.4f} ms, f32 twin {t32:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]",
+          flush=True)
+
+    n = x.shape[0]
+    loss, *gk = EW._launch("negll", plan16, x16, bufs16)
+    lossp, *gp = ew_buffer_grads(EW, chain, plan16, bufs16, x16, "negll")
+    _, *g64 = ew_buffer_grads(EW, chain, plan16, bufs16, x16, "negll",
+                              dtype=torch.float64)
+    v = (-loss / n).to(torch.bfloat16)
+    vp = (lossp / n).to(torch.bfloat16)
+    uv = bf16_close(v, vp, NEGLL_RTOL, f"B3 bf16 negll d={d}")
+    worst = grads_ok(*(buffer_dict(g) for g in (gk, gp, g64)))
+    vw, gw = EW.fused_negll_value_and_grad(chain, x16)
+    v64, g64c = EW.negll_value_and_grad_plain(chain64, x.double())
+    torch.cuda.synchronize()
+    check(vw.dtype == torch.bfloat16 and abs(float(vw) - float(v64))
+          < 2e-2 * (abs(float(v64)) + 1.0),
+          f"B3 bf16 negll d={d}: {float(vw)} vs f64 {float(v64)}")
+    g_err = 0.0
+    for k, r in g64c.items():
+        check(gw[k].dtype == torch.float32, f"B3 bf16 grad {k} dtype")
+        err = max_abs(gw[k].double(), r)
+        check(err < 3e-2 * (float(r.abs().max()) + 1.0),
+              f"B3 bf16 grad {k} d={d}: {err:.3e} from f64")
+        g_err = max(g_err, err / (float(r.abs().max()) + 1.0))
+    t32, t16 = interleaved_ms(
+        lambda: EW._launch("negll", plan, x, bufs),
+        lambda: EW._launch("negll", plan16, x16, bufs16))
+    plain_ms = cuda_ms(lambda: EW.negll_value_and_grad_plain(chain, x16),
+                       iters=3)
+    bound = bound_of(2 * n * d, 3 * n * hh_flops(d, 4))
+    out["negll"] = dict(max_abs_err=max(uv[1], worst), ms=t16,
+                        ms_f32_twin=t32, plain_ms=plain_ms, **bound)
+    print(f"[bf16 B3] flagship d={d} n={n}: negll {float(v):.6g} vs plain "
+          f"bf16 {float(vp):.6g} ({uv[0]:.1f} ulps), vs f64 {float(v64):.6g};"
+          f" buffer cotangents max|kernel - plain| {worst:.3e} (held to "
+          f"float64); parameter gradients vs f64 {g_err:.3e} x (max + 1) "
+          f"(gate 3e-2); kernel {t16:.4f} ms, f32 twin {t32:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}) [{card}]", flush=True)
+    return out
+
+
+def phase_bf16_b6(et, TL, gen, device, card):
+    """B6 with bf16 q and p at the BASELINE leapfrog config against its
+    plain version with the same arithmetic (``leapfrog_plain`` on bf16):
+    q_L, p_L, logp_0, logp_L within one bf16 ulp beyond B6's f32 tolerance;
+    timed against its float32 twin in turns, and its plain version."""
+    n, d, steps = LF["chains"], LF["dim"], LF["steps"]
+    chain = leapfrog_chain(et, d, gen, device)
+    q = (0.3 * torch.randn(n, d, generator=gen, device=device)).to(
+        torch.bfloat16)
+    p = torch.randn(n, d, generator=gen, device=device).to(torch.bfloat16)
+    eps = torch.tensor(0.05, device=device)
+    got = TL.fused_leapfrog(chain, q, p, eps, steps)
+    ref = TL.leapfrog_plain(chain, q, p, eps, steps)
+    torch.cuda.synchronize()
+    held = [bf16_close(g, r, LF_TOL, f"B6 bf16 {name}")
+            for g, r, name in zip(got, ref, ("q_L", "p_L", "logp_0",
+                                             "logp_L"))]
+    args16 = TL._prepare(chain, q, eps, storage=torch.bfloat16)
+    args = TL._prepare(chain, q.float(), eps)
+    q32, p32 = q.float(), p.float()
+    t32, t16 = interleaved_ms(lambda: TL._launch(args, q32, p32, steps),
+                              lambda: TL._launch(args16, q, p, steps),
+                              iters=10)
+    plain_ms = cuda_ms(lambda: TL.leapfrog_plain(chain, q, p, eps, steps),
+                       iters=2, warmup=1)
+    bound = bound_of(2 * (4 * n * d + 2 * n),
+                     (steps + 1) * 2 * n * hh_flops(d, 4))
+    G, E, blk, grid, bps, regs, local = b6_geometry(TL, args16, n, d,
+                                                    bf16=True)
+    print(f"[bf16 B6] BASELINE chain {n} x d={d} x L={steps}: kernel vs "
+          f"plain bf16 "
+          + ", ".join(f"{name} {u:.1f} ulps" for (u, _), name in
+                      zip(held, ("q_L", "p_L", "logp_0", "logp_L")))
+          + f"; kernel {t16:.4f} ms, f32 twin {t32:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); G={G} E={E} block {blk}: {bps} blocks/SM,"
+          f" {regs} registers, {local} local bytes [{card}]", flush=True)
+    return dict(max_abs_err=max(e for _, e in held), ms=t16,
+                ms_f32_twin=t32, plain_ms=plain_ms, **bound)
+
+
+def bf16_conditioners(stack):
+    """``stack`` with every coupling's conditioner computing in bf16."""
+    for s in stack.stages:
+        if hasattr(s, "conditioner"):
+            s.conditioner.compute_dtype = "bfloat16"
+    return stack
+
+
+def bf16_grads(C, chain, x, forward):
+    """(gx, {parameter: gradient}) of sum(sin y) + sum(ladj^2), the loss
+    taken in float32 whatever y's storage."""
+    params = dict(chain.named_parameters())
+    xr = x.clone().requires_grad_(True)
+    y, ladj = forward(chain, xr)
+    y, ladj = y.float(), ladj.float()
+    gs = torch.autograd.grad(torch.sin(y).sum() + (ladj * ladj).sum(),
+                             [xr, *params.values()], allow_unused=True)
+    return gs[0], {k: torch.zeros_like(p) if g is None else g
+                   for (k, p), g in zip(params.items(), gs[1:])}
+
+
+def scaled_err(got, ref):
+    """max|got - ref| / (max|ref| + 1), as the gates scale their floors."""
+    got, ref = got.float(), ref.float()
+    return max_abs(got, ref) / (float(ref.abs().max()) + 1.0)
+
+
+def phase_bf16_coupling(et, C, kind, n, gen, device, card):
+    """B4 and B5 on the BASELINE stack with bf16 conditioners, with float32
+    storage and with bf16 storage: y, ladj, gx and every gradient against a
+    float64 plain run under the bf16 yardstick (``C_*_GATE_BF16``: 2x the
+    plain version with bf16-rounded operands and f32 products, or 8x the
+    TF32 floors), on the rows no closer than KNOT_EPS to a spline knot for
+    the gradients; the float64 run is the same weights with f32
+    conditioners. Timed against the float32 (TF32) twin in turns, the
+    plain version, the bf16 FLOP bound and the same products in bf16
+    torch.matmul. The kernels line's error of B4 is y's and ladj's from
+    the plain bf16-product run, of B5 gx's and the gradients', each scaled
+    by (max + 1)."""
+    stack32 = baseline_stack(et, kind, gen, device)
+    d = BASELINE["dim"]
+    st32 = C._stack_structure(stack32, d)
+    stack = bf16_conditioners(copy.deepcopy(stack32))
+    st = C._stack_structure(stack, d)
+    # The exact function: the same weights with f32 conditioners
+    # (compute_dtype None), every product in float64.
+    stack64 = copy.deepcopy(stack32).double()
+    x = 2.2 * torch.randn(n, d, generator=gen, device=device)
+    readings, err4, err5 = [], 0.0, 0.0
+    for storage in (torch.float32, torch.bfloat16):
+        xs = x.to(storage)
+        tag = "f32" if storage == torch.float32 else "bf16"
+        with torch.no_grad():
+            y, ladj = C.fused_coupling_forward_and_ladj(stack, xs)
+            yb, lb = plain_coupling(C)(stack, xs)
+            y64, l64 = plain_coupling(C)(stack64, xs.double())
+            torch.cuda.synchronize()
+            check(y.dtype == storage and ladj.dtype == storage,
+                  f"B4 bf16 {kind} {tag} storage dtypes")
+            hy = tf32_gate(y.float(), yb.float(), y64, C_FWD_GATE_BF16,
+                           f"B4 bf16 {kind} {tag} y")
+            hl = tf32_gate(ladj.float(), lb.float(), l64, C_FWD_GATE_BF16,
+                           f"B4 bf16 {kind} {tag} ladj")
+            err4 = max(err4, scaled_err(y, yb), scaled_err(ladj, lb))
+            del y, ladj, yb, lb, y64, l64
+        # Knots of the exact function (f32 conditioners in float64).
+        xk, dropped = drop_near_knot_rows(et, stack32, xs.float())
+        xk = xk.to(storage)
+        gx, g = bf16_grads(C, stack, xk, C.fused_coupling_forward_and_ladj)
+        gxb, gb = bf16_grads(C, stack, xk, plain_coupling(C))
+        gx64, g64 = bf16_grads(C, stack64, xk.double(), plain_coupling(C))
+        torch.cuda.synchronize()
+        hx = tf32_gate(gx.float(), gxb.float(), gx64, C_BWD_GATE_BF16,
+                       f"B5 bf16 {kind} {tag} gx")
+        grads = {k: tf32_gate(g[k], gb[k], g64[k], C_BWD_GATE_BF16,
+                              f"B5 bf16 {kind} {tag} grad {k}")
+                 for k in g64}
+        k = max(grads, key=lambda k: grads[k].share)
+        err5 = max([err5, scaled_err(gx, gxb)]
+                   + [scaled_err(g[j], gb[j]) for j in g])
+        readings.append((
+            f"{tag} storage: y {hy}, ladj {hl}; gx {hx}, nearest its limit "
+            f"grad {k} {grads[k]} ({100 * grads[k].share:.0f}% of it; "
+            f"{dropped} rows within {KNOT_EPS} of a knot dropped)").replace(
+                "plain TF32", "plain bf16 products"))
+        del gx, g, gxb, gb, gx64, g64
+    # Times: B4 writing B5's rows and B5 on them, as training runs them,
+    # the bf16 variant against its TF32 twin in turns; bf16 storage once.
+    with torch.no_grad():
+        wbuf, pbuf = C._stack_plan(stack, st, torch.float32, device)
+        y, ladj, _ = C._launch_fwd(st, x, wbuf, pbuf)
+    gy, gl = torch.cos(y), 2.0 * ladj
+    x16 = x.to(torch.bfloat16)
+    t32, t16 = interleaved_ms(
+        lambda: C._launch_fwd(st32, x, wbuf, pbuf, True),
+        lambda: C._launch_fwd(st, x, wbuf, pbuf, True), iters=5)
+    t16_io = cuda_ms(lambda: C._launch_fwd(st, x16, wbuf, pbuf, True),
+                     iters=5)
+    b5_32 = stored_b5_ms(C, st32, x, wbuf, pbuf, gy, gl)
+    b5_16 = stored_b5_ms(C, st, x, wbuf, pbuf, gy, gl)
+    b5_32 = min(b5_32, stored_b5_ms(C, st32, x, wbuf, pbuf, gy, gl))
+    b5_16_io = stored_b5_ms(C, st, x16, wbuf, pbuf, gy.to(torch.bfloat16),
+                            gl.to(torch.bfloat16))
+    with torch.no_grad():
+        plain4 = cuda_ms(lambda: C.coupling_forward_plain(st, wbuf, pbuf, x),
+                         iters=3, warmup=1)
+    params = list(stack.parameters())
+    xr = x.clone().requires_grad_(True)
+    y0, l0 = plain_coupling(C, physical_order=True)(stack, xr)
+    plain5 = cuda_ms(lambda: torch.autograd.grad(
+        [y0, l0], [xr, *params], [gy, gl], retain_graph=True), iters=3,
+        warmup=1)
+    del y0, l0, xr
+    lib4 = matmul_only_ms(st, n, device, False, dtype=torch.bfloat16)
+    lib5 = matmul_only_ms(st, n, device, True, dtype=torch.bfloat16)
+    flops = conditioner_flops(st) * n
+    b4b = bound_of(4 * (n * (2 * d + 1) + st.w_len), flops, BF16_FLOP_PER_S)
+    b5b = bound_of(4 * (n * (3 * d + 1) + 2 * st.w_len), 2 * flops,
+                   BF16_FLOP_PER_S)
+    print(f"[bf16 B4/B5] {kind} d={d} 4x{BASELINE['hidden']} n={n}, bf16 "
+          f"conditioners: |kernel - f64| {'; '.join(readings)}; |kernel - "
+          f"plain bf16 products| / (max + 1): y, ladj {err4:.3e}, gx and "
+          f"gradients {err5:.3e} [{card}]", flush=True)
+    print(f"[bf16 B4] {kind}: kernel {t16:.3f} ms writing B5's rows "
+          f"(bf16 storage {t16_io:.3f} ms), TF32 twin {t32:.3f} ms, plain "
+          f"{plain4:.3f} ms, bf16 FLOP bound {b4b['bound_ms']:.3f} ms "
+          f"({flops / 1e9:.1f} GFLOP, {flops / t16 / 1e9:.2f} TFLOP/s), "
+          f"the products alone in bf16 torch.matmul {lib4:.3f} ms [{card}]",
+          flush=True)
+    print(f"[bf16 B5] {kind}: kernel {b5_16:.3f} ms on B4's rows (bf16 "
+          f"storage {b5_16_io:.3f} ms), TF32 twin {b5_32:.3f} ms, plain "
+          f"autograd backward {plain5:.3f} ms, bf16 FLOP bound "
+          f"{b5b['bound_ms']:.3f} ms, dh and dW alone in bf16 torch.matmul "
+          f"{lib5:.3f} ms [{card}]", flush=True)
+    return (dict(max_abs_err=err4, ms=t16, ms_f32_twin=t32,
+                 ms_bf16_storage=t16_io, plain_ms=plain4,
+                 **{**b4b, "library_ms": lib4}),
+            dict(max_abs_err=err5, ms=b5_16, ms_f32_twin=b5_32,
+                 ms_bf16_storage=b5_16_io, plain_ms=plain5,
+                 **{**b5b, "library_ms": lib5}))
+
+
+class _MatmulBF16Reordered(torch.autograd.Function):
+    """``ops.coupling._MatmulBF16`` with every product's f32 sum taken in
+    reversed order (h[:, ::-1] @ W[::-1], and so on in the backward): the
+    same function, another rounding."""
+
+    @staticmethod
+    def forward(ctx, h, W):
+        h16, W16 = (t.to(torch.bfloat16).float() for t in (h, W))
+        ctx.save_for_backward(h16, W16)
+        ctx.dtypes = (h.dtype, W.dtype)
+        return torch.matmul(h16.flip(1), W16.flip(0))
+
+    @staticmethod
+    def backward(ctx, g):
+        h16, W16 = ctx.saved_tensors
+        g16 = g.to(torch.bfloat16).float()
+        return (torch.matmul(g16.flip(1), W16.flip(1).T).to(ctx.dtypes[0]),
+                torch.matmul(h16.flip(0).T, g16.flip(0)).to(ctx.dtypes[1]))
+
+
+class _MatmulBF16TensorCores(torch.autograd.Function):
+    """``ops.coupling._MatmulBF16`` with its products on the tensor cores
+    (``torch.mm`` of the bf16 operands with a float32 output: cuBLAS, f32
+    accumulation): the plain route's operands, summed by the hardware that
+    B4/B5's ``mma.sync`` sums on. Read only, to tell that hardware's
+    accumulation from the kernels' own arithmetic."""
+
+    @staticmethod
+    def forward(ctx, h, W):
+        h16, W16 = h.to(torch.bfloat16), W.to(torch.bfloat16)
+        ctx.save_for_backward(h16, W16)
+        ctx.dtypes = (h.dtype, W.dtype)
+        return torch.mm(h16, W16, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h16, W16 = ctx.saved_tensors
+        g16 = g.to(torch.bfloat16)
+        return (torch.mm(g16, W16.T, out_dtype=torch.float32)
+                .to(ctx.dtypes[0]),
+                torch.mm(h16.T, g16, out_dtype=torch.float32)
+                .to(ctx.dtypes[1]))
+
+
+class patched:
+    """``setattr(obj, name, value)`` inside the block, undone after it."""
+
+    def __init__(self, obj, name, value):
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.was = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.was)
+
+
+def coupling_plain_negll(C):
+    """negll of a coupling stack through the plan's plain version, as
+    ``optimize_whitening``'s loss: bf16-operand products for a bf16
+    conditioner, f32 (or float64) ones for an f32 conditioner."""
+    from enflows_tpu_torch.distributions.base import std_normal_logpdf_sum
+
+    def loss(flow, x):
+        st = C._stack_structure(flow, x.shape[1])
+        wbuf, pbuf = C._stack_plan(flow, st, x.dtype, x.device)
+        y, ladj = C.coupling_forward_plain(st, wbuf, pbuf, x)
+        return -(std_normal_logpdf_sum(y).sum() + ladj.sum()) / x.shape[0]
+    return loss
+
+
+def bf16_step_diagnosis(C, kind, flow, xb, gen, card):
+    """One B4 + B5 step's negll and gradients on one batch of the slice,
+    at the fitted parameters, against the plain bf16-product route on the
+    same batch, beside runs that differ from that route in rounding alone:
+    the rows in another order, the products' sums reversed, the products
+    on the tensor cores, and every sum in float64 (the operands still
+    rounded to bf16; the yardstick of the others). Reads, per run, the
+    largest relative L2 distance of a parameter's gradient from the
+    float64-sum run and from the plain route, and how much of its distance
+    from the float64 run points toward zero (sum((g - g64) sign(g64)) /
+    sum|g - g64|; 0 for unbiased rounding, -1 for sums cut toward zero).
+    The kernels' distance must stay within 2x the largest rounding-only
+    one (a product that skipped a bf16 rounding moves a gradient by ~2^-9
+    relative an element, several times that). Returns both distances."""
+    from enflows_tpu_torch.train import whitening as W
+
+    loss = coupling_plain_negll(C)
+    perm = torch.randperm(xb.shape[0], generator=gen, device=xb.device)
+
+    def grads(f, x, fn):
+        v, g = W.mvnormal_negll_grad(f, x, loss_fn=fn)
+        return float(v), {k: g[k].double() for k in sorted(g)}
+
+    runs = {"kernels": grads(flow, xb, W.mvnormal_negll_coupling),
+            "plain": grads(flow, xb, loss),
+            "rows reordered": grads(flow, xb[perm], loss)}
+    with patched(C, "_MatmulBF16", _MatmulBF16Reordered):
+        runs["sums reversed"] = grads(flow, xb, loss)
+    with patched(C, "_MatmulBF16", _MatmulBF16TensorCores):
+        runs["tensor-core products"] = grads(flow, xb, loss)
+    v64, g64 = grads(copy.deepcopy(flow).double(), xb.double(), loss)
+
+    def dist(g, ref):
+        return max((float((g[k] - ref[k]).norm() / ref[k].norm()), k)
+                   for k in ref if float(ref[k].norm()) > 0)
+
+    def toward_zero(g):
+        num = sum(float(((g[k] - g64[k]) * g64[k].sign()).sum()) for k in g)
+        den = sum(float((g[k] - g64[k]).abs().sum()) for k in g)
+        return num / max(den, 1e-300)
+
+    rows = []
+    for name, (v, g) in runs.items():
+        d64, k64 = dist(g, g64)
+        dp = dist(g, runs["plain"][1])[0] if name != "plain" else 0.0
+        rows.append(f"{name} {d64:.3e} ({k64}; from the plain route "
+                    f"{dp:.3e}; toward zero {toward_zero(g):+.2f}; negll "
+                    f"{abs(v - v64) / abs(v64):.2e})")
+    kernel = dist(runs["kernels"][1], g64)[0]
+    rounding = max(dist(g, g64)[0] for name, (_, g) in runs.items()
+                   if name != "kernels")
+    print(f"[bf16 step diagnosis] {kind} d={xb.shape[1]} n={xb.shape[0]}, "
+          f"the fitted stack: largest relative L2 distance of a parameter "
+          f"gradient from the float64-sum run: {'; '.join(rows)}; the "
+          f"kernels {kernel / rounding:.2f}x the largest rounding-only run "
+          f"(limit 2x) [{card}]", flush=True)
+    check(kernel <= 2.0 * rounding,
+          f"bf16 step diagnosis {kind}: the kernels' gradients {kernel:.3e} "
+          f"from the float64-sum run, the rounding-only runs' {rounding:.3e}")
+    return kernel, rounding
+
+
+def bf16_coupling_slice(et, C, EW, kind, initial, X, gen, card):
+    """The coupling slice with bf16 conditioners: ``optimize_whitening`` of
+    the identity-initialized BASELINE stack, 3 epochs of 4 batches of 2^17,
+    with the counters set to 0 just before: exactly 12 B4 and 12 B5
+    launches of the bf16 path and none of the TF32 one. The history is held
+    to the plain bf16-product route (the same trainer with the plan's plain
+    version, ``_MatmulBF16`` products, in place of B4/B5) by the coupling
+    slice's noise rule, the noise being how far the plain path on rows in
+    another order and with its products on the tensor cores sits from it:
+    runs that differ from it in rounding alone. The bijector route's
+    history (bf16 layers throughout) is printed beside it; then one step's
+    gradients are read against runs that differ in rounding alone
+    (``bf16_step_diagnosis``)."""
+    from enflows_tpu_torch.train import optimize_whitening
+    from enflows_tpu_torch.train import whitening as W
+
+    stack = bf16_conditioners(copy.deepcopy(initial))
+    reset_launches(C.LAUNCHES_BF16, C.LAUNCHES, EW.LAUNCHES)
+    res = optimize_whitening(X, copy.deepcopy(stack), adam, nbatches=4,
+                             nepochs=3)
+    hist = res.negll_history.cpu()
+    torch.cuda.synchronize()
+    launches = dict(C.LAUNCHES_BF16)
+    check(launches == {"coupling_fwd": 12, "coupling_bwd": 12}
+          and not any(C.LAUNCHES.values()),
+          f"bf16 coupling slice {kind}: launches bf16 {launches}, TF32 "
+          f"{dict(C.LAUNCHES)}, not exactly 12 + 12 bf16")
+    check(bool(torch.isfinite(hist).all()) and float(hist[-1])
+          < float(hist[0]), f"bf16 coupling slice {kind}: {hist.tolist()}")
+
+    def plain_route(data):
+        # optimize_whitening's steps (make_train_step, its batches) on the
+        # plan's plain version.
+        flow = copy.deepcopy(stack)
+        step = W.make_train_step(
+            adam(list(flow.parameters())),
+            functools.partial(W.mvnormal_negll_grad,
+                              loss_fn=coupling_plain_negll(C)))
+        bs = data.shape[0] // 4
+        return torch.stack([step(flow, data[b * bs:(b + 1) * bs])
+                            for _ in range(3) for b in range(4)]).cpu()
+
+    ref = plain_route(X)
+    noise = [plain_route(rows_permuted_within_batches(X, 4, gen))]
+    with patched(C, "_MatmulBF16", _MatmulBF16TensorCores):
+        noise.append(plain_route(X))
+    bij = optimize_whitening(X, copy.deepcopy(stack), adam, nbatches=4,
+                             nepochs=3, use_fused=False).negll_history.cpu()
+    gate = NoiseGate.of(hist, ref, noise)
+    print(f"[bf16 coupling slice] {kind}: negll history "
+          f"{[round(float(v), 5) for v in hist]}; plain bf16-product route "
+          f"{[round(float(v), 5) for v in ref]}; {gate}; the plain route "
+          f"on reordered rows {rel_diff(noise[0], ref):.3e} from it, with "
+          f"tensor-core products {rel_diff(noise[1], ref):.3e}; bijector "
+          f"route (bf16 layers) {[round(float(v), 5) for v in bij]}, max rel "
+          f"diff {rel_diff(hist, bij):.3e}; launches {launches} [{card}]",
+          flush=True)
+    gate.check(f"bf16 coupling slice {kind}",
+               "the plain bf16-product route")
+    bf16_step_diagnosis(C, kind, res.result, X[:X.shape[0] // 4], gen, card)
+    return launches
+
+
+def bf16_whitening_slice(et, EW, X, gen, card):
+    """The whitening slice on bf16 samples: the flagship flow on the
+    slice's 2^22 samples rounded to bf16, 24 steps of 2^20, with the
+    counters set to 0 just before: exactly 24 B3 launches of the bf16
+    variant; then the fitted flow's full-data negll and its gradient
+    through B1 and B2 (one launch each). The history within
+    ``BF16_WHITEN_RTOL`` relative of the plain route (the chain's own
+    forward, f32 arithmetic on the bf16 values); its final negll printed
+    against the same fit on the float32 samples."""
+    from enflows_tpu_torch.train import (mvnormal_negll_fused,
+                                         optimize_whitening)
+
+    flow = flagship_flow(et, 2, gen, X.device)
+    X16 = X.to(torch.bfloat16)
+    reset_launches(EW.LAUNCHES_BF16, EW.LAUNCHES)
+    res = optimize_whitening(X16, copy.deepcopy(flow), nbatches=4,
+                             nepochs=6)
+    hist = res.negll_history.cpu()
+    fitted = res.result
+    negll = mvnormal_negll_fused(fitted, X16)
+    grads = torch.autograd.grad(negll, list(fitted.parameters()))
+    negll = negll.detach()
+    torch.cuda.synchronize()
+    launches = dict(EW.LAUNCHES_BF16)
+    check(launches == {"fwd": 1, "bwd": 1, "negll": 24}
+          and not any(EW.LAUNCHES.values()),
+          f"bf16 whitening slice: bf16 launches {launches}, f32 "
+          f"{dict(EW.LAUNCHES)}, not 24 B3 + 1 B1 + 1 B2")
+    check(bool(torch.isfinite(hist).all()) and all(
+        bool(torch.isfinite(g).all()) and g.dtype == torch.float32
+        for g in grads), "bf16 whitening slice: history or gradient")
+    plain = optimize_whitening(X16, copy.deepcopy(flow), nbatches=4,
+                               nepochs=6, use_fused=False)
+    h32 = optimize_whitening(X, copy.deepcopy(flow), nbatches=4,
+                             nepochs=6).negll_history.cpu()
+    rel = rel_diff(hist, plain.negll_history.cpu())
+    print(f"[bf16 whitening slice] flagship d=2 on 2^22 bf16 samples, 24 "
+          f"steps of 2^20: history {[round(float(v), 4) for v in hist]}; "
+          f"max rel diff from the plain route {rel:.3e} (limit "
+          f"{BF16_WHITEN_RTOL:g}); final negll {float(hist[-1]):.5f} "
+          f"against {float(h32[-1]):.5f} on the float32 samples; the fitted "
+          f"flow's full-data negll through B1 {float(negll):.5f}; launches "
+          f"{launches} [{card}]", flush=True)
+    check(rel <= BF16_WHITEN_RTOL,
+          f"bf16 whitening slice: {rel:.3e} from the plain route")
+    return launches
+
+
+def bf16_hmc(et, TL, gen, device, card):
+    """Flow-preconditioned HMC with bf16 chains through B6's bf16 variant:
+    ``fused_flow_hmc_sample(dtype=torch.bfloat16)`` on a BASELINE
+    pushforward (the leapfrog chain's inverse as transport), 8192 chains,
+    ``BF16_HMC`` warmup + samples of L=64, the counters set to 0 just
+    before: exactly one bf16 launch a transition. The draws finite, the
+    acceptance within 0.3-1.0 (logp in bf16 is coarse: an ulp of 0.5 at
+    |logp| ~ 70), moments printed."""
+    from enflows_tpu_torch.mcmc.fused_hmc import fused_flow_hmc_sample
+
+    n, dim, steps = LF["chains"], LF["dim"], LF["steps"]
+    target = et.mcmc.FlowPushforwardTarget(
+        leapfrog_chain(et, dim, gen, device).inverse())
+    reset_launches(TL.LAUNCHES_BF16, TL.LAUNCHES)
+    t0 = time.perf_counter()
+    draws, _, stats = fused_flow_hmc_sample(
+        target.whiten, gen, dim=dim, num_chains=n,
+        num_warmup=BF16_HMC["warmup"], num_samples=BF16_HMC["samples"],
+        num_steps=steps, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(TL.LAUNCHES_BF16)
+    total = BF16_HMC["warmup"] + BF16_HMC["samples"]
+    check(launches == {"leapfrog": total} and not any(TL.LAUNCHES.values()),
+          f"bf16 hmc: bf16 launches {launches}, f32 {dict(TL.LAUNCHES)}")
+    acc = float(stats.accept_prob.float().mean())
+    check(draws.dtype == torch.bfloat16 and bool(torch.isfinite(
+        draws.float()).all()) and 0.3 <= acc <= 1.0,
+          f"bf16 hmc: acceptance {acc}, dtype {draws.dtype}")
+    f = draws.float()
+    print(f"[bf16 hmc] {n} chains x d={dim} x L={steps}, "
+          f"{BF16_HMC['warmup']} + {BF16_HMC['samples']} transitions on "
+          f"bf16 chains: acceptance {acc:.3f}, step size "
+          f"{float(stats.step_size):.4f}, draws mean {float(f.mean()):.4f} "
+          f"sd {float(f.std()):.4f} (whitened space); {wall:.2f} s; "
+          f"launches {launches} [{card}]", flush=True)
+    return launches
+
+
+def bf16_phases(et, EW, C, TL, X, X64, initial_stacks, device, card):
+    """Every bf16 phase, each on generators of its own. Returns the rows of
+    the kernels line."""
+    gen = torch.Generator(device=device).manual_seed(130)
+    t0 = time.perf_counter()
+    ew2 = phase_bf16_ew(et, EW, 2, 1 << 24, 1 << 22, gen, device, card)
+    ew50 = phase_bf16_ew(et, EW, 50, 1 << 17, 1 << 17, gen, device, card)
+    b6 = phase_bf16_b6(et, TL, gen, device, card)
+    cp = {k: phase_bf16_coupling(et, C, k, 1 << 17, gen, device, card)
+          for k in ("affine", "spline")}
+    slice_launches = {k: bf16_coupling_slice(et, C, EW, k, initial_stacks[k],
+                                             X64, gen, card)
+                      for k in ("affine", "spline")}
+    ew_launches = bf16_whitening_slice(et, EW, X, gen, card)
+    hmc_launches = bf16_hmc(et, TL, gen, device, card)
+    print(f"[bf16 time] {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    src = "enflows_tpu_torch/ops/csrc/elementwise.cu"
+    pallas = "enflows_tpu/ops/pallas/elementwise.py"
+    path = "bf16 whitening slice (d=2, n=2^20; the fit's full-data " \
+        "evaluation, n=2^22)"
+    rows = []
+    for key, name, line in (("fwd", "B1 fused_forward_and_ladj bf16", 442),
+                            ("bwd", "B2 fused forward backward bf16", 642),
+                            ("negll", "B3 fused_negll_value_and_grad bf16",
+                             853)):
+        vals = {**ew2[key], **{f"{k}_d50": ew50[key][k] for k in
+                               ("ms", "ms_f32_twin", "plain_ms",
+                                "bound_ms")}}
+        vals["max_abs_err"] = max(ew2[key]["max_abs_err"],
+                                  ew50[key]["max_abs_err"])
+        rows.append((name, {path: ew_launches[key]}, src,
+                     f"{pallas}:{line}", vals))
+    csrc = "enflows_tpu_torch/ops/csrc/coupling.cu"
+    cpallas = "enflows_tpu/ops/pallas/coupling.py"
+    for k in ("affine", "spline"):
+        for i, (which, line) in enumerate((("B4 fused_coupling_forward_and_"
+                                            "ladj", 678),
+                                           ("B5 fused coupling backward",
+                                            617))):
+            key = ("coupling_fwd", "coupling_bwd")[i]
+            rows.append((f"{which} bf16 conditioners ({k} BASELINE)",
+                         {f"bf16 coupling slice {k} (d=64, n=2^17)":
+                          slice_launches[k][key]}, csrc,
+                         f"{cpallas}:{line}", cp[k][i]))
+    rows.append((f"B6 fused_leapfrog bf16 (BASELINE {LF['chains']} x "
+                 f"{LF['dim']} x {LF['steps']})",
+                 {"bf16 hmc (8192 x d=50 x L=64)":
+                  hmc_launches["leapfrog"]},
+                 "enflows_tpu_torch/ops/csrc/leapfrog.cu",
+                 "enflows_tpu/ops/pallas/leapfrog.py:157", b6))
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4877,6 +5637,11 @@ def main():
               flush=True)
         coupling_slice_timing(k, initial_stacks[k], X64, hist, gen, smi)
         profile_coupling_steps(k, initial_stacks[k], X64, smi)
+
+    # bf16: B1-B3, B6 and B4/B5's bf16 variants against their plain
+    # versions, then the slices that run them, on generators of their own.
+    bf16_rows = bf16_phases(et, EW, C, TL, X, X64, initial_stacks, device,
+                            smi)
 
     # Flow-VI through B1/B2 and B4/B5, then the 1-D example; B2 at d=50
     # first. Each phase draws from generators of its own.
@@ -5020,6 +5785,7 @@ def main():
                   hmc_example_launches["leapfrog"]},
                  "enflows_tpu_torch/ops/csrc/leapfrog.cu",
                  "enflows_tpu/ops/pallas/leapfrog.py:157", b6))
+    rows += bf16_rows
     # "ms" is the variant the main path runs; B4/B5 add the other beside it,
     # and the VI template's tile; B2 its time at d=50, n=2^17.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5029,7 +5795,8 @@ def main():
             "plain_ms_d50", "bound_ms_d50", "ms_smc_fit", "plain_ms_smc_fit",
             "bound_ms_smc_fit", "ms_smc_apply", "plain_ms_smc_apply",
             "bound_ms_smc_apply", "infer_hold_max_abs_err", "infer_shapes",
-            "cli_train")
+            "cli_train", "ms_f32_twin", "ms_f32_twin_d50",
+            "ms_bf16_storage")
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s, the "
           f"build included [{smi}]", flush=True)
     print(json.dumps({"kernels": [

@@ -52,31 +52,39 @@ class MLPConditioner(nn.Module):
 
     ``layers``: a sequence of ``(W, b)`` pairs, ``W: (fan_in, fan_out)``.
     The activation follows every layer but the last. ``compute_dtype``
-    other than None (JAX's bf16 conditioner matmuls) is not ported and
-    raises ``NotImplementedError``."""
+    ``"bfloat16"`` runs every layer in bf16: the input, W and b are cast to
+    bf16, ``h @ W + b`` and the activation are computed in bf16, and the
+    output is cast to the last layer's W dtype. The Parameters stay in
+    their own dtype. The coupling's inverse recomputes the same conditioner
+    on the untouched half, so the round trip stays exact up to the storage
+    rounding."""
 
     def __init__(self, layers, activation: str = "gelu",
                  compute_dtype: str | None = None):
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                f"MLPConditioner(compute_dtype={compute_dtype!r}) is not "
-                f"ported yet")
         if activation not in ACTIVATIONS:
             raise ValueError(f"activation must be one of "
                              f"{sorted(ACTIVATIONS)}, got {activation!r}")
+        if compute_dtype is not None and not isinstance(
+                getattr(torch, str(compute_dtype), None), torch.dtype):
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.layers = nn.ModuleList(Dense(W, b) for W, b in layers)
         self.activation = activation
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
         act = ACTIVATIONS[self.activation]
-        h = x
+        cd = getattr(torch, self.compute_dtype) if self.compute_dtype \
+            else None
+        h = x if cd is None else x.to(cd)
         for i, layer in enumerate(self.layers):
-            h = h @ layer.W + layer.b
+            W, b = layer.W, layer.b
+            if cd is not None:
+                W, b = W.to(cd), b.to(cd)
+            h = h @ W + b
             if i + 1 < len(self.layers):
                 h = act(h)
-        return h
+        return h if cd is None else h.to(self.layers[-1].W.dtype)
 
 
 class AffineCoupling(Bijector):

@@ -40,10 +40,15 @@ def from_jax(bijector, device="cuda", dtype=None):
     ``mcmc.FlowPushforwardTarget`` (its transport converted, its base mean
     and variance as tensors). Each leaf is read as numpy and becomes an
     ``nn.Parameter`` on ``device`` (the card unless the caller asks for the
-    CPU) in ``dtype`` (default: the leaf's)."""
+    CPU) in ``dtype`` (default: the leaf's; a bf16 leaf, which numpy holds
+    as ml_dtypes' bfloat16, becomes torch.bfloat16)."""
 
     def tensor(leaf):
-        t = torch.as_tensor(np.array(leaf))
+        a = np.array(leaf)
+        if a.dtype.name == "bfloat16":
+            t = torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.as_tensor(a)
         return t.to(device=device, dtype=dtype or t.dtype)
 
     kind = type(bijector).__name__

@@ -100,7 +100,10 @@ def fused_flow_hmc_sample(chain, generator, *, dim: int,
         q0 = 0.1 * torch.randn(num_chains, dim, generator=generator, **like)
     else:
         q0 = torch.as_tensor(initial_position, **like)
-    base = [None if v is None else torch.as_tensor(v, **like)
+    # The base stays at least float32 with bf16 chains, as JAX hands its
+    # base to the kernel in float32 (leapfrog.py:268-277).
+    base_like = dict(like, dtype=torch.promote_types(dtype, torch.float32))
+    base = [None if v is None else torch.as_tensor(v, **base_like)
             for v in (base_mean, base_var)]
     return _sample(fused_leapfrog, chain, generator, q0.contiguous(), *base,
                    num_warmup=num_warmup, num_samples=num_samples,

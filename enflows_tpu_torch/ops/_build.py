@@ -33,29 +33,30 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # mode, x, gy, gladj, y, ladj, gx, P, rows, Q, Qt, scratch, loss_part,
-    # p_part, w_part, q_part, words, n_stages, n, d, G, E, n_pslots, n_rows,
-    # n_dense, n_acc, packed, grid, block, smem, stream
-    "enf_fused_chain": [_I] + [_P] * 16 + [_I, _LL] + [_I] * 11 + [_P],
-    # mode, E, block, smem, blocks_per_sm, regs, local_bytes
-    "enf_chain_occupancy": [_I] * 4 + [_P] * 3,
-    # x, y, ladj, Wk, P, items, item floats, n_items, layers, n_layers, n,
-    # d, ldh, tm, scratch, stage inputs, smem, grid, shift, stream
-    "enf_coupling_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _I,
-                         _I, _P, _P, _I, _I, _F, _P],
-    # x, gy, gl, gx, Wk, P, items, item floats, n_items, layers, n_layers,
-    # rows, d, ldh, tm, smem, grid, n_pslots, scratch, stage inputs, p_part,
-    # shift, stream
-    "enf_coupling_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
+    # mode, bf16, x, gy, gladj, y, ladj, lacc, gx, P, rows, Q, Qt, scratch,
+    # loss_part, p_part, w_part, q_part, words, n_stages, n, d, G, E,
+    # n_pslots, n_rows, n_dense, n_acc, packed, grid, block, smem, stream
+    "enf_fused_chain": [_I, _I] + [_P] * 17 + [_I, _LL] + [_I] * 11 + [_P],
+    # mode, bf16, E, block, smem, blocks_per_sm, regs, local_bytes
+    "enf_chain_occupancy": [_I] * 5 + [_P] * 3,
+    # bf16io, x, y, ladj, Wk, P, items, item floats, n_items, layers,
+    # n_layers, n, d, ldh, tm, scratch, stage inputs, smem, grid, shift,
+    # stream
+    "enf_coupling_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I,
+                         _I, _I, _P, _P, _I, _I, _F, _P],
+    # bf16io, x, gy, gl, gx, Wk, P, items, item floats, n_items, layers,
+    # n_layers, rows, d, ldh, tm, smem, grid, n_pslots, scratch, stage
+    # inputs, p_part, shift, stream
+    "enf_coupling_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
                          _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P],
     # scratch, layers, n_layers, rows, nsplit, w_part, w_len, smem, stream
     "enf_coupling_dw": [_P, _P, _I, _LL, _I, _P, _LL, _I, _P],
-    # q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, rows, Q, Qt, words,
-    # n_stages, n, d, G, E, nreg, n_rows, num_steps, grid, block, smem,
-    # stream
-    "enf_fused_leapfrog": [_P] * 15 + [_I, _LL] + [_I] * 9 + [_P],
-    # E, nreg, block, smem, blocks_per_sm, regs, local_bytes
-    "enf_leapfrog_occupancy": [_I] * 4 + [_P] * 3,
+    # bf16, q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, rows, Q, Qt,
+    # words, n_stages, n, d, G, E, nreg, n_rows, num_steps, grid, block,
+    # smem, stream
+    "enf_fused_leapfrog": [_I] + [_P] * 15 + [_I, _LL] + [_I] * 9 + [_P],
+    # bf16, E, nreg, block, smem, blocks_per_sm, regs, local_bytes
+    "enf_leapfrog_occupancy": [_I] * 5 + [_P] * 3,
 }
 
 

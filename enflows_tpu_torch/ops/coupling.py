@@ -45,7 +45,12 @@ layout is [scales, shifts], as before, and no gather is made.
 to multiples of 8 (the TF32 ``mma.sync`` m16n8k8 shape) with zero rows and
 columns, each slab of the last layer to a multiple of 8 columns; W and W^T
 packed in the B-operand fragment order of that instruction (``_pack``)
-and rounded to TF32, the biases beside them. It is a gather of the plan
+and rounded to TF32, the biases beside them. A coupling with
+``compute_dtype="bfloat16"`` takes the bf16 path (``_MatmulBF16``'s
+arithmetic): its K and hidden widths padded to multiples of 16 (m16n8k16),
+W and W^T packed for that instruction (``_pack_bf16``) and rounded to
+bf16, two to a word, its last layer's W^T slab by slab at the depth B5's
+dh reads a slab (``_slab_depth``). It is a gather of the plan
 above, so the Parameters are never padded, and the weight gradients come
 back through the inverse gather. ``coupling_forward_plain(padded=True)``
 runs the plain version on the padded plan; the CPU tests hold it to the
@@ -67,13 +72,16 @@ from ..bijectors.coupling import (ACTIVATIONS, AffineCoupling,
 from ..bijectors.spline import (_DERIV_SHIFT, _MIN_BIN, _MIN_DERIV,
                                 RQSplineCoupling, softplus)
 from ..utils.profiling import annotate
-from .elementwise import (_APPLY, _CODE, ELEMENTWISE_KINDS,
+from .elementwise import (_APPLY, _CODE, ELEMENTWISE_KINDS, STORAGE_DTYPES,
                           _check_cuda_input, _ints, _raise_on, _sm_count,
                           _stages)
 
 # Kernel launches, raised by the wrappers right after every kernel of a call
-# has launched without error, and nowhere else.
+# has launched without error, and nowhere else: a stack with float32 storage
+# and TF32 products only in LAUNCHES; one with a bf16 conditioner or bf16
+# storage (the kernels' bf16 paths) in LAUNCHES_BF16.
 LAUNCHES = {"coupling_fwd": 0, "coupling_bwd": 0}
+LAUNCHES_BF16 = {"coupling_fwd": 0, "coupling_bwd": 0}
 
 _ACT_CODE = {"tanh": 0, "gelu": 1, "relu": 2, "silu": 3}
 _KIND_CODE = {"affine": 0, "spline": 1, "elem": 2}
@@ -112,6 +120,7 @@ class _Item(NamedTuple):
     code: int = 0           # elem: stage code of csrc/stages.cuh
     slot: int = 0           # elem: first parameter slot
     j_of_k: tuple = ()      # elem: logical position of physical lane k
+    bf16: bool = False      # coupling: conditioner products in bf16
 
 
 class _Structure(NamedTuple):
@@ -127,6 +136,20 @@ class _Structure(NamedTuple):
     @property
     def identity_out(self) -> bool:
         return self.out_map == tuple(range(self.dim))
+
+    @property
+    def layer_bf16(self) -> tuple:
+        """Per layer, whether its product runs on bf16 operands (its
+        coupling's ``compute_dtype == "bfloat16"``)."""
+        flags = [False] * len(self.layers)
+        for it in self.items:
+            for li in range(it.n_layers):
+                flags[it.layer0 + li] = it.bf16
+        return tuple(flags)
+
+    @property
+    def any_bf16(self) -> bool:
+        return any(it.bf16 for it in self.items)
 
 
 def _n_params(it) -> int:
@@ -164,9 +187,10 @@ def _stack_structure(chain, dim: int):
     """The plan's static part, or None where the stack is not expressible
     (``coupling.py:141-286``): a chain of AffineCoupling and
     RQSplineCoupling (split d/2, an MLPConditioner with one of the four
-    activations and no compute_dtype), Permutes, and elementwise stages,
-    with at least one coupling, where every coupling finds its two logical
-    halves on the two physical halves. No tensor is touched."""
+    activations and ``compute_dtype`` None or "bfloat16", kept per coupling
+    as JAX keeps it in its plan item, :222), Permutes, and elementwise
+    stages, with at least one coupling, where every coupling finds its two
+    logical halves on the two physical halves. No tensor is touched."""
     if dim < 2 or dim % 2:
         return None
     da = dim // 2
@@ -181,7 +205,7 @@ def _stack_structure(chain, dim: int):
             cond = s.conditioner
             if s.split != da or not isinstance(cond, MLPConditioner) \
                     or cond.activation not in _ACT_CODE \
-                    or cond.compute_dtype is not None:
+                    or cond.compute_dtype not in (None, "bfloat16"):
                 return None
             align = _half_alignment(lane_map, dim)
             if align is None:
@@ -215,7 +239,8 @@ def _stack_structure(chain, dim: int):
                 act=cond.activation, layer0=len(layers),
                 n_layers=len(shapes),
                 a_rows=tuple(int(i) for i in np.argsort(a_loc)),
-                out_cols=tuple(int(i) for i in cols), lanes=G))
+                out_cols=tuple(int(i) for i in cols), lanes=G,
+                bf16=cond.compute_dtype == "bfloat16"))
             layers.extend(shapes)
         elif isinstance(s, ELEMENTWISE_KINDS):
             j_of_k = np.empty(dim, np.int64)
@@ -277,6 +302,28 @@ def _ceil8(v: int) -> int:
     return -(-v // 8) * 8
 
 
+def _ceil16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _pack_bf16(M):
+    """The entries of an (R, C) matrix (R a multiple of 16, C of 8) in the
+    order the B operand of ``mma.sync.m16n8k16.bf16`` is read: per 16-row
+    k-step, per 8-column n-tile, 128 values (64 32-bit words, as a TF32
+    fragment of ``_pack``), where lane (n % 8) * 4 + (k % 8) // 2 holds in
+    its first word rows k, k + 1 (k = 2 (k % 8 // 2)) of column n and in its
+    second rows k + 8, k + 9, the lower row in the lower half. Two bf16
+    values to a word, so a fragment of 16 rows is read as a TF32 one of 8."""
+    R, C = M.shape
+    k = np.arange(R)[:, None]
+    n = np.arange(C)[None, :]
+    pos = (((k // 16) * (C // 8) + n // 8) * 128
+           + ((n % 8) * 4 + (k % 8) // 2) * 4 + ((k % 16) // 8) * 2 + k % 2)
+    out = np.empty(R * C, M.dtype)
+    out[pos.reshape(-1)] = M.reshape(-1)
+    return out
+
+
 def _pack(M):
     """The entries of an (R, C) matrix (R, C multiples of 8) in the order
     the B operand of ``mma.sync.m16n8k8.tf32`` is read: per 8-row k-step,
@@ -300,9 +347,10 @@ class _Padded(NamedTuple):
     nat_offs: tuple    # per layer: W (Kp x Np) then b (Np), natural layout
     nat_len: int
     nat_idx: np.ndarray    # natural position -> wbuf index; w_len = zero
-    k_offs: tuple      # per layer: packed W, packed W^T, bias offsets
-    k_idx: np.ndarray      # kernel-buffer position -> wbuf index
-    n_packed: int      # leading floats of the kernel buffer: W and W^T
+    k_offs: tuple      # per layer: packed W, packed W^T, bias offsets (words)
+    k_idx: np.ndarray      # kernel-buffer value -> wbuf index
+    n_packed: int      # TF32 values first in the kernel buffer: W and W^T
+    n_bf16: int        # then the bf16 layers' packed W and W^T values
     grad_idx: np.ndarray   # wbuf index -> natural position
     scr_cols: tuple    # per layer: scratch column base of h_in, g_pre
     cols: int          # scratch floats per row
@@ -320,12 +368,17 @@ def _padded(st: _Structure) -> _Padded:
         if it.kind == "elem":
             slabs.append((0, 0, 0))
             continue
+        # A bf16 layer's K (and so the hidden widths) padded to the k16 of
+        # m16n8k16. The slab stays a multiple of 8 (the ring holds it in
+        # B4); B5's dh reads each slab as a depth padded to 16
+        # (``_slab_depth``).
+        ceil = _ceil16 if it.bf16 else _ceil8
         P, G = _n_params(it), it.lanes
         sw, ns = _ceil8(G * P), -(-da // G)
         slabs.append((G, sw, ns))
         for li in range(it.n_layers):
             K, N = st.layers[it.layer0 + li]
-            kn[it.layer0 + li] = (_ceil8(K), _ceil8(N))
+            kn[it.layer0 + li] = (ceil(K), ceil(N))
         last = it.layer0 + it.n_layers - 1
         kn[last] = (kn[last][0], ns * sw)
         last_of[last] = (G, P, sw)
@@ -354,30 +407,64 @@ def _padded(st: _Structure) -> _Padded:
         nat_idx += [W.reshape(-1), b]
         off += (Kp + 1) * Np
     nat_idx = np.concatenate(nat_idx)
-    packs, packs_t, biases, k_offs = [], [], [], []
-    n_w = sum(Kp * Np for Kp, Np in kn)
-    o_w, o_b = 0, 2 * n_w
+    # The kernel buffer, in 32-bit words: the TF32 layers' packed W, then
+    # their W^T (a float a value); the bf16 layers' packed W, then their W^T
+    # (two values a word); the biases (f32).
+    flags = st.layer_bf16
+    packs, packs_t = {}, {}
     for l, (Kp, Np) in enumerate(kn):
         M = nat_idx[nat_offs[l]:nat_offs[l] + Kp * Np].reshape(Kp, Np)
-        packs.append(_pack(M))
-        packs_t.append(_pack(M.T))
+        MT = M.T
+        if flags[l] and l in last_of:
+            # B5's dh reads each slab as a depth padded to 16: W^T's rows
+            # slab by slab, zero rows between.
+            sw = last_of[l][2]
+            sk = _ceil16(sw)
+            MT = np.full((Np // sw * sk, Kp), zero, np.int64)
+            for s in range(Np // sw):
+                MT[s * sk:s * sk + sw] = M.T[s * sw:(s + 1) * sw]
+        pack = _pack_bf16 if flags[l] else _pack
+        packs[l], packs_t[l] = pack(M), pack(MT)
+    order = [l for l in range(len(kn)) if not flags[l]]
+    order16 = [l for l in range(len(kn)) if flags[l]]
+    n_32 = sum(packs[l].size + packs_t[l].size for l in order)
+    n_16 = sum(packs[l].size + packs_t[l].size for l in order16)
+    k_offs, o_w, o_b = [None] * len(kn), 0, n_32 + n_16 // 2
+    for group, per_word in ((order, 1), (order16, 2)):
+        o_t = o_w + sum(packs[l].size for l in group) // per_word
+        for l in group:
+            k_offs[l] = (o_w, o_t)
+            o_w += packs[l].size // per_word
+            o_t += packs_t[l].size // per_word
+        o_w = o_t
+    biases = []
+    for l, (Kp, Np) in enumerate(kn):
         biases.append(nat_idx[nat_offs[l] + Kp * Np:nat_offs[l]
                               + (Kp + 1) * Np])
-        k_offs.append((o_w, n_w + o_w, o_b))
-        o_w += Kp * Np
+        k_offs[l] = (*k_offs[l], o_b)
         o_b += Np
+    packs = ([packs[l] for l in order] + [packs_t[l] for l in order]
+             + [packs[l] for l in order16] + [packs_t[l] for l in order16])
     scr, c = [], 0
     for Kp, Np in kn:
         scr.append(c)
         c += Kp + Np
     widest = max([Kp for Kp, _ in kn]
                  + [Np for l, (_, Np) in enumerate(kn) if l not in last_of])
-    # The activation buffer also holds B5's slabs; a row stride of 4 mod 8
-    # floats makes the A-fragment reads of mma.sync conflict-free.
-    ldh = max([widest] + [s[1] for s in slabs]) + 4
+    # The activation buffer also holds B5's slabs (a bf16 slab at its
+    # depth padded to 16); a row stride of 4 mod 8 floats makes the
+    # A-fragment reads of mma.sync conflict-free.
+    ldh = max([widest] + [_slab_depth(it, s[1]) for it, s in
+                          zip(st.items, slabs)]) + 4
     return _Padded(tuple(kn), tuple(slabs), tuple(nat_offs), off, nat_idx,
-                   tuple(k_offs), np.concatenate(packs + packs_t + biases),
-                   2 * n_w, grad_idx, tuple(scr), c, widest, ldh)
+                   tuple(k_offs), np.concatenate(packs + biases), n_32,
+                   n_16, grad_idx, tuple(scr), c, widest, ldh)
+
+
+def _slab_depth(it, sw: int) -> int:
+    """The depth at which B5's dh reads a slab of width ``sw``: ``sw``, or
+    for a bf16 coupling ``sw`` padded to a multiple of 16."""
+    return _ceil16(sw) if it.bf16 else sw
 
 
 def _layer(st: _Structure, wbuf, li, pp: _Padded = None):
@@ -471,10 +558,11 @@ def _pick_tile(st: _Structure, backward: bool) -> int:
 def is_fusible_coupling_stack(chain, dim: int, dtype=torch.float32) -> bool:
     """Whether B4/B5 take this stack (``coupling.py:306-319``).
 
-    The dtype is float32 (bf16 storage and bf16 conditioners are not ported)
-    and ``dim`` is even; the chain has at least one coupling; every coupling
-    splits at dim/2 and has an ``MLPConditioner`` with one of the four
-    activations and ``compute_dtype=None``; every coupling finds its halves
+    The storage dtype is float32 or bfloat16 and ``dim`` is even; the chain
+    has at least one coupling; every coupling splits at dim/2 and has an
+    ``MLPConditioner`` with one of the four activations and
+    ``compute_dtype`` None (TF32 products) or "bfloat16" (bf16 products,
+    per coupling, so a stack may mix the two); every coupling finds its halves
     on the two physical halves after the Permutes before it; the other
     stages are of the five elementwise kinds. In place of the TPU's tile
     pickers and VMEM budgets, the port's own limits: at most 24 stages
@@ -487,8 +575,11 @@ def is_fusible_coupling_stack(chain, dim: int, dtype=torch.float32) -> bool:
     A tile of 16 rows takes widths up to 1024. The spline's last layer is
     computed in slabs of G = 184 // (3K - 1) half-lanes, so K <= 61. The
     BASELINE (512, 512) affine and spline stacks run in 64-row tiles, the
-    (1024, 1024) stack in 16-row tiles; (4096,) is refused."""
-    if dtype != torch.float32:
+    (1024, 1024) stack in 16-row tiles; (4096,) is refused. A bf16 layer's
+    widths are padded to multiples of 16; its weights stream through the
+    same ring (a 16-deep bf16 k-step is the bytes of an 8-deep TF32 one),
+    so the shared memory is the same."""
+    if dtype not in STORAGE_DTYPES:
         return False
     st = _stack_structure(chain, dim)
     if st is None or len(st.items) > MAX_STAGES \
@@ -621,6 +712,41 @@ def _spline_epilogue(x, h, da, K, bound, inverted):
     return torch.where(in_range, y, x), ladj
 
 
+class _MatmulBF16(torch.autograd.Function):
+    """``h @ W`` on bf16 operands with float32 accumulation, whose backward
+    runs bf16-operand products too: JAX's ``_mm_bf16``
+    (``enflows_tpu/ops/pallas/coupling.py:419-446``). Forward
+    dot(h.bf16, W.bf16) in f32; backward g16 = g.bf16, dh = g16 W16^T and
+    dW = h16^T g16 in f32, cast to h's and W's dtypes. The operands are
+    rounded to nearest even, as the kernels' ``cvt.rn.bf16x2.f32`` rounds
+    them; a product of two bf16 values is exact in f32, so the f32 matmul
+    of the rounded operands is the bf16 product up to the order of the
+    sums. Float64 operands keep float64 sums."""
+
+    @staticmethod
+    def forward(ctx, h, W):
+        h16, W16 = (_bf16_operand(t) for t in (h, W))
+        ctx.save_for_backward(h16, W16)
+        ctx.dtypes = (h.dtype, W.dtype)
+        return torch.matmul(h16, W16)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        h16, W16 = ctx.saved_tensors
+        g16 = _bf16_operand(g)
+        return (torch.matmul(g16, W16.T).to(ctx.dtypes[0]),
+                torch.matmul(h16.T, g16).to(ctx.dtypes[1]))
+
+
+def _bf16_operand(t):
+    """``t`` rounded to bf16 (nearest even), held in its own dtype: float32,
+    or float64 where a yardstick computes the bf16-operand products
+    exactly."""
+    return t.to(torch.bfloat16).to(torch.promote_types(t.dtype,
+                                                       torch.float32))
+
+
 def coupling_forward_plain(st: _Structure, wbuf, pbuf, x,
                            padded: bool = False):
     """Plain B4: (y in physical lane order, per-sample ladj) through the
@@ -628,9 +754,18 @@ def coupling_forward_plain(st: _Structure, wbuf, pbuf, x,
     conditioner matmuls in ``torch.matmul``. Differentiable: autograd over
     it is the plain B5. ``padded=True`` runs the same function on the
     kernels' padded plan: zero-padded activations, padded W and b, the
-    last layer's padded slabs."""
+    last layer's padded slabs.
+
+    A coupling with ``compute_dtype="bfloat16"`` takes its products through
+    ``_MatmulBF16`` (bf16 operands, float32 products; bias, activation and
+    epilogue in float32), as the kernels do. A bf16 x (storage) is widened
+    to float32, and y and ladj are rounded to bf16 once at the end, as B4
+    stores them."""
     d = st.dim
     da = d // 2
+    storage = x.dtype
+    if storage == torch.bfloat16:
+        x = x.to(torch.float32)
     pp = _padded(st) if padded else None
     if padded:
         wbuf = _padded_buffer(st, wbuf)
@@ -648,20 +783,21 @@ def coupling_forward_plain(st: _Structure, wbuf, pbuf, x,
                 ladj = ladj + el.expand(halves[half].shape).sum(1)
             continue
         act = ACTIVATIONS[it.act]
+        mm = _MatmulBF16.apply if it.bf16 else torch.matmul
         h = halves[it.src]
         if padded:
             h = torch.nn.functional.pad(h, (0, pp.kn[it.layer0][0] - da))
         for li in range(it.n_layers):
             W, b = _layer(st, wbuf, it.layer0 + li, pp)
             if li + 1 < it.n_layers:
-                h = act(torch.matmul(h, W) + b)
+                h = act(mm(h, W) + b)
                 continue
             # The last layer's columns in slab layout: a gather of W and b,
             # whose cost does not grow with the batch.
             cols = _slab_cols(st, i, padded, h.device)
             if cols is not None:
                 W, b = W[:, cols], b[cols]
-            h = torch.matmul(h, W) + b
+            h = mm(h, W) + b
         tgt = 1 - it.src
         if it.kind == "affine":
             new, el = _affine_epilogue(halves[tgt], h, da, it.mls,
@@ -671,7 +807,7 @@ def coupling_forward_plain(st: _Structure, wbuf, pbuf, x,
                                        it.bound, it.inverted)
         halves[tgt] = new
         ladj = ladj + el.sum(1)
-    return torch.cat(halves, dim=1), ladj
+    return torch.cat(halves, dim=1).to(storage), ladj.to(storage)
 
 
 _BY_CODE = {code: kind for kind, code in _CODE.items()}
@@ -817,9 +953,10 @@ def _adjoint_spline(x, h, da, K, bound, inverted, cy, ce):
 @functools.lru_cache(maxsize=64)
 def _plan_arrays(st: _Structure):
     """The C arrays of the plan: 12 ints and 2 floats per stage (the last
-    three ints: G, slab width, slabs), 7 ints per padded layer (Kp, Np, the
-    packed W, packed W^T and bias offsets in the kernel buffer, the scratch
-    column base, the offset in the natural padded buffer)."""
+    three ints: G, slab width, slabs), 8 ints per padded layer (Kp, Np, the
+    packed W, packed W^T and bias offsets in the kernel buffer's words, the
+    scratch column base, the offset in the natural padded buffer, 1 where
+    the layer's products take bf16 operands)."""
     pp = _padded(st)
     si, sf = [], []
     for it, slab in zip(st.items, pp.slabs):
@@ -828,8 +965,9 @@ def _plan_arrays(st: _Structure):
                it.slot, it.n_bins, *slab]
         sf += [it.mls, it.bound]
     li = []
-    for l, (Kp, Np) in enumerate(pp.kn):
-        li += [Kp, Np, *pp.k_offs[l], pp.scr_cols[l], pp.nat_offs[l]]
+    for l, ((Kp, Np), bf) in enumerate(zip(pp.kn, st.layer_bf16)):
+        li += [Kp, Np, *pp.k_offs[l], pp.scr_cols[l], pp.nat_offs[l],
+               int(bf)]
     return _ints(si), (ctypes.c_float * max(1, len(sf)))(*sf), _ints(li)
 
 
@@ -841,12 +979,19 @@ def _round_tf32(t):
 
 
 def _kernel_weights(st: _Structure, wbuf):
-    """The kernel buffer: every layer's W and W^T, padded and packed in
-    fragment order and rounded to TF32, then the padded biases (f32)."""
+    """The kernel buffer, in 32-bit words: the TF32 layers' W and W^T,
+    padded, packed in fragment order and rounded to TF32; the bf16 layers'
+    W and W^T, packed for m16n8k16 and rounded to bf16 (nearest even), two
+    to a word; then the padded biases (f32)."""
     pp = _padded(st)
-    wk = _gather(st, wbuf.detach(), "k_idx")
-    wk[:pp.n_packed] = _round_tf32(wk[:pp.n_packed])
-    return wk
+    vals = _gather(st, wbuf.detach(), "k_idx")
+    a, b = pp.n_packed, pp.n_packed + pp.n_bf16
+    if a == b:
+        vals[:a] = _round_tf32(vals[:a])
+        return vals
+    return torch.cat([_round_tf32(vals[:a]),
+                      vals[a:b].to(torch.bfloat16).view(torch.float32),
+                      vals[b:]])
 
 
 def _grid(tiles: int, smem: int, device) -> int:
@@ -862,19 +1007,29 @@ def _sv_row(st: _Structure) -> int:
                for it in st.items)
 
 
+def _is_bf16(st: _Structure, x) -> bool:
+    """Whether a launch takes the kernels' bf16 paths: bf16 storage or a
+    bf16 conditioner."""
+    return x.dtype == torch.bfloat16 or st.any_bf16
+
+
 def _launch_fwd(st: _Structure, x, wbuf, pbuf, save: bool = False):
     """B4: (y, ladj, saved). With ``save``, B4 also writes what B5 needs
     (every layer's input and pre-activation, every stage's input) for the
     whole batch, and ``saved`` holds it with the kernel buffer for
-    ``_launch_bwd``; otherwise ``saved`` is None."""
+    ``_launch_bwd``; otherwise ``saved`` is None. x, y and ladj are in x's
+    storage dtype (float32 or bf16: ladj is summed in f32 and rounded once
+    as it is stored); the saved rows are f32."""
     from ._build import load_library
 
     lib = load_library()
     n, d = x.shape
+    if x.dtype not in STORAGE_DTYPES:
+        raise ValueError(f"B4 takes float32 or bfloat16, got {x.dtype}")
     tm = _pick_tile(st, backward=False)
     smem = _smem_bytes(st, tm, backward=False)
     y = torch.empty_like(x)
-    ladj = torch.empty(n, dtype=torch.float32, device=x.device)
+    ladj = torch.empty(n, dtype=x.dtype, device=x.device)
     wk = _kernel_weights(st, wbuf)
     saved = None
     if save:
@@ -887,13 +1042,17 @@ def _launch_fwd(st: _Structure, x, wbuf, pbuf, save: bool = False):
             annotate("enflows.cuda.fused_coupling_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_coupling_fwd(
-            x.data_ptr(), y.data_ptr(), ladj.data_ptr(), wk.data_ptr(),
+            int(x.dtype == torch.bfloat16), x.data_ptr(), y.data_ptr(),
+            ladj.data_ptr(), wk.data_ptr(),
             pbuf.data_ptr(), si, sf, len(st.items), li, len(st.layers), n,
             d, _padded(st).ldh, tm, saved[0].data_ptr() if save else None,
             saved[1].data_ptr() if save else None, smem,
             _grid(-(-n // tm), smem, x.device), _DERIV_SHIFT, stream)
     _raise_on(lib, err, "B4 (fused coupling forward)")
-    LAUNCHES["coupling_fwd"] += 1
+    if _is_bf16(st, x):
+        LAUNCHES_BF16["coupling_fwd"] += 1
+    else:
+        LAUNCHES["coupling_fwd"] += 1
     return y, ladj, saved
 
 
@@ -912,11 +1071,17 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
     row splits; the partials are summed here in a fixed order and gathered
     from the padded layout back onto the plan. With ``weights=False`` (no
     parameter wants a gradient, as in the sticking-the-landing inverse
-    pass) only the sweep runs, and both parameter cotangents are None."""
+    pass) only the sweep runs, and both parameter cotangents are None. x,
+    gy, gl and gx are in x's storage dtype (float32 or bf16); the
+    parameter cotangents are f32."""
     from ._build import load_library
 
     lib = load_library()
     n, d = x.shape
+    if x.dtype not in STORAGE_DTYPES or gy.dtype != x.dtype \
+            or gl.dtype != x.dtype:
+        raise ValueError(f"B5 takes x, gy and gl of one dtype, float32 or "
+                         f"bfloat16, got {x.dtype}, {gy.dtype}, {gl.dtype}")
     dev = x.device
     pp = _padded(st)
     tm = _pick_tile(st, backward=True)
@@ -946,7 +1111,8 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
             p_part = torch.empty(grid, st.n_pslots * d, dtype=torch.float32,
                                  device=dev)
             err = lib.enf_coupling_bwd(
-                x[r0:].data_ptr(), gy[r0:].data_ptr(), gl[r0:].data_ptr(),
+                int(x.dtype == torch.bfloat16), x[r0:].data_ptr(),
+                gy[r0:].data_ptr(), gl[r0:].data_ptr(),
                 gx[r0:].data_ptr(), wk.data_ptr(), pbuf.data_ptr(), si, sf,
                 len(st.items), li, len(st.layers), rows, d, pp.ldh, tm, smem,
                 grid, st.n_pslots, scratch.data_ptr(),
@@ -960,7 +1126,10 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
                 w_part[c * nsplit:].data_ptr(), pp.nat_len, _DW_SMEM, stream)
             _raise_on(lib, err, "B5 (coupling weight-gradient reduction)")
             p_parts.append(p_part.sum(0))
-    LAUNCHES["coupling_bwd"] += 1
+    if _is_bf16(st, x):
+        LAUNCHES_BF16["coupling_bwd"] += 1
+    else:
+        LAUNCHES["coupling_bwd"] += 1
     if not weights:
         return gx, None, None
     gw = w_part.sum(0)[_index(st, "grad_idx", dev)]
@@ -1023,7 +1192,10 @@ def fused_coupling_forward_and_ladj(chain, x, physical_order: bool = False):
     physical order, for consumers whose reduction of y does not depend on
     lane order (the isotropic base logpdf); otherwise y is gathered into
     logical order. On a CUDA tensor: B4, with B5 as its backward. On a CPU
-    tensor: ``coupling_forward_plain`` through the same plan."""
+    tensor: ``coupling_forward_plain`` through the same plan. A bf16 batch
+    (storage) gives y and ladj in bf16, x's gradient too, and the
+    parameters' gradients in their own dtype; the arithmetic is float32
+    with TF32 or bf16 products per coupling (``compute_dtype``)."""
     if x.dim() != 2:
         raise ValueError(f"fused coupling takes an (n, d) batch, got shape "
                          f"{tuple(x.shape)}")
@@ -1032,7 +1204,8 @@ def fused_coupling_forward_and_ladj(chain, x, physical_order: bool = False):
         raise ValueError(f"chain is not a fusible coupling stack at "
                          f"d={x.shape[1]} (see is_fusible_coupling_stack)")
     if x.device.type == "cpu":
-        wbuf, pbuf = _stack_plan(chain, st, x.dtype, x.device)
+        wbuf, pbuf = _stack_plan(chain, st, torch.promote_types(
+            x.dtype, torch.float32), x.device)
         y, ladj = coupling_forward_plain(st, wbuf, pbuf, x)
         if not physical_order and not st.identity_out:
             y = y[:, list(st.out_map)]

@@ -102,7 +102,33 @@
 // The adjoints follow the torch functions _adjoint_activation,
 // _adjoint_affine and _adjoint_spline of enflows_tpu_torch/ops/coupling.py
 // line by line; the CPU tests hold those against autograd.
+//
+// bf16 conditioners (compute_dtype "bfloat16", a flag per layer): the
+// reference's _mm_bf16 (ops/pallas/coupling.py:419-446), bf16 operands
+// with f32 accumulation, forward and backward, on
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. Such a layer's
+// weights are packed by the wrapper in that instruction's B-fragment order
+// and rounded to bf16 (nearest even), two to a 32-bit word, so that a
+// 16-deep k-step is the 256 bytes an 8-deep TF32 one is: the ring, its
+// cp.async pieces and its barriers are those of the TF32 path, with half
+// the k-steps. The activations stay f32 in shared memory and in the
+// scratch, rounded to bf16 (nearest even) where they are written, as the
+// TF32 path rounds them to TF32; A fragments are packed from them by
+// cvt.rn.bf16x2.f32, which is then exact. B5 rounds the pre-activation
+// cotangent to bf16 where a product reads it (dh in the sweep, dW in
+// coupling_dw_kernel), as _mm_bf16's backward rounds g, and keeps it f32 in
+// the scratch for db. Biases, activations, epilogues and ladj stay f32.
+// Layers with f32 conditioners keep the TF32 path unchanged. A bf16
+// layer's K and hidden widths are padded to multiples of 16; its last
+// layer's slabs stay multiples of 8 (the ring holds a slab in B4), and B5's
+// dh reads each slab at a depth padded to 16 with zero columns, against
+// W^T packed slab by slab at that depth.
+//
+// bf16 storage (a flag per launch): x and gy are widened to f32 as they
+// are read, y, ladj and gx rounded to nearest even as they are written;
+// the saved rows and everything between stay f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "stages.cuh"
@@ -125,15 +151,30 @@ enum { A_TANH = 0, A_GELU = 1, A_RELU = 2, A_SILU = 3 };
 
 // Item fields: kind, src, inverted, act, n_layers, layer0, code, slot,
 // n_bins, G (half-lanes per slab), SW (slab width), slabs.
-// Layer fields: Kp, Np, packed W offset, packed W^T offset, bias offset,
-// scratch column base (h_in, then g_pre at + Kp), natural dW offset.
+// Layer fields: Kp, Np, packed W offset, packed W^T offset, bias offset
+// (in 32-bit words of the kernel buffer), scratch column base (h_in, then
+// g_pre at + Kp), natural dW offset, bf16 products (1) or TF32 (0).
 struct CPlan {
   int n_items;
   int n_layers;
   int item[ENF_CMAX_STAGES][12];
   float itemf[ENF_CMAX_STAGES][2];  // max_log_scale, bound
-  int layer[ENF_CMAX_LAYERS][7];
+  int layer[ENF_CMAX_LAYERS][8];
 };
+
+// x, y, ladj, gy, gl and gx in their storage type, by a flag per launch.
+__device__ __forceinline__ float ld_io(const void* p, long long i, bool bf) {
+  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+            : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st_io(void* p, long long i, float v,
+                                      bool bf) {
+  if (bf)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
 
 // ------------------------------------------------------------------
 // Activations and their adjoints (_adjoint_activation).
@@ -185,6 +226,36 @@ __device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
         "r"(__float_as_uint(b1)));
+}
+
+// ------------------------------------------------------------------
+// The bf16 tile product.
+
+// Round to bf16, to nearest even, kept in f32.
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Two f32 values as one bf16x2 word, rounded to nearest even: lo in the
+// lower half (the lower k or column of an mma fragment).
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  unsigned u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(u) : "f"(hi), "f"(lo));
+  return u;
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The rounding of a layer's operands: bf16 or TF32.
+__device__ __forceinline__ float oprnd(float v, bool bf) {
+  return bf ? bf16r(v) : tf32r(v);
 }
 
 // 16-byte copy to shared memory; src_bytes 0 fills zeros.
@@ -294,6 +365,85 @@ __device__ void tile_product(Acc<MF>& acc, const float* A, int lda,
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// tile_product with bf16 operands: ksteps 16-deep k-steps from kk0 of a
+// matrix packed for m16n8k16 (two bf16 a word, 64 words a fragment, so the
+// ring and its pieces are tile_product's). A fragments are packed from the
+// f32 rows of A (row stride lda even) by cvt.rn.bf16x2.f32: row g of a
+// fragment holds columns 2t, 2t + 1 and 2t + 8, 2t + 9.
+template <int MF, int WM>
+__device__ void tile_product_bf16(Acc<MF>& acc, const float* A, int lda,
+                                  int ksteps, const float* __restrict__ Bp,
+                                  int ntot, int kk0, int nt0, int ntiles,
+                                  float* ring) {
+  using G = Geo<MF, WM>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / G::WN, wn = warp % G::WN;
+  const int g = lane >> 2, t = lane & 3;
+  const int pieces = ntiles * 16;
+  auto load = [&](int kk) {
+    const float* src = Bp + ((size_t)(kk0 + kk) * ntot + nt0) * 64;
+    float* dst = ring + (kk % ENF_RING) * 8 * G::PASS;
+    for (int i = threadIdx.x; i < pieces; i += blockDim.x)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  };
+#pragma unroll
+  for (int s = 0; s < ENF_RING - 1; ++s) {
+    if (s < ksteps) load(s);
+    cp_async_commit();
+  }
+  const float* arow = A + (wm * MF * 16 + g) * lda + 2 * t;
+  for (int kk = 0; kk < ksteps; ++kk) {
+    cp_async_wait<ENF_RING - 2>();
+    __syncthreads();  // stage kk landed; stage kk - 1 is read by everyone
+    if (kk + ENF_RING - 1 < ksteps) load(kk + ENF_RING - 1);
+    cp_async_commit();
+    const unsigned* bs = reinterpret_cast<const unsigned*>(
+                             ring + (kk % ENF_RING) * 8 * G::PASS) +
+                         lane * 2;
+    unsigned a[MF][4];
+#pragma unroll
+    for (int m = 0; m < MF; ++m) {
+      const float* p = arow + m * 16 * lda + kk * 16;
+      const float2 v0 = *reinterpret_cast<const float2*>(p);
+      const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * lda);
+      const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+      const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * lda + 8);
+      a[m][0] = bf16x2(v0.x, v0.y);
+      a[m][1] = bf16x2(v1.x, v1.y);
+      a[m][2] = bf16x2(v2.x, v2.y);
+      a[m][3] = bf16x2(v3.x, v3.y);
+    }
+#pragma unroll
+    for (int j = 0; j < ENF_NF; ++j) {
+      const int tile = j * G::WN + wn;
+      if (tile < ntiles) {
+        const uint2 b = *reinterpret_cast<const uint2*>(bs + tile * 64);
+#pragma unroll
+        for (int m = 0; m < MF; ++m) mma_bf16(acc.v[m][j], a[m], b.x, b.y);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// acc += A times rows [k0, k0 + kdim) (a multiple of the layer's k-step,
+// 8 TF32 or 16 bf16) and n-tiles [nt0, nt0 + ntiles) of a packed matrix,
+// on the layer's path: bf16 operands where `bf`, TF32 otherwise.
+template <int MF, int WM>
+__device__ __forceinline__ void tile_mm(bool bf, Acc<MF>& acc,
+                                        const float* A, int lda, int kdim,
+                                        const float* __restrict__ Bp,
+                                        int ntot, int k0, int nt0,
+                                        int ntiles, float* ring) {
+  if (bf)
+    tile_product_bf16<MF, WM>(acc, A, lda, kdim / 16, Bp, ntot, k0 / 16, nt0,
+                              ntiles, ring);
+  else
+    tile_product<MF, WM>(acc, A, lda, kdim / 8, Bp, ntot, k0 / 8, nt0,
+                         ntiles, ring);
 }
 
 // f(r, c, v) for every accumulator of the first ntiles n-tiles: row r of
@@ -625,12 +775,13 @@ __device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
   constexpr int TM = Geo<MF, WM>::TM;
   const int da = d / 2, src = it[1], act = it[3], nl = it[4], l0 = it[5];
   const bool save = scr.base != nullptr;
+  const bool bf = plan.layer[l0][7] != 0;  // the coupling's products
   {
     const int Kp = plan.layer[l0][0];
     float* hin = save ? scr.at(plan.layer[l0][5], Kp) : nullptr;
     for (int e = threadIdx.x; e < TM * Kp; e += blockDim.x) {
       const int r = e / Kp, k = e - r * Kp;
-      const float v = k < da ? tf32r(S[r * d + src * da + k]) : 0.f;
+      const float v = k < da ? oprnd(S[r * d + src * da + k], bf) : 0.f;
       H[r * ldh + k] = v;
       if (save && r < scr.nvalid) hin[(size_t)r * Kp + k] = v;
     }
@@ -642,8 +793,8 @@ __device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
     const int Kp = L[0], Np = L[1];
     const float* b = Wk + L[4];
     acc.zero();
-    tile_product<MF, WM>(acc, H, ldh, Kp / 8, Wk + L[2], Np / 8, 0, 0,
-                         Np / 8, ring);
+    tile_mm<MF, WM>(bf, acc, H, ldh, Kp, Wk + L[2], Np / 8, 0, 0, Np / 8,
+                    ring);
     // Bias in the accumulator epilogue; the activation in a second pass
     // over H, with the accumulators dead (computed while they are live, the
     // activation's registers spill). B5's rows: the pre-activation and the
@@ -660,10 +811,10 @@ __device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
       float4 v = *h;
       const bool out = save && r < scr.nvalid;
       if (out) *reinterpret_cast<float4*>(pre + (size_t)r * Np + c) = v;
-      v.x = tf32r(act_fwd(act, v.x));
-      v.y = tf32r(act_fwd(act, v.y));
-      v.z = tf32r(act_fwd(act, v.z));
-      v.w = tf32r(act_fwd(act, v.w));
+      v.x = oprnd(act_fwd(act, v.x), bf);
+      v.y = oprnd(act_fwd(act, v.y), bf);
+      v.z = oprnd(act_fwd(act, v.z), bf);
+      v.w = oprnd(act_fwd(act, v.w), bf);
       *h = v;
       if (out) *reinterpret_cast<float4*>(post + (size_t)r * Np + c) = v;
     }
@@ -678,8 +829,8 @@ __device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
   float* O = ring;
   for (int s = 0; s < nslab; ++s) {
     acc.zero();
-    tile_product<MF, WM>(acc, H, ldh, Kp / 8, Wk + L[2], Np / 8, 0,
-                         s * SW / 8, SW / 8, ring);
+    tile_mm<MF, WM>(bf, acc, H, ldh, Kp, Wk + L[2], Np / 8, 0, s * SW / 8,
+                    SW / 8, ring);
     for_acc<MF, WM>(acc, SW / 8, [&](int r, int c, float v) {
       O[r * ldo + c] = v + b[s * SW + c];
     });
@@ -709,16 +860,16 @@ __device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
 // B4: replaces _fused_coupling_impl (ops/pallas/coupling.py:677-716).
 // Shared memory, in floats: the ring (Geo::RING), S (TM x d) the state, Lel
 // (TM x d) the per-element ladj terms, H (TM x ldh). Persistent grid-stride
-// loop over tiles of TM rows.
+// loop over tiles of TM rows. x, y and ladj in bf16 where `bfio`, else f32.
 template <int MF, int WM>
 __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
-    coupling_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
-                        float* __restrict__ ladj,
+    coupling_fwd_kernel(const void* __restrict__ x, void* __restrict__ y,
+                        void* __restrict__ ladj,
                         const float* __restrict__ Wk,
                         const float* __restrict__ P,
                         const __grid_constant__ CPlan plan, long long n,
                         int d, int ldh, float* scratch, float* svs,
-                        float shift) {
+                        float shift, int bfio) {
   using Gm = Geo<MF, WM>;
   constexpr int TM = Gm::TM;
   extern __shared__ __align__(16) float smem[];
@@ -733,7 +884,7 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
     const int ns = (int)min((long long)TM, n - r0);
     const ScrRows scr{scratch, n, r0, ns};
     for (int e = threadIdx.x; e < TM * d; e += blockDim.x) {
-      S[e] = e < ns * d ? x[r0 * d + e] : 0.f;
+      S[e] = e < ns * d ? ld_io(x, r0 * d + e, bfio) : 0.f;
       Lel[e] = 0.f;
     }
     __syncthreads();
@@ -762,11 +913,12 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
                                   ring, Wk, scr, true, shift);
       }
     }
-    for (int e = threadIdx.x; e < ns * d; e += blockDim.x) y[r0 * d + e] = S[e];
+    for (int e = threadIdx.x; e < ns * d; e += blockDim.x)
+      st_io(y, r0 * d + e, S[e], bfio);
     for (int r = threadIdx.x; r < ns; r += blockDim.x) {
       float sum = 0.f;
       for (int k = 0; k < d; ++k) sum += Lel[r * d + k];
-      ladj[r0 + r] = sum;
+      st_io(ladj, r0 + r, sum, bfio);
     }
     __syncthreads();
   }
@@ -782,18 +934,18 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
 // TM x d; a coupling's target half, TM x d/2), SC (TM x d) the state during
 // the recompute and then the running cotangent, GL (TM) the ladj
 // cotangents, H (TM x ldh; in the reverse sweep it also holds each slab),
-// PACC (n_pslots x d).
+// PACC (n_pslots x d). x, gy, gl and gx in bf16 where `bfio`, else f32.
 template <int MF, int WM>
 __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
-    coupling_bwd_kernel(const float* __restrict__ x,
-                        const float* __restrict__ gy,
-                        const float* __restrict__ gl,
-                        float* __restrict__ gx, const float* __restrict__ Wk,
+    coupling_bwd_kernel(const void* __restrict__ x,
+                        const void* __restrict__ gy,
+                        const void* __restrict__ gl,
+                        void* __restrict__ gx, const float* __restrict__ Wk,
                         const float* __restrict__ P,
                         const __grid_constant__ CPlan plan, long long rows,
                         int d, int ldh, int n_pslots, float* scratch,
                         const float* __restrict__ svs,
-                        float* __restrict__ p_part, float shift) {
+                        float* __restrict__ p_part, float shift, int bfio) {
   using Gm = Geo<MF, WM>;
   constexpr int TM = Gm::TM;
   extern __shared__ __align__(16) float smem[];
@@ -818,9 +970,9 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
     const int ns = (int)min((long long)TM, rows - r0);
     const ScrRows scr{scratch, rows, r0, ns};
     for (int e = threadIdx.x; e < TD; e += blockDim.x)
-      SC[e] = e < ns * d ? x[r0 * d + e] : 0.f;
+      SC[e] = e < ns * d ? ld_io(x, r0 * d + e, bfio) : 0.f;
     for (int r = threadIdx.x; r < TM; r += blockDim.x)
-      GL[r] = r < ns ? gl[r0 + r] : 0.f;
+      GL[r] = r < ns ? ld_io(gl, r0 + r, bfio) : 0.f;
     __syncthreads();
 
     // The stage inputs B4 stored, or the forward: what the reverse sweep
@@ -860,7 +1012,7 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
 
     float* CY = SC;
     for (int e = threadIdx.x; e < TD; e += blockDim.x)
-      CY[e] = e < ns * d ? gy[r0 * d + e] : 0.f;
+      CY[e] = e < ns * d ? ld_io(gy, r0 * d + e, bfio) : 0.f;
     __syncthreads();
 
     // Reverse sweep of the hand-derived adjoints.
@@ -888,6 +1040,7 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
                 l0 = it[5], K = it[8], G = it[9], SW = it[10],
                 nslab = it[11];
       const bool inv = it[2] != 0, spline = it[0] == K_SPLINE;
+      const bool bf = plan.layer[l0][7] != 0;  // the coupling's products
       const int ldo = SW + 4;
       const int* LL = plan.layer[l0 + nl - 1];
       const int KpL = LL[0], NpL = LL[1];
@@ -913,16 +1066,20 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
         __syncthreads();
       }
       // dh = g_pre W^T of the last layer, accumulated over the slabs, on
-      // g_pre rounded to TF32 (tile_product's first barrier orders it).
+      // g_pre rounded to TF32, or to bf16 for a bf16 layer (tile_product's
+      // first barrier orders it). A bf16 slab is read at a depth SK padded
+      // to 16 with zero columns, against W^T packed slab by slab at that
+      // depth.
+      const int SK = bf ? (SW + 15) / 16 * 16 : SW, ldk = SK + 4;
       acc.zero();
       for (int s = 0; s < nslab; ++s) {
-        load_rows<TM>(O, ldo, gL + s * SW, NpL, SW, ns);
-        for (int e = threadIdx.x; e < TM * SW; e += blockDim.x) {
-          const int r = e / SW, c = e - r * SW;
-          O[r * ldo + c] = tf32r(O[r * ldo + c]);
+        load_rows<TM>(O, ldk, gL + s * SW, NpL, SW, ns);
+        for (int e = threadIdx.x; e < TM * SK; e += blockDim.x) {
+          const int r = e / SK, c = e - r * SK;
+          O[r * ldk + c] = c < SW ? oprnd(O[r * ldk + c], bf) : 0.f;
         }
-        tile_product<MF, WM>(acc, O, ldo, SW / 8, Wk + LL[3], KpL / 8,
-                             s * SW / 8, 0, KpL / 8, ring);
+        tile_mm<MF, WM>(bf, acc, O, ldk, SK, Wk + LL[3], KpL / 8, s * SK, 0,
+                        KpL / 8, ring);
       }
       // Down the layers: acc holds the cotangent of layer l's input.
       for (int l = nl - 1;; --l) {
@@ -966,17 +1123,19 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
             g.w = act_bwd(act, p[u].w, g.w);
             if (r < ns)
               *reinterpret_cast<float4*>(gp + (size_t)r * Kp + c) = g;
-            *h = make_float4(tf32r(g.x), tf32r(g.y), tf32r(g.z), tf32r(g.w));
+            *h = make_float4(oprnd(g.x, bf), oprnd(g.y, bf), oprnd(g.z, bf),
+                             oprnd(g.w, bf));
           }
         }
         __syncthreads();
         acc.zero();
-        tile_product<MF, WM>(acc, H, ldh, Kp / 8, Wk + Lp[3], Lp[0] / 8, 0, 0,
-                             Lp[0] / 8, ring);
+        tile_mm<MF, WM>(bf, acc, H, ldh, Kp, Wk + Lp[3], Lp[0] / 8, 0, 0,
+                        Lp[0] / 8, ring);
       }
     }
 
-    for (int e = threadIdx.x; e < ns * d; e += blockDim.x) gx[r0 * d + e] = CY[e];
+    for (int e = threadIdx.x; e < ns * d; e += blockDim.x)
+      st_io(gx, r0 * d + e, CY[e], bfio);
     __syncthreads();
   }
   for (int q = threadIdx.x; q < n_pslots * d; q += blockDim.x)
@@ -990,7 +1149,10 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
 // tiles). 32 rows of h_in and of g_pre per ring stage (3 stages, 16-byte
 // cp.async, rows of 136 floats so both fragments read conflict-free). h_in
 // is TF32 already; g_pre is f32 and rounded as its fragments are read, so
-// that the blocks of the first row of tiles sum it in f32 for db.
+// that the blocks of the first row of tiles sum it in f32 for db. A bf16
+// layer takes m16n8k16 over 16 rows at a time: h_in (bf16 already) and
+// g_pre packed two rows to a word by cvt.rn.bf16x2.f32, g_pre rounded to
+// nearest even there, as _mm_bf16's backward rounds its cotangent.
 // Writes w_part[split * w_len + natural offset + k * Np + n], b after W.
 // blockIdx.x runs over the tiles of every layer, so the blocks resident
 // together are the tiles of one split, which stream the same rows.
@@ -1013,6 +1175,7 @@ __global__ void __launch_bounds__(256)
   if (l >= plan.n_layers) return;
   const int* L = plan.layer[l];
   const int Kp = L[0], Np = L[1];
+  const bool bf = L[7] != 0;
   const int m0 = (t / tn) * ENF_DW_TILE, n0 = (t % tn) * ENF_DW_TILE;
   const float* hin = scratch + rows * L[5];
   const float* gp = scratch + rows * (L[5] + Kp);
@@ -1057,6 +1220,31 @@ __global__ void __launch_bounds__(256)
     cp_async_commit();
     const float* As = sm + (st % ENF_RING) * STAGE;
     const float* Bs = As + RB * LD;
+    if (bf) {
+#pragma unroll
+      for (int ks = 0; ks < RB; ks += 16) {
+        // Rows (batch) ks + 2 tq, + 1 and ks + 2 tq + 8, + 9.
+        const float* a0 = As + (ks + 2 * tq) * LD + wm * 64 + g;
+        const float* b0 = Bs + (ks + 2 * tq) * LD + wn * 32 + g;
+        unsigned a[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* p = a0 + i * 16;
+          a[i][0] = bf16x2(p[0], p[LD]);
+          a[i][1] = bf16x2(p[8], p[LD + 8]);
+          a[i][2] = bf16x2(p[8 * LD], p[9 * LD]);
+          a[i][3] = bf16x2(p[8 * LD + 8], p[9 * LD + 8]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* p = b0 + j * 8;
+          const unsigned bx = bf16x2(p[0], p[LD]);
+          const unsigned by = bf16x2(p[8 * LD], p[9 * LD]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_bf16(acc[i][j], a[i], bx, by);
+        }
+      }
+    } else {
 #pragma unroll
     for (int ks = 0; ks < RB; ks += 8) {
       const float* a0 = As + (ks + tq) * LD + wm * 64 + g;
@@ -1077,6 +1265,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
         for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], a[i], bx, by);
       }
+    }
     }
     if (bias)
       for (int rr = 0; rr < RB; ++rr) colsum += Bs[rr * LD + threadIdx.x];
@@ -1111,9 +1300,9 @@ static int make_cplan(CPlan* p, const int* si, const float* sf, int n_items,
   p->n_items = n_items;
   p->n_layers = n_layers;
   for (int l = 0; l < n_layers; ++l) {
-    for (int f = 0; f < 7; ++f) p->layer[l][f] = li[l * 7 + f];
+    for (int f = 0; f < 8; ++f) p->layer[l][f] = li[l * 8 + f];
     if (p->layer[l][0] < 8 || p->layer[l][0] % 8 || p->layer[l][1] < 8 ||
-        p->layer[l][1] % 8)
+        p->layer[l][1] % 8 || (p->layer[l][7] && p->layer[l][0] % 16))
       return 1;
   }
   for (int i = 0; i < n_items; ++i) {
@@ -1126,6 +1315,12 @@ static int make_cplan(CPlan* p, const int* si, const float* sf, int n_items,
          it[10] < 8 || it[10] % 8 || it[11] < 1 ||
          it[10] * it[11] != p->layer[it[5] + it[4] - 1][1]))
       return 1;
+    // A coupling's layers take one path, TF32 or bf16.
+    if (it[0] != K_ELEM) {
+      const int bf = p->layer[it[5]][7];
+      for (int l = it[5]; l < it[5] + it[4]; ++l)
+        if (p->layer[l][7] != bf) return 1;
+    }
   }
   return 0;
 }
@@ -1141,6 +1336,8 @@ static bool tile_ok(const CPlan& p, int d, int ldh) {
     if (it[0] == K_ELEM) continue;
     if (p.layer[it[5]][0] < d / 2) return false;
     if (G::TM * (it[10] + 4) > G::RING || it[10] + 4 > ldh) return false;
+    // B5 reads a bf16 slab at its depth padded to 16.
+    if (p.layer[it[5]][7] && (it[10] + 15) / 16 * 16 + 4 > ldh) return false;
     for (int l = it[5]; l < it[5] + it[4]; ++l) {
       if (p.layer[l][0] > G::PASS || p.layer[l][0] + 4 > ldh) return false;
       if (l + 1 < it[5] + it[4] &&
@@ -1152,10 +1349,10 @@ static bool tile_ok(const CPlan& p, int d, int ldh) {
 }
 
 template <int MF, int WM>
-static int launch_fwd(const float* x, float* y, float* ladj, const float* Wk,
+static int launch_fwd(const void* x, void* y, void* ladj, const float* Wk,
                       const float* P, const CPlan& plan, long long n, int d,
                       int ldh, float* scratch, float* svs, int smem, int grid,
-                      float shift, cudaStream_t stream) {
+                      float shift, int bfio, cudaStream_t stream) {
   using G = Geo<MF, WM>;
   const long long need =
       4LL * (G::RING + (long long)G::TM * (2 * d + ldh));
@@ -1166,12 +1363,13 @@ static int launch_fwd(const float* x, float* y, float* ladj, const float* Wk,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   coupling_fwd_kernel<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
-      x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs, shift);
+      x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs, shift, bfio);
   return (int)cudaGetLastError();
 }
 
-extern "C" int enf_coupling_fwd(const float* x, float* y, float* ladj,
-                                const float* Wk, const float* P,
+// bf16io: the storage of x, y and ladj (0 float32, 1 bf16).
+extern "C" int enf_coupling_fwd(int bf16io, const void* x, void* y,
+                                void* ladj, const float* Wk, const float* P,
                                 const int* si, const float* sf, int n_items,
                                 const int* li, int n_layers, long long n,
                                 int d, int ldh, int tm, float* scratch,
@@ -1183,19 +1381,19 @@ extern "C" int enf_coupling_fwd(const float* x, float* y, float* ladj,
   cudaStream_t s = (cudaStream_t)stream;
   if (tm == 64)
     return launch_fwd<2, 2>(x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs,
-                            smem, grid, shift, s);
+                            smem, grid, shift, bf16io, s);
   if (tm == 16)
     return launch_fwd<1, 1>(x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs,
-                            smem, grid, shift, s);
+                            smem, grid, shift, bf16io, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int MF, int WM>
-static int launch_bwd(const float* x, const float* gy, const float* gl,
-                      float* gx, const float* Wk, const float* P,
+static int launch_bwd(const void* x, const void* gy, const void* gl,
+                      void* gx, const float* Wk, const float* P,
                       const CPlan& plan, long long rows, int d, int ldh,
                       int smem, int grid, int n_pslots, float* scratch,
-                      const float* svs, float* p_part, float shift,
+                      const float* svs, float* p_part, float shift, int bfio,
                       cudaStream_t stream) {
   using G = Geo<MF, WM>;
   long long sv_row = 0;  // floats of SV per row
@@ -1212,12 +1410,13 @@ static int launch_bwd(const float* x, const float* gy, const float* gl,
   if (err != cudaSuccess) return (int)err;
   coupling_bwd_kernel<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
       x, gy, gl, gx, Wk, P, plan, rows, d, ldh, n_pslots, scratch, svs,
-      p_part, shift);
+      p_part, shift, bfio);
   return (int)cudaGetLastError();
 }
 
-extern "C" int enf_coupling_bwd(const float* x, const float* gy,
-                                const float* gl, float* gx, const float* Wk,
+// bf16io: the storage of x, gy, gl and gx (0 float32, 1 bf16).
+extern "C" int enf_coupling_bwd(int bf16io, const void* x, const void* gy,
+                                const void* gl, void* gx, const float* Wk,
                                 const float* P, const int* si,
                                 const float* sf, int n_items, const int* li,
                                 int n_layers, long long rows, int d, int ldh,
@@ -1230,10 +1429,12 @@ extern "C" int enf_coupling_bwd(const float* x, const float* gy,
   cudaStream_t s = (cudaStream_t)stream;
   if (tm == 64)
     return launch_bwd<2, 2>(x, gy, gl, gx, Wk, P, plan, rows, d, ldh, smem,
-                            grid, n_pslots, scratch, svs, p_part, shift, s);
+                            grid, n_pslots, scratch, svs, p_part, shift,
+                            bf16io, s);
   if (tm == 16)
     return launch_bwd<1, 1>(x, gy, gl, gx, Wk, P, plan, rows, d, ldh, smem,
-                            grid, n_pslots, scratch, svs, p_part, shift, s);
+                            grid, n_pslots, scratch, svs, p_part, shift,
+                            bf16io, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1248,7 +1449,7 @@ extern "C" int enf_coupling_dw(const float* scratch, const int* li,
   plan.n_layers = n_layers;
   int tiles = 0;
   for (int l = 0; l < n_layers; ++l) {
-    for (int f = 0; f < 7; ++f) plan.layer[l][f] = li[l * 7 + f];
+    for (int f = 0; f < 8; ++f) plan.layer[l][f] = li[l * 8 + f];
     const int Kp = plan.layer[l][0], Np = plan.layer[l][1];
     if (Kp % 8 || Np % 8) return (int)cudaErrorInvalidValue;
     tiles += (Kp + ENF_DW_TILE - 1) / ENF_DW_TILE *

@@ -80,7 +80,18 @@
 //   accurate f32 is. chip_smoke.py holds the kernels to the float64 plain
 //   version under the unchanged gates; chip_ew_forms.py times each form
 //   against accurate f32 (PERF.md).
+// * Storage: each kernel is instantiated for float32 and for bf16 storage
+//   (template T; the entry point takes a storage code and types the
+//   buffers by it). With bf16, x, gy and gladj are widened to f32 as they
+//   are loaded, and y, ladj and gx rounded to nearest even
+//   (__float2bfloat16_rn) as they are stored; everything between, the
+//   parameters, the partial sums and the loss, is f32, as in
+//   _build_kernel (ops/pallas/elementwise.py:322-324). A bf16 row of d
+//   elements is 2 d bytes: only G = 1, d = E rows are read as one vector
+//   (4 or 8 bytes, alignment checked by the wrapper); a ladj summed over
+//   column groups is kept in f32 (lacc) and rounded once.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "stages.cuh"
@@ -113,13 +124,19 @@ struct EwPlan {
   int4 st[ENF_MAX_STAGES];
 };
 
+// The buffers in the storage type T (float or __nv_bfloat16).
+template <typename T>
+struct EwIo {
+  const T* x;
+  const T* gy;     // B2
+  const T* gladj;  // B2
+  T* y;            // B1
+  T* ladj;         // B1
+  float* lacc;     // B1: the ladj summed over column groups, in f32
+  T* gx;           // B2
+};
+
 struct EwArgs {
-  const float* x;
-  const float* gy;     // B2
-  const float* gladj;  // B2
-  float* y;            // B1
-  float* ladj;         // B1
-  float* gx;           // B2
   const float* P;      // elementwise parameters, (slots, d)
   const float* rows;   // normalized reflection rows, (n_rows, d)
   const float* Q;      // dense stages' Q, (n_dense, d, d)
@@ -661,8 +678,52 @@ struct EwSaved {
   }
 };
 
-// The lane's E elements of row p (p at the lane's first column): a float2
-// or float4 where `packed`, else the valid ones (bit i of vm), 0 beyond.
+// One element of storage, widened to f32 or rounded from it.
+__device__ __forceinline__ float ew_ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ew_ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void ew_st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void ew_st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The lane's E elements of row p (p at the lane's first column): one
+// vector where `packed`, else the valid ones (bit i of vm), 0 beyond.
+template <int E>
+__device__ __forceinline__ void ew_load(float (&x)[E],
+                                        const __nv_bfloat16* __restrict__ p,
+                                        int G, int vm, bool packed) {
+  if (E > 1 && packed) {
+    const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(p);
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      const float2 f = __bfloat1622float2(__ldg(v + i));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) x[i] = vm >> i & 1 ? ew_ld(p + G * i) : 0.f;
+}
+
+template <int E>
+__device__ __forceinline__ void ew_store(__nv_bfloat16* p,
+                                         const float (&x)[E], int G, int vm,
+                                         bool packed) {
+  if (E > 1 && packed) {
+    __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(p);
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i)
+      v[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    if (vm >> i & 1) ew_st(p + G * i, x[i]);
+}
+
 template <int E>
 __device__ __forceinline__ void ew_load(float (&x)[E],
                                         const float* __restrict__ p, int G,
@@ -761,9 +822,9 @@ __device__ __forceinline__ void ew_stage(const int4 w, int k, float (&x)[E],
 // ladj), and the stage bodies' special functions. Each warp walks its
 // samples in step; a group's ladj is a lane partial plus log2(G) shuffles,
 // added over the column tiles by the lane that writes it.
-template <int E>
+template <typename T, int E>
 __global__ void __launch_bounds__(EW_BLOCK_MAX, ew_min_blocks(E, false))
-    ew_fwd_kernel(const EwArgs a, const EwPlan plan) {
+    ew_fwd_kernel(const EwArgs a, const EwIo<T> io, const EwPlan plan) {
   extern __shared__ int4 smem[];
   const int G = a.G, DC = G * E, d = a.d, nst = plan.n_stages;
   const EwShared sh = ew_prologue(smem, a, plan, DC);
@@ -784,14 +845,20 @@ __global__ void __launch_bounds__(EW_BLOCK_MAX, ew_min_blocks(E, false))
       const bool live = s < a.n;
       const long long cs = live ? s : a.n - 1;
       float x[E];
-      ew_load<E>(x, a.x + cs * d + c0 + lig, G, vm, packed);
+      ew_load<E>(x, io.x + cs * d + c0 + lig, G, vm, packed);
       float ls = 0.f;
       for (int k = 0; k < nst; ++k)
         ew_stage<E, true>(sh.st[k], k, x, ls, vm, sh, a, DC, G, lig);
       ls = ew_group_sum(ls, G);
       if (live) {
-        ew_store<E>(a.y + s * d + c0 + lig, x, G, vm, packed);
-        if (lig == 0) a.ladj[s] = c0 == 0 ? ls : a.ladj[s] + ls;
+        ew_store<E>(io.y + s * d + c0 + lig, x, G, vm, packed);
+        if (lig == 0) {
+          const float tot = c0 == 0 ? ls : io.lacc[s] + ls;
+          if (c0 + DC >= d)
+            ew_st(io.ladj + s, tot);
+          else
+            io.lacc[s] = tot;
+        }
       }
     }
   }
@@ -831,9 +898,9 @@ __device__ __forceinline__ void ew_write(const EwArgs& a, const int4* st,
 // the adjoints. B3 (MODE = EW_NEGLL): replaces _fused_negll_grad_impl
 // (ops/pallas/elementwise.py:852-906). Bound: x read once (4 B per
 // element), the forward and adjoint arithmetic. See the header.
-template <int E, int MODE>
+template <typename T, int E, int MODE>
 __global__ void __launch_bounds__(EW_BLOCK_MAX, ew_min_blocks(E, true))
-    ew_grad_kernel(const EwArgs a, const EwPlan plan) {
+    ew_grad_kernel(const EwArgs a, const EwIo<T> io, const EwPlan plan) {
   constexpr int NREG = ew_nreg(E);
   constexpr bool NEGLL = MODE == EW_NEGLL;
   extern __shared__ int4 smem[];
@@ -866,7 +933,7 @@ __global__ void __launch_bounds__(EW_BLOCK_MAX, ew_min_blocks(E, true))
       const bool live = s < a.n;
       const long long cs = live ? s : a.n - 1;
       float x[E];
-      ew_load<E>(x, a.x + cs * d + c0 + lig, G, vm, packed);
+      ew_load<E>(x, io.x + cs * d + c0 + lig, G, vm, packed);
       EwSaved<E, NREG> sv;
       float ls = 0.f;
       for (int k = 0; k < nst; ++k) {
@@ -884,8 +951,8 @@ __global__ void __launch_bounds__(EW_BLOCK_MAX, ew_min_blocks(E, true))
         ce = -1.f;
         if (live) loss += ls;
       } else {
-        ew_load<E>(c, a.gy + cs * d + c0 + lig, G, vm, packed);
-        ce = __ldg(a.gladj + cs);
+        ew_load<E>(c, io.gy + cs * d + c0 + lig, G, vm, packed);
+        ce = ew_ld(io.gladj + cs);
       }
       // The reverse sweep; x holds stage k's output (the chain's output,
       // then each stage's saved input).
@@ -906,7 +973,7 @@ __global__ void __launch_bounds__(EW_BLOCK_MAX, ew_min_blocks(E, true))
 #pragma unroll
         for (int i = 0; i < E; ++i) x[i] = t[i];
       }
-      if (!NEGLL && live) ew_store<E>(a.gx + s * d + c0 + lig, c, G, vm,
+      if (!NEGLL && live) ew_store<E>(io.gx + s * d + c0 + lig, c, G, vm,
                                       packed);
     }
 
@@ -940,10 +1007,12 @@ __global__ void __launch_bounds__(EW_BLOCK_MAX, ew_min_blocks(E, true))
 }
 
 // ---------------------------------------------------------------------------
-// Launch and occupancy, by (mode, E).
+// Launch and occupancy, by (storage, mode, E).
 
+template <typename T>
 struct EwLaunch {
   const EwArgs& a;
+  const EwIo<T>& io;
   const EwPlan& plan;
   int grid, block, smem;
   cudaStream_t stream;
@@ -952,7 +1021,7 @@ struct EwLaunch {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, block, smem, stream>>>(a, plan);
+    kernel<<<grid, block, smem, stream>>>(a, io, plan);
     return cudaGetLastError();
   }
 };
@@ -975,20 +1044,32 @@ struct EwQuery {
   }
 };
 
-template <typename F>
+template <typename T, typename F>
 static cudaError_t ew_dispatch(int mode, int E, const F& f) {
   switch (mode * 8 + E) {
-    case EW_FWD * 8 + 1: return f.run(ew_fwd_kernel<1>);
-    case EW_FWD * 8 + 2: return f.run(ew_fwd_kernel<2>);
-    case EW_FWD * 8 + 4: return f.run(ew_fwd_kernel<4>);
-    case EW_BWD * 8 + 1: return f.run(ew_grad_kernel<1, EW_BWD>);
-    case EW_BWD * 8 + 2: return f.run(ew_grad_kernel<2, EW_BWD>);
-    case EW_BWD * 8 + 4: return f.run(ew_grad_kernel<4, EW_BWD>);
-    case EW_NEGLL * 8 + 1: return f.run(ew_grad_kernel<1, EW_NEGLL>);
-    case EW_NEGLL * 8 + 2: return f.run(ew_grad_kernel<2, EW_NEGLL>);
-    case EW_NEGLL * 8 + 4: return f.run(ew_grad_kernel<4, EW_NEGLL>);
+    case EW_FWD * 8 + 1: return f.run(ew_fwd_kernel<T, 1>);
+    case EW_FWD * 8 + 2: return f.run(ew_fwd_kernel<T, 2>);
+    case EW_FWD * 8 + 4: return f.run(ew_fwd_kernel<T, 4>);
+    case EW_BWD * 8 + 1: return f.run(ew_grad_kernel<T, 1, EW_BWD>);
+    case EW_BWD * 8 + 2: return f.run(ew_grad_kernel<T, 2, EW_BWD>);
+    case EW_BWD * 8 + 4: return f.run(ew_grad_kernel<T, 4, EW_BWD>);
+    case EW_NEGLL * 8 + 1: return f.run(ew_grad_kernel<T, 1, EW_NEGLL>);
+    case EW_NEGLL * 8 + 2: return f.run(ew_grad_kernel<T, 2, EW_NEGLL>);
+    case EW_NEGLL * 8 + 4: return f.run(ew_grad_kernel<T, 4, EW_NEGLL>);
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int ew_launch(int mode, const void* x, const void* gy,
+                     const void* gladj, void* y, void* ladj, float* lacc,
+                     void* gx, const EwArgs& a, const EwPlan& plan, int E,
+                     int grid, int block, int smem, cudaStream_t stream) {
+  const EwIo<T> io{static_cast<const T*>(x), static_cast<const T*>(gy),
+                   static_cast<const T*>(gladj), static_cast<T*>(y),
+                   static_cast<T*>(ladj), lacc, static_cast<T*>(gx)};
+  return (int)ew_dispatch<T>(
+      mode, E, EwLaunch<T>{a, io, plan, grid, block, smem, stream});
 }
 
 static bool ew_geometry_ok(int mode, int G, int E, int block) {
@@ -1003,14 +1084,18 @@ extern "C" const char* enf_error_string(int err) {
 }
 
 // Launches B1 (mode 0), B2 (1) or B3 (2) on `stream`; does not synchronize;
-// returns cudaGetLastError() after the launch (0 on success). words: 4 ints
-// per stage (EwPlan); G lanes per sample, E elements per lane; n_acc
-// accumulator words per lane; scratch: the lane-private words in device
-// memory (grid * block * words floats), or null for shared memory. The
-// wrapper's chain_geometry gives the rest.
+// returns cudaGetLastError() after the launch (0 on success). bf16: the
+// storage of x, gy, gladj, y, ladj and gx (0 float32, 1 bf16); lacc: B1's
+// f32 ladj sums over column groups, needed for bf16 with d > G E (null
+// otherwise; float32 sums into ladj). words: 4 ints per stage (EwPlan); G
+// lanes per sample, E elements per lane; n_acc accumulator words per lane;
+// scratch: the lane-private words in device memory (grid * block * words
+// floats), or null for shared memory. The wrapper's chain_geometry gives
+// the rest.
 extern "C" int enf_fused_chain(
-    int mode, const float* x, const float* gy, const float* gladj, float* y,
-    float* ladj, float* gx, const float* P, const float* rows,
+    int mode, int bf16, const void* x, const void* gy, const void* gladj,
+    void* y, void* ladj, float* lacc, void* gx, const float* P,
+    const float* rows,
     const float* Q, const float* Qt, float* scratch, float* loss_part,
     float* p_part, float* w_part, float* q_part, const int* words,
     int n_stages, long long n, int d, int G, int E, int n_pslots, int n_rows,
@@ -1031,19 +1116,28 @@ extern "C" int enf_fused_chain(
       return (int)cudaErrorInvalidValue;
   }
   if (packed && !(G == 1 && d == E)) return (int)cudaErrorInvalidValue;
-  const EwArgs a{x, gy, gladj, y, ladj, gx, P, rows, Q, Qt, scratch,
-                 loss_part, p_part, w_part, q_part, n, d, G, n_pslots,
-                 n_rows, n_dense, n_acc, packed};
-  return (int)ew_dispatch(
-      mode, E, EwLaunch{a, plan, grid, block, smem, (cudaStream_t)stream});
+  if (mode == EW_FWD && d > G * E && !lacc) {
+    if (bf16) return (int)cudaErrorInvalidValue;
+    lacc = static_cast<float*>(ladj);  // float32 sums in place
+  }
+  const EwArgs a{P, rows, Q, Qt, scratch, loss_part, p_part, w_part, q_part,
+                 n, d, G, n_pslots, n_rows, n_dense, n_acc, packed};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return ew_launch<__nv_bfloat16>(mode, x, gy, gladj, y, ladj, lacc, gx, a,
+                                    plan, E, grid, block, smem, s);
+  return ew_launch<float>(mode, x, gy, gladj, y, ladj, lacc, gx, a, plan, E,
+                          grid, block, smem, s);
 }
 
-// Blocks of (mode, E) resident per SM at `block` threads and `smem` bytes,
-// and the kernel's registers per thread and local (spilled) bytes.
-extern "C" int enf_chain_occupancy(int mode, int E, int block, int smem,
-                                   int* blocks_per_sm, int* regs,
+// Blocks of (storage, mode, E) resident per SM at `block` threads and
+// `smem` bytes, and the kernel's registers per thread and local (spilled)
+// bytes.
+extern "C" int enf_chain_occupancy(int mode, int bf16, int E, int block,
+                                   int smem, int* blocks_per_sm, int* regs,
                                    int* local_bytes) {
   if (!ew_geometry_ok(mode, 1, E, block)) return (int)cudaErrorInvalidValue;
-  return (int)ew_dispatch(
-      mode, E, EwQuery{block, smem, blocks_per_sm, regs, local_bytes});
+  const EwQuery q{block, smem, blocks_per_sm, regs, local_bytes};
+  return (int)(bf16 ? ew_dispatch<__nv_bfloat16>(mode, E, q)
+                    : ew_dispatch<float>(mode, E, q));
 }

@@ -74,7 +74,17 @@
 // stays accurate. chip_smoke.py holds the result to the float64 plain
 // version under B6's unchanged gates. The constants' prologue keeps the
 // accurate functions.
+//
+// Storage: the kernel is instantiated for float32 and for bf16 storage of
+// q, p and logp (template T; the entry point takes a storage code and types
+// those buffers by it). bf16 q and p are widened to f32 once as they are
+// read, the trajectory runs in f32 in registers, and q_L, p_L, logp_0 and
+// logp_L are rounded to nearest even once as they are written, as the
+// reference stores q and p in q's dtype and casts its f32 logp to it
+// (ops/pallas/leapfrog.py:213-224). The chain's parameters arrive in f32,
+// rounded to bf16 by the wrapper; the step size, mass and base stay f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "stages.cuh"
@@ -101,13 +111,27 @@ struct LfPlan {
   int4 st[ENF_MAX_STAGES];
 };
 
+// The state in the storage type T (float or __nv_bfloat16).
+template <typename T>
+struct LfIo {
+  const T* q0;
+  const T* p0;
+  T* qo;
+  T* po;
+  T* lp0;
+  T* lpL;
+};
+
+__device__ __forceinline__ float lf_ld(const float* p) { return *p; }
+__device__ __forceinline__ float lf_ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void lf_st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void lf_st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 struct LfArgs {
-  const float* q0;
-  const float* p0;
-  float* qo;
-  float* po;
-  float* lp0;
-  float* lpL;
   const float* eps;
   const float* im;
   const float* mu;
@@ -530,9 +554,9 @@ constexpr int lf_min_blocks(int E, int NREG) {
                   : E == 4 ? LF_MIN_BLOCKS_E4 : LF_MIN_BLOCKS;
 }
 
-template <int E, int NREG>
+template <typename T, int E, int NREG>
 __global__ void __launch_bounds__(LF_BLOCK_MAX, lf_min_blocks(E, NREG))
-    leapfrog_kernel(const LfArgs a, const LfPlan plan) {
+    leapfrog_kernel(const LfArgs a, const LfIo<T> io, const LfPlan plan) {
   // Shared memory: the plan, the tile's constants, the rows, the
   // lane-private runs.
   extern __shared__ int4 smem[];
@@ -566,13 +590,13 @@ __global__ void __launch_bounds__(LF_BLOCK_MAX, lf_min_blocks(E, NREG))
 #pragma unroll
     for (int i = 0; i < E; ++i) c.vm |= (lig + G * i < c.nv) << i;
     const float* im = cst + 2 * DC + lig;
-    const float* q0 = a.q0 + cs * d + c0 + lig;
-    const float* p0 = a.p0 + cs * d + c0 + lig;
+    const T* q0 = io.q0 + cs * d + c0 + lig;
+    const T* p0 = io.p0 + cs * d + c0 + lig;
     float q[E], p[E];
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      q[i] = c.vm >> i & 1 ? q0[G * i] : 0.f;
-      p[i] = c.vm >> i & 1 ? p0[G * i] : 0.f;
+      q[i] = c.vm >> i & 1 ? lf_ld(q0 + G * i) : 0.f;
+      p[i] = c.vm >> i & 1 ? lf_ld(p0 + G * i) : 0.f;
     }
     // The trajectory: L + 1 gradients, the ladj terms at the ends only.
     // Step s is p += eps/2 g(q); q += eps p im; p += eps/2 g(q). Both half
@@ -600,13 +624,13 @@ __global__ void __launch_bounds__(LF_BLOCK_MAX, lf_min_blocks(E, NREG))
       }
     }
     if (live) {
-      float* qo = a.qo + cs * d + c0 + lig;
-      float* po = a.po + cs * d + c0 + lig;
+      T* qo = io.qo + cs * d + c0 + lig;
+      T* po = io.po + cs * d + c0 + lig;
 #pragma unroll
       for (int i = 0; i < E; ++i)
         if (c.vm >> i & 1) {
-          qo[G * i] = q[i];
-          po[G * i] = p[i];
+          lf_st(qo + G * i, q[i]);
+          lf_st(po + G * i, p[i]);
         }
     }
   }
@@ -615,20 +639,20 @@ __global__ void __launch_bounds__(LF_BLOCK_MAX, lf_min_blocks(E, NREG))
     lpL += __shfl_xor_sync(LF_FULL, lpL, off);
   }
   if (live && lig == 0) {
-    a.lp0[cs] = lp0;
-    a.lpL[cs] = lpL;
+    lf_st(io.lp0 + cs, lp0);
+    lf_st(io.lpL + cs, lpL);
   }
 }
 
-template <int E, int NREG>
-static cudaError_t launch_leapfrog(const LfArgs& a, const LfPlan& plan,
-                                   int grid, int block, int smem,
-                                   cudaStream_t stream) {
+template <typename T, int E, int NREG>
+static cudaError_t launch_leapfrog(const LfArgs& a, const LfIo<T>& io,
+                                   const LfPlan& plan, int grid, int block,
+                                   int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      leapfrog_kernel<E, NREG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      leapfrog_kernel<T, E, NREG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  leapfrog_kernel<E, NREG><<<grid, block, smem, stream>>>(a, plan);
+  leapfrog_kernel<T, E, NREG><<<grid, block, smem, stream>>>(a, io, plan);
   return cudaGetLastError();
 }
 
@@ -650,34 +674,38 @@ static bool lf_geometry_ok(int G, int E, int nreg, int block) {
          block >= 32 && block <= LF_BLOCK_MAX && block % 32 == 0;
 }
 
-// The template instantiation for (E, nreg), called with a functor.
+// The template instantiation for (T, E, nreg), called with a functor.
+template <typename T>
 struct LfLaunch {
   const LfArgs& a;
+  const LfIo<T>& io;
   const LfPlan& plan;
   int grid, block, smem;
   cudaStream_t stream;
   template <int E, int NREG>
   cudaError_t run() const {
-    return launch_leapfrog<E, NREG>(a, plan, grid, block, smem, stream);
+    return launch_leapfrog<T, E, NREG>(a, io, plan, grid, block, smem,
+                                       stream);
   }
 };
 
+template <typename T>
 struct LfQuery {
   int block, smem;
   int *blocks_per_sm, *regs, *local_bytes;
   template <int E, int NREG>
   cudaError_t run() const {
     cudaError_t err = cudaFuncSetAttribute(
-        leapfrog_kernel<E, NREG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        leapfrog_kernel<T, E, NREG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, leapfrog_kernel<E, NREG>);
+    err = cudaFuncGetAttributes(&attr, leapfrog_kernel<T, E, NREG>);
     if (err != cudaSuccess) return err;
     *regs = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, leapfrog_kernel<E, NREG>, block, smem);
+        blocks_per_sm, leapfrog_kernel<T, E, NREG>, block, smem);
   }
 };
 
@@ -694,13 +722,26 @@ static cudaError_t lf_dispatch(int E, int nreg, const F& f) {
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+static int lf_launch(const void* q0, const void* p0, void* qo, void* po,
+                     void* lp0, void* lpL, const LfArgs& a,
+                     const LfPlan& plan, int E, int nreg, int grid,
+                     int block, int smem, cudaStream_t stream) {
+  const LfIo<T> io{static_cast<const T*>(q0), static_cast<const T*>(p0),
+                   static_cast<T*>(qo), static_cast<T*>(po),
+                   static_cast<T*>(lp0), static_cast<T*>(lpL)};
+  return (int)lf_dispatch(
+      E, nreg, LfLaunch<T>{a, io, plan, grid, block, smem, stream});
+}
+
 // C interface: launches on `stream`, does not synchronize, and returns
-// cudaGetLastError() after the launch (0 on success). words: 4 ints per
-// stage (LfPlan); G lanes per chain, E elements per lane, nreg runs held in
-// registers (0 or LF_NREG), n_rows reflection rows; block threads, smem
-// bytes (the wrapper's leapfrog_geometry).
-extern "C" int enf_fused_leapfrog(const float* q0, const float* p0, float* qo,
-                                  float* po, float* lp0, float* lpL,
+// cudaGetLastError() after the launch (0 on success). bf16: the storage of
+// q0, p0, qo, po, lp0 and lpL (0 float32, 1 bf16); every other buffer is
+// f32. words: 4 ints per stage (LfPlan); G lanes per chain, E elements per
+// lane, nreg runs held in registers (0 or LF_NREG), n_rows reflection rows;
+// block threads, smem bytes (the wrapper's leapfrog_geometry).
+extern "C" int enf_fused_leapfrog(int bf16, const void* q0, const void* p0,
+                                  void* qo, void* po, void* lp0, void* lpL,
                                   const float* eps, const float* im,
                                   const float* mu, const float* iv,
                                   const float* P, const float* rows,
@@ -716,18 +757,27 @@ extern "C" int enf_fused_leapfrog(const float* q0, const float* p0, float* qo,
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < n_stages; ++k)
     if (plan.st[k].x >= HH && d > G * E) return (int)cudaErrorInvalidValue;
-  const LfArgs a{q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, rows, Q, Qt,
-                 n, d, G, n_rows, num_steps};
-  return (int)lf_dispatch(
-      E, nreg, LfLaunch{a, plan, grid, block, smem, (cudaStream_t)stream});
+  const LfArgs a{eps, im, mu, iv, P, rows, Q, Qt, n, d, G, n_rows,
+                 num_steps};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return lf_launch<__nv_bfloat16>(q0, p0, qo, po, lp0, lpL, a, plan, E,
+                                    nreg, grid, block, smem, s);
+  return lf_launch<float>(q0, p0, qo, po, lp0, lpL, a, plan, E, nreg, grid,
+                          block, smem, s);
 }
 
-// Blocks of B6 (E, nreg) resident per SM at `block` threads and `smem`
-// bytes, and the kernel's registers per thread and local (spilled) bytes.
-extern "C" int enf_leapfrog_occupancy(int E, int nreg, int block, int smem,
-                                      int* blocks_per_sm, int* regs,
-                                      int* local_bytes) {
+// Blocks of B6 (storage, E, nreg) resident per SM at `block` threads and
+// `smem` bytes, and the kernel's registers per thread and local (spilled)
+// bytes.
+extern "C" int enf_leapfrog_occupancy(int bf16, int E, int nreg, int block,
+                                      int smem, int* blocks_per_sm,
+                                      int* regs, int* local_bytes) {
   if (!lf_geometry_ok(1, E, nreg, block)) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)lf_dispatch(E, nreg, LfQuery<__nv_bfloat16>{
+                                         block, smem, blocks_per_sm, regs,
+                                         local_bytes});
   return (int)lf_dispatch(
-      E, nreg, LfQuery{block, smem, blocks_per_sm, regs, local_bytes});
+      E, nreg, LfQuery<float>{block, smem, blocks_per_sm, regs, local_bytes});
 }

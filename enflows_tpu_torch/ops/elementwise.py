@@ -59,8 +59,13 @@ MAX_HOUSEHOLDER_DIM = 128    # d limit of a chain with a Householder stage
 MAX_DIM = 2048               # d limit of an elementwise-only chain
 
 # Kernel launches, one count per kernel, raised by the wrappers right after
-# a launch succeeds and nowhere else.
+# a launch succeeds and nowhere else: float32 storage in LAUNCHES, bf16
+# storage (the kernels' bf16 instantiations) in LAUNCHES_BF16.
 LAUNCHES = {"fwd": 0, "bwd": 0, "negll": 0}
+LAUNCHES_BF16 = {"fwd": 0, "bwd": 0, "negll": 0}
+
+# Storage dtypes the kernels take; arithmetic is float32 for both.
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
 # Stage codes of csrc/stages.cuh; _HD (csrc/elementwise.cu) is a Householder
 # stage applied as its dense Q.
@@ -91,11 +96,11 @@ def is_fusible_chain(chain, dim: int, dtype=torch.float32) -> bool:
     (``enflows_tpu/ops/pallas/elementwise.py:117-137``).
 
     Every stage is ScaleShift, CenterContract, CenterStretch, Johnson,
-    JohnsonInv or Householder; the dtype is f32 (bf16 storage is not ported
-    yet); d <= 128 with a Householder stage and d <= 2048 without; at most
-    32 stages. Every such chain has a launch (``chain_plan``,
-    ``chain_geometry``)."""
-    if dtype != torch.float32 or dim > MAX_DIM or dim < 1:
+    JohnsonInv or Householder; the storage dtype is float32 or bfloat16
+    (the arithmetic is float32 for both; float64 is refused); d <= 128 with
+    a Householder stage and d <= 2048 without; at most 32 stages. Every
+    such chain has a launch (``chain_plan``, ``chain_geometry``)."""
+    if dtype not in STORAGE_DTYPES or dim > MAX_DIM or dim < 1:
         return False
     stages = _stages(chain)
     if len(stages) > MAX_STAGES:
@@ -288,10 +293,74 @@ def _check_kinds(chain):
         raise ValueError(f"stages {bad} have no fused kernel")
 
 
+def round_to(t, dtype):
+    """``t`` in float32 with its value rounded to ``dtype`` (to nearest
+    even, as ``Tensor.to`` and JAX's ``astype`` round) and its gradient
+    passed through unrounded, so that a parameter's gradient comes back in
+    the parameter's own dtype."""
+    t32 = t.to(torch.float32)
+    if dtype == torch.float32:
+        return t32
+    return t32 + (t32.detach().to(dtype).to(torch.float32)
+                  - t32.detach())
+
+
+def rounded_rows(rows, storage):
+    """Normalized reflection rows in float32 for ``storage``: for bf16,
+    rounded to bf16 (``round_to``) and normalized again in float32. B2 and
+    B3 recover each reflection's input from its output (H_r an involution,
+    w.x_r = -w.x_{r+1}), which holds only for |w| = 1, so the rows keep
+    bf16's rounding of their direction and not of their length."""
+    if storage != torch.bfloat16:
+        return rows
+    r = round_to(rows, storage)
+    return r * torch.rsqrt((r * r).sum(-1, keepdim=True))
+
+
+def _run_plan(chain, plan, bufs, t):
+    """(y, ladj) in float32 through the kernels' plan: each elementwise
+    stage on its per-dimension parameter vectors, each Householder stage
+    reflection by reflection from its rows or as its dense Q, as the plan
+    applies it. The plain bf16 version, on the plan's rounded buffers."""
+    pbuf, rbuf, qbuf = bufs
+    d = plan.d
+    ladj = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+    slot = row = dense = 0
+    for i, s in enumerate(_stages(chain)):
+        if isinstance(s, Householder):
+            if i in plan.reflect:
+                for w in rbuf[row:row + plan.words[4 * i + 2]]:
+                    t = t - 2.0 * (t @ w)[..., None] * w
+                row += plan.words[4 * i + 2]
+            else:
+                t = t @ qbuf[dense].T
+                dense += 1
+            continue
+        ps = [pbuf[(slot + j) * d:(slot + j + 1) * d]
+              for j in range(len(s.fields()))]
+        slot += len(ps)
+        t, elem = _APPLY[type(s)](t, *ps)
+        ladj = ladj + elem.expand(t.shape).sum(-1)
+    return t, ladj
+
+
+def _forward_and_ladj_bf16(chain, x):
+    """The kernels' bf16 arithmetic: x and the plan's buffers rounded to
+    bf16, the chain in float32, outputs not yet rounded."""
+    plan, bufs = _chain_plan(chain, x.shape[-1], x.device, x.dtype)
+    return _run_plan(chain, plan, bufs, x.to(torch.float32))
+
+
 def forward_and_ladj_plain(chain, x):
     """Plain B1: (y, per-sample ladj), one stage at a time, through the same
     stage bodies as the kernel. Differentiable, so autograd over it is the
-    plain B2."""
+    plain B2. A bf16 batch runs the kernels' bf16 arithmetic: x and the
+    chain's parameters, reflection rows and dense Q rounded to bf16 as the
+    kernels' plan holds them (``_chain_plan``), the stages in float32, y
+    and ladj rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        y, ladj = _forward_and_ladj_bf16(chain, x)
+        return y.to(x.dtype), ladj.to(x.dtype)
     t = x
     ladj = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     for s in _stages(chain):
@@ -306,7 +375,13 @@ def forward_and_ladj_plain(chain, x):
 
 def negll_plain(chain, x):
     """negll = -(sum logN(y) + sum ladj) / n through ``forward_and_ladj_plain``
-    (``enflows_tpu/train/whitening.py:49-60``)."""
+    (``enflows_tpu/train/whitening.py:49-60``). A bf16 batch sums y and ladj
+    in float32 before they are rounded, as B3 does, and returns negll
+    rounded to bf16; its gradients stay float32."""
+    if x.dtype == torch.bfloat16:
+        y, ladj = _forward_and_ladj_bf16(chain, x)
+        negll = -(std_normal_logpdf(y).sum() + ladj.sum()) / x.shape[0]
+        return negll.to(x.dtype)
     y, ladj = forward_and_ladj_plain(chain, x)
     return -(std_normal_logpdf(y).sum() + ladj.sum()) / x.shape[0]
 
@@ -464,17 +539,27 @@ def chain_geometry(plan: ChainPlan, n: int, mode: str,
 # ------------------------------------------------------------------
 # CUDA wrappers.
 
-def _chain_plan(chain, d: int, device, dtype=torch.float32):
+def _chain_plan(chain, d: int, device, storage=torch.float32):
     """(plan, (pbuf, rbuf, qbuf)): the kernels' plan, the flat
     per-dimension parameter buffer (n_pslots * d,), the reflection stages'
     normalized rows (n_rows, d) and the dense stages' Q (n_dense, d, d), all
-    differentiable functions of the chain's Parameters."""
+    differentiable functions of the chain's Parameters, in float32 with
+    their values rounded to the ``storage`` dtype: for bf16 storage the
+    parameters and Q are rounded as JAX's ``_pattern_rows`` and
+    ``_householder_blockdiag`` cast them (elementwise.py:269, :296), the
+    reflection rows rounded and normalized again (``rounded_rows``), and
+    their gradients come back unrounded. ``storage`` float64 builds the
+    buffers in float64, for the CPU tests' replays."""
     plan = chain_plan(chain, d)
     stages = _stages(chain)
-    pvecs = [p.to(dtype).expand(d) for s in stages
+    dtype = torch.float64 if storage == torch.float64 else torch.float32
+    rnd = (lambda t: t.to(dtype)) if dtype == torch.float64 else \
+        (lambda t: round_to(t, storage))
+    pvecs = [rnd(p).expand(d) for s in stages
              if not isinstance(s, Householder) for p in s.fields().values()]
-    rows = [reflection_rows(stages[i], dtype) for i in plan.reflect]
-    qs = [householder_matrix(stages[i].vmat(), dtype=dtype)
+    rows = [rounded_rows(reflection_rows(stages[i], dtype), storage)
+            for i in plan.reflect]
+    qs = [rnd(householder_matrix(stages[i].vmat(), dtype=dtype))
           for i in plan.dense]
     f = dict(dtype=dtype, device=device)
     pbuf = torch.cat(pvecs) if pvecs else torch.zeros(0, **f)
@@ -485,14 +570,16 @@ def _chain_plan(chain, d: int, device, dtype=torch.float32):
 
 def _check_cuda_input(chain, x, fusible=None):
     """Raise ``ValueError`` unless ``x`` is a non-empty contiguous (n, d)
-    float32 CUDA batch, ``fusible(chain, d, dtype)`` holds (default
-    ``is_fusible_chain``) and every Parameter lies on x's device."""
+    float32 or bfloat16 CUDA batch, ``fusible(chain, d, dtype)`` holds
+    (default ``is_fusible_chain``) and every Parameter lies on x's
+    device."""
     fusible = fusible or is_fusible_chain
     if x.device.type != "cuda":
         raise ValueError(f"fused kernels take CPU or CUDA tensors, got "
                          f"{x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"fused kernels take float32, got {x.dtype}")
+    if x.dtype not in STORAGE_DTYPES:
+        raise ValueError(f"fused kernels take float32 or bfloat16, got "
+                         f"{x.dtype}")
     if x.dim() != 2 or x.shape[0] == 0:
         raise ValueError(f"fused kernels take a non-empty (n, d) batch, got "
                          f"shape {tuple(x.shape)}")
@@ -523,20 +610,23 @@ def _raise_on(lib, err: int, kernel: str):
                            f"{err} ({msg})")
 
 
-def occupancy(mode: str, E: int, block: int, smem: int) -> tuple:
+def occupancy(mode: str, E: int, block: int, smem: int,
+              bf16: bool = False) -> tuple:
     """(blocks per SM, registers per thread, local bytes) of B1/B2/B3's
-    instantiation for E elements per lane at ``block`` threads and ``smem``
-    bytes (the card's occupancy query)."""
-    return _occupancy(_MODE[mode], E, block, smem)
+    instantiation for E elements per lane (float32 storage, or bf16 with
+    ``bf16``) at ``block`` threads and ``smem`` bytes (the card's occupancy
+    query)."""
+    return _occupancy(_MODE[mode], E, block, smem, bool(bf16))
 
 
 @functools.cache
-def _occupancy(mode: int, E: int, block: int, smem: int) -> tuple:
+def _occupancy(mode: int, E: int, block: int, smem: int,
+               bf16: bool = False) -> tuple:
     from ._build import load_library
 
     lib = load_library()
     vals = [ctypes.c_int(0) for _ in range(3)]
-    err = lib.enf_chain_occupancy(mode, E, block, smem,
+    err = lib.enf_chain_occupancy(mode, int(bf16), E, block, smem,
                                   *map(ctypes.byref, vals))
     _raise_on(lib, err, "B1-B3 occupancy query")
     return tuple(v.value for v in vals)
@@ -556,23 +646,33 @@ def _launch(mode: str, plan: ChainPlan, x, bufs, gy=None, gladj=None):
     (gx, gp, gw, gq) for the cotangents gy (n, d) and gladj (n,)) or B3
     ("negll": (loss sum, gp, gw, gq), unscaled: c_y = y, c_ladj = -1). gp,
     gw and gq are the cotangents of the plan's buffers, the blocks'
-    partials summed here in order (elementwise.py:742, :905)."""
+    partials summed here in order (elementwise.py:742, :905). x, gy,
+    gladj, y, ladj and gx are in x's storage dtype (float32 or bf16, the
+    kernels' two instantiations); the buffers, the partial sums and the
+    loss are float32."""
     from ._build import load_library
 
     lib = load_library()
     n, d = x.shape
     pbuf, rbuf, qbuf = bufs
     dev = x.device
+    bf16 = x.dtype == torch.bfloat16
+    for t in (gy, gladj):
+        if t is not None and t.dtype != x.dtype:
+            raise ValueError(f"cotangents must be {x.dtype}, got {t.dtype}")
     geo = chain_geometry(
-        plan, n, mode, lambda b, sm: occupancy(mode, plan.E, b, sm)[0],
+        plan, n, mode, lambda b, sm: occupancy(mode, plan.E, b, sm, bf16)[0],
         _sm_count(dev.index))
     f32 = dict(dtype=torch.float32, device=dev)
     qt = qbuf.transpose(1, 2).contiguous()
     outs = {k: torch.empty(0, **f32) for k in
-            ("y", "ladj", "gx", "loss", "p", "w", "q", "scratch")}
+            ("y", "ladj", "gx", "loss", "p", "w", "q", "scratch", "lacc")}
     if mode == "fwd":
         outs["y"] = torch.empty_like(x)
-        outs["ladj"] = torch.empty(n, **f32)
+        outs["ladj"] = torch.empty(n, dtype=x.dtype, device=dev)
+        if bf16 and d > plan.G * plan.E:
+            # A bf16 ladj is summed over the column tiles in float32.
+            outs["lacc"] = torch.empty(n, **f32)
     else:
         outs["p"] = torch.empty(geo.grid, plan.n_pslots * d, **f32)
         outs["w"] = torch.empty(geo.grid, plan.n_rows * d, **f32)
@@ -587,20 +687,21 @@ def _launch(mode: str, plan: ChainPlan, x, bufs, gy=None, gladj=None):
     ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
     rows_io = [x, gy, outs["y"], outs["gx"]]
     packed = (plan.G == 1 and d == plan.E and plan.E > 1
-              and all(t.data_ptr() % (4 * plan.E) == 0
+              and all(t.data_ptr() % (x.element_size() * plan.E) == 0
                       for t in rows_io if t is not None and t.numel()))
     with torch.cuda.device(dev), annotate(_RANGES[mode]):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_fused_chain(
-            _MODE[mode], x.data_ptr(), ptr(gy), ptr(gladj), ptr(outs["y"]),
-            ptr(outs["ladj"]), ptr(outs["gx"]), ptr(pbuf), ptr(rbuf),
+            _MODE[mode], int(bf16), x.data_ptr(), ptr(gy), ptr(gladj),
+            ptr(outs["y"]), ptr(outs["ladj"]), ptr(outs["lacc"]),
+            ptr(outs["gx"]), ptr(pbuf), ptr(rbuf),
             ptr(qbuf), ptr(qt), ptr(outs["scratch"]), ptr(outs["loss"]),
             ptr(outs["p"]), ptr(outs["w"]), ptr(outs["q"]),
             _ints(plan.words), plan.n_stages, n, d, plan.G, plan.E,
             plan.n_pslots, plan.n_rows, plan.n_dense, plan.n_acc,
             int(packed), geo.grid, geo.block, geo.smem, stream)
-    _raise_on(lib, err, _NAMES[mode])
-    LAUNCHES[mode] += 1
+    _raise_on(lib, err, _NAMES[mode] + (" bf16" if bf16 else ""))
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)[mode] += 1
     if mode == "fwd":
         return outs["y"], outs["ladj"]
     grads = (outs["p"].sum(0), outs["w"].sum(0).view(plan.n_rows, d),
@@ -634,12 +735,15 @@ def fused_forward_and_ladj(chain, x):
     Counterpart of ``fused_forward_and_ladj_packed``
     (``enflows_tpu/ops/pallas/elementwise.py:1018``) and of the kernel
     ``_fused_packed_impl`` (:441). On a CUDA tensor: B1, with B2 as its
-    backward. On a CPU tensor: ``forward_and_ladj_plain``."""
+    backward. On a CPU tensor: ``forward_and_ladj_plain``. A bf16 batch
+    gives y and ladj in bf16 (x's gradient too) and the parameters'
+    gradients in their own dtype; the chain's parameters are rounded to
+    bf16, the arithmetic is float32."""
     _check_kinds(chain)
     if x.device.type == "cpu":
         return forward_and_ladj_plain(chain, x)
     _check_cuda_input(chain, x)
-    plan, bufs = _chain_plan(chain, x.shape[1], x.device)
+    plan, bufs = _chain_plan(chain, x.shape[1], x.device, x.dtype)
     return _FusedChain.apply(x, *bufs, plan)
 
 
@@ -653,15 +757,16 @@ def fused_negll_value_and_grad(chain, x):
     rows, dense Q) are mapped onto the chain's Parameters by autograd
     through the plan's construction. On a CPU tensor:
     ``negll_value_and_grad_plain``. The keys are those of
-    ``chain.named_parameters()``."""
+    ``chain.named_parameters()``. A bf16 batch gives negll in bf16 and the
+    gradients in the parameters' dtypes."""
     _check_kinds(chain)
     if x.device.type == "cpu":
         return negll_value_and_grad_plain(chain, x)
     _check_cuda_input(chain, x)
     n, d = x.shape
     with torch.enable_grad():
-        plan, bufs = _chain_plan(chain, d, x.device)
+        plan, bufs = _chain_plan(chain, d, x.device, x.dtype)
         loss_sum, *gs = _launch("negll", plan, x,
                                 tuple(b.detach() for b in bufs))
         grads = _grads_by_name(chain, list(bufs), [g / n for g in gs])
-    return -loss_sum / n, grads
+    return (-loss_sum / n).to(x.dtype), grads

@@ -36,7 +36,8 @@ from ..distributions.base import _LOG_2PI
 from ..utils.profiling import annotate
 from .elementwise import (_ADJOINT, _APPLY, _CODE, _HH, _check_cuda_input,
                           _check_kinds, _ints, _raise_on, _stages,
-                          is_fusible_chain, reflection_rows)
+                          is_fusible_chain, reflection_rows, round_to,
+                          rounded_rows)
 
 _SMEM_MAX = 232448      # the card's opt-in shared memory per block
 _LF_BLOCK = 128         # threads per block (LF_BLOCK_MAX in csrc/leapfrog.cu)
@@ -47,8 +48,10 @@ _HD = 6                 # a Householder stage applied as its dense Q
 _MAX_TILE = 128         # columns in flight: 32 lanes x 4 elements
 
 # Kernel launches, raised by the wrapper right after a launch succeeds and
-# nowhere else.
+# nowhere else: float32 storage in LAUNCHES, bf16 storage (B6's bf16
+# instantiation) in LAUNCHES_BF16.
 LAUNCHES = {"leapfrog": 0}
+LAUNCHES_BF16 = {"leapfrog": 0}
 
 
 def lane_group(d: int, elements=None) -> tuple[int, int]:
@@ -161,9 +164,9 @@ def leapfrog_plan(chain, d: int, elements=None) -> LeapfrogPlan:
 def is_fusible_leapfrog(chain, dim: int, dtype=torch.float32) -> bool:
     """Whether B6 takes this chain: exactly when ``is_fusible_chain`` holds
     (d <= 128 with a Householder stage, d <= 2048 without, at most 32
-    stages of the six kinds, f32). Every such chain has a launch: a
-    Householder stage whose rows would not fit shared memory is applied as
-    its dense Q."""
+    stages of the six kinds, float32 or bf16 storage). Every such chain has
+    a launch: a Householder stage whose rows would not fit shared memory is
+    applied as its dense Q."""
     return is_fusible_chain(chain, dim, dtype)
 
 
@@ -194,6 +197,9 @@ def _logp_and_grad(stages, q, mu, iv, lv):
         inputs.append(t)
         if kind is Householder:
             t = t @ params.T
+        elif kind == "rows":              # reflection by reflection
+            for w in params:
+                t = t - 2.0 * (t @ w)[..., None] * w
         else:
             t, elem = _APPLY[kind](t, *params)
             acc = acc + elem
@@ -203,6 +209,9 @@ def _logp_and_grad(stages, q, mu, iv, lv):
     for (kind, params), t_in in zip(reversed(stages), reversed(inputs)):
         if kind is Householder:
             cy = cy @ params
+        elif kind == "rows":
+            for w in params.flip(0):
+                cy = cy - 2.0 * (cy @ w)[..., None] * w
         else:
             cy = _ADJOINT[kind](t_in, *params, cy, ce)[0]
     return logp, cy
@@ -215,11 +224,56 @@ def _as(v, default, like):
                            device=like.device)
 
 
+def _leapfrog_plain_bf16(chain, q, p, step_size, num_steps, inv_mass_diag,
+                         base_mean, base_var):
+    """B6's bf16 arithmetic: q and p widened to float32, the chain's
+    parameters, reflection rows and dense Q rounded to bf16 as the
+    kernel's plan holds them (``_prepare``; the rows normalized again),
+    the step size, mass and base in float32, the trajectory in float32
+    with each Householder stage applied as the kernel applies it, and q_L,
+    p_L, logp_0 and logp_L rounded to bf16 once."""
+    with torch.no_grad():
+        args = _prepare(chain, q, step_size, inv_mass_diag, base_mean,
+                        base_var, storage=q.dtype)
+        plan = args.plan
+        stages, slot, row, dense = [], 0, 0, 0
+        for i, s in enumerate(_stages(chain)):
+            if isinstance(s, Householder) and i in plan.reflect:
+                k = plan.words[4 * i + 2]
+                stages.append(("rows", args.rows[row:row + k]))
+                row += k
+            elif isinstance(s, Householder):
+                stages.append((Householder, args.qbuf[dense]))
+                dense += 1
+            else:
+                n = len(s.fields())
+                stages.append((type(s), tuple(
+                    args.pbuf[(slot + j) * q.shape[1]:(slot + j + 1)
+                              * q.shape[1]] for j in range(n))))
+                slot += n
+        q32, p32 = q.to(torch.float32), p.to(torch.float32)
+        lv = -torch.log(args.iv)
+        eps = args.eps
+        logp0, g = _logp_and_grad(stages, q32, args.mu, args.iv, lv)
+        logp = logp0
+        for _ in range(num_steps):
+            p32 = p32 + 0.5 * eps * g
+            q32 = q32 + eps * p32 * args.im
+            logp, g = _logp_and_grad(stages, q32, args.mu, args.iv, lv)
+            p32 = p32 + 0.5 * eps * g
+    return (q32.to(q.dtype), p32.to(q.dtype), logp0.to(q.dtype),
+            logp.to(q.dtype))
+
+
 def leapfrog_plain(chain, q, p, step_size, num_steps: int,
                    inv_mass_diag=None, base_mean=None, base_var=None):
     """Plain B6: ``num_steps`` leapfrog steps in q's dtype, one stage at a
-    time. Returns (q_L, p_L, logp_0, logp_L); see ``fused_leapfrog``."""
+    time. Returns (q_L, p_L, logp_0, logp_L); see ``fused_leapfrog``. bf16
+    q and p run B6's bf16 arithmetic (``_leapfrog_plain_bf16``)."""
     _check_kinds(chain)
+    if q.dtype == torch.bfloat16:
+        return _leapfrog_plain_bf16(chain, q, p, step_size, num_steps,
+                                    inv_mass_diag, base_mean, base_var)
     with torch.no_grad():
         stages = _stage_params(chain, q.dtype)
         mu = _as(base_mean, 0.0, q)
@@ -264,49 +318,62 @@ class LeapfrogArgs(NamedTuple):
 
 
 def _launch(args: LeapfrogArgs, q, p, num_steps):
-    """B6 on contiguous f32 CUDA tensors."""
+    """B6 on contiguous CUDA tensors q and p of one storage dtype, float32
+    or bf16 (the kernel's two instantiations; the storage code passed
+    is q's dtype, and p must match it)."""
     from ._build import load_library
 
     lib = load_library()
     n, d = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16) or p.dtype != q.dtype:
+        raise ValueError(f"B6 takes q and p of one dtype, float32 or "
+                         f"bfloat16, got {q.dtype} and {p.dtype}")
+    bf16 = q.dtype == torch.bfloat16
     plan = args.plan
     geo = leapfrog_geometry(n, d, plan.n_stages, n_rows=plan.n_rows,
                             n_smem_slots=plan.n_smem_slots,
                             elements=args.elements)
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)
-    lp0 = torch.empty(n, dtype=torch.float32, device=q.device)
+    lp0 = torch.empty(n, dtype=q.dtype, device=q.device)
     lpL = torch.empty_like(lp0)
     with torch.cuda.device(q.device), annotate("enflows.cuda.fused_leapfrog"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.enf_fused_leapfrog(
-            q.data_ptr(), p.data_ptr(), q_out.data_ptr(), p_out.data_ptr(),
+            int(bf16), q.data_ptr(), p.data_ptr(), q_out.data_ptr(),
+            p_out.data_ptr(),
             lp0.data_ptr(), lpL.data_ptr(), args.eps.data_ptr(),
             args.im.data_ptr(), args.mu.data_ptr(), args.iv.data_ptr(),
             args.pbuf.data_ptr(), args.rows.data_ptr(), args.qbuf.data_ptr(),
             args.qtbuf.data_ptr(), _ints(plan.words), plan.n_stages, n, d,
             geo.G, geo.E, plan.nreg, plan.n_rows, num_steps, geo.grid,
             geo.block, geo.smem, stream)
-    _raise_on(lib, err, "B6 (fused leapfrog)")
-    LAUNCHES["leapfrog"] += 1
+    _raise_on(lib, err, "B6 (fused leapfrog)" + (" bf16" if bf16 else ""))
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)["leapfrog"] += 1
     return q_out, p_out, lp0, lpL
 
 
 def _prepare(chain, q, step_size, inv_mass_diag=None, base_mean=None,
-             base_var=None, elements=None,
-             dtype=torch.float32) -> LeapfrogArgs:
+             base_var=None, elements=None, dtype=torch.float32,
+             storage=torch.float32) -> LeapfrogArgs:
     """B6's plan and device arguments for ``chain`` at q's width (in
     ``dtype``: float32 for the kernel, float64 for the CPU tests' replay of
-    it)."""
+    it). With bf16 ``storage`` the chain's parameters and dense Q are
+    rounded to bf16, as ``_chain_static_and_params(chain, dim, q.dtype,
+    dp)`` casts them (leapfrog.py:249), and the reflection rows as B1-B3's
+    (``rounded_rows``); step size, mass and base stay as they are."""
     d, dev = q.shape[1], q.device
     f = dict(dtype=dtype, device=dev)
+    rnd = lambda t: round_to(t, storage) if dtype == torch.float32 \
+        else t.to(dtype)
     with torch.no_grad():
         plan = leapfrog_plan(chain, d, elements)
         stages = _stages(chain)
-        pvecs = [v.to(dtype).expand(d) for s in stages
+        pvecs = [rnd(v).expand(d) for s in stages
                  if not isinstance(s, Householder)
                  for v in s.fields().values()]
-        rows = [reflection_rows(stages[i], dtype) for i in plan.reflect]
-        qs = [householder_matrix(stages[i].vmat(), dtype=dtype)
+        rows = [rounded_rows(reflection_rows(stages[i], dtype), storage)
+                for i in plan.reflect]
+        qs = [rnd(householder_matrix(stages[i].vmat(), dtype=dtype))
               for i in plan.dense]
         qbuf = torch.stack(qs) if qs else torch.zeros(0, d, d, **f)
         args = LeapfrogArgs(
@@ -333,7 +400,9 @@ def fused_leapfrog(chain, q, p, step_size, num_steps: int,
     (dim,) diagonal-Gaussian base (default N(0, I)). Returns
     (q_L, p_L, logp_0, logp_L) with logp(q) = sum N(f(q); mu, var) +
     ladj_f(q), constants included. On a CUDA tensor: B6; on a CPU tensor:
-    ``leapfrog_plain``."""
+    ``leapfrog_plain``. bf16 q and p (storage only: the chain's parameters
+    rounded to bf16, the trajectory in float32) give q_L, p_L and both logp
+    in bf16."""
     _check_kinds(chain)
     if q.device.type == "cpu":
         return leapfrog_plain(chain, q, p, step_size, num_steps,
@@ -346,7 +415,7 @@ def fused_leapfrog(chain, q, p, step_size, num_steps: int,
     if num_steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {num_steps}")
     return _launch(_prepare(chain, q, step_size, inv_mass_diag, base_mean,
-                            base_var), q, p, num_steps)
+                            base_var, storage=q.dtype), q, p, num_steps)
 
 
 # ------------------------------------------------------------------

@@ -223,9 +223,12 @@ def optimize_whitening(
         return neglls
 
     with annotate("enflows.train.whitening"):
+        # bf16 samples: a float32 history, which holds B3's bf16 negll
+        # exactly and the plain path's float32 one unrounded.
         history = run_chunked(
             epochs, flow, opt, torch.zeros(nepochs * nbatches,
-                                           dtype=samples.dtype,
+                                           dtype=torch.promote_types(
+                                               samples.dtype, torch.float32),
                                            device=samples.device),
             nepochs, nbatches, every=checkpoint_every, ckpt_dir=ckpt_dir)
     if negll_history is not None:

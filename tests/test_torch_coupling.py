@@ -346,9 +346,10 @@ def test_interop_round_trip_and_bf16_conditioner():
                 np.testing.assert_allclose(W, np.asarray(Wj), rtol=1e-6)
                 np.testing.assert_allclose(b, np.asarray(bj), rtol=1e-6,
                                            atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        et.MLPConditioner([(torch.zeros(2, 2), torch.zeros(2))],
-                          compute_dtype="bfloat16")
+    cond = et.MLPConditioner([(torch.zeros(2, 2), torch.ones(2))],
+                             compute_dtype="bfloat16")      # constructs
+    out = cond(torch.zeros(3, 2))
+    assert out.dtype == torch.float32 and torch.equal(out, torch.ones(3, 2))
     with pytest.raises(ValueError):
         et.MLPConditioner([(torch.zeros(2, 2), torch.zeros(2))],
                           activation="elu")

@@ -527,7 +527,7 @@ def test_fusible_predicate():
     ok = et.coupling_stack(g, 8, 2, (16,), device="cpu")
     assert TC.is_fusible_coupling_stack(ok, 8)
     assert not TC.is_fusible_coupling_stack(ok, 8, torch.float64)
-    assert not TC.is_fusible_coupling_stack(ok, 8, torch.bfloat16)
+    assert TC.is_fusible_coupling_stack(ok, 8, torch.bfloat16)  # storage
     odd = et.coupling_stack(g, 5, 2, (8,), device="cpu")
     assert not TC.is_fusible_coupling_stack(odd, 5)
     mixing = et.Chain.of(et.Permute((0, 4, 2, 6, 1, 5, 3, 7)), *ok.stages)
@@ -536,6 +536,8 @@ def test_fusible_predicate():
         et.Chain.of(et.Permute(CYCLE), *ok.stages), 8)
     bf16 = et.coupling_stack(g, 8, 2, (16,), device="cpu")
     bf16.stages[0].conditioner.compute_dtype = "bfloat16"
+    assert TC.is_fusible_coupling_stack(bf16, 8)    # a mixed stack
+    bf16.stages[0].conditioner.compute_dtype = "float16"
     assert not TC.is_fusible_coupling_stack(bf16, 8)
     elementwise_only = et.Chain.of(et.ScaleShift(torch.ones(8),
                                                  torch.zeros(8)))

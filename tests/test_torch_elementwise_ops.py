@@ -693,7 +693,7 @@ def test_fusible_predicate():
     c2 = from_jax(full_chain(2), device="cpu")
     assert TE.is_fusible_chain(c2, 2, torch.float32)
     assert not TE.is_fusible_chain(c2, 2, torch.float64)
-    assert not TE.is_fusible_chain(c2, 2, torch.bfloat16)
+    assert TE.is_fusible_chain(c2, 2, torch.bfloat16)      # bf16 storage
     assert TE.is_fusible_chain(from_jax(full_chain(128), device="cpu"), 128)
     assert not TE.is_fusible_chain(
         from_jax(full_chain(129), device="cpu"), 129)
