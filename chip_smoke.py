@@ -3,8 +3,9 @@ whitening slice (kernels B1-B3), the coupling-flow slice (B4, B5),
 flow-VI (B1/B2 and B4/B5), flow-preconditioned HMC (B6), NUTS and ChEES
 (no kernel), tempered SMC (no kernel; B1/B2 in its learned transports),
 infer's default path (the auto ladder through B1/B2 and B4/B5, data=
-through B3) and the CLI (train through B3, killed and resumed; the ELBO
-and infer commands through B1/B2).
+through B3), the CLI (train through B3, killed and resumed; the ELBO
+and infer commands through B1/B2) and the multi-device layer (one rank on
+NCCL, two ranks sharing the card over gloo: B1-B5 a rank).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -109,7 +110,8 @@ exception exits non-zero and prints no result:
    on the BASELINE
    chain (exactly one B6 launch per transition), then the d=8 example of
    examples/fused_pushforward_hmc.py (256 chains, its mean/var base,
-   200 + 500 transitions of L=16). Each run's draws are finite, its
+   200 + 250 transitions of L=16, cut from 500 for the mesh phases).
+   Each run's draws are finite, its
    acceptance within 0.6-1.0, and its mean and sd within 0.1 (absolute /
    relative) of Monte-Carlo truth from the generative definition (200,000
    draws); min bulk ESS and max rhat are printed. After the BASELINE run,
@@ -203,7 +205,7 @@ before it, reads them just after and fails if any kernel launched:
    and leapfrog steps an iteration;
 19. ``[nuts infer]``: ``infer(logp, method='nuts'/'chees')`` on the 2-D
    example target of benchmarks/bench_mcmc.py:35-44, raw
-   (``precondition=None``, 128 chains, 100 + 150: finite draws and the
+   (``precondition=None``, 128 chains, 100 + 75: finite draws and the
    acceptance range; its moments, min bulk ESS and max rhat are printed
    but not gated, since raw chains do not cross the target's modes) and
    through its exact transport (``flow=``, 128 chains, 100 + 100: mean
@@ -215,8 +217,9 @@ before it, reads them just after and fails if any kernel launched:
    slice's final states at its adapted settings (host clock): ms a
    transition, a leaf (NUTS) or a leapfrog step (ChEES), gradient
    evaluations a second and host reads a transition; ``torch.profiler``
-   over 5: the card's busy time, its idle share and device ops a leaf or
-   step; the fused HMC transition of 13 beside them as context.
+   over 2 (NUTS; 5 before the mesh phases) or 5 (ChEES): the card's busy
+   time, its idle share and device ops a leaf or step; the fused HMC
+   transition of 13 beside them as context.
 
 Tempered SMC runs after 20 (``smc_phases``), each main-path run with the
 launch counters set to 0 just before it and read just after:
@@ -272,11 +275,11 @@ from generators of its own:
    the family and the launches gated, the moments printed;
    ``[infer elementwise 50d]``: the same with
    ``precondition_kind='elementwise'`` and the configuration's NUTS at
-   max_depth 10, cut to 150 + 300, over 32 chains: 500 B1 and 500 B2, the
+   max_depth 10, cut to 150 + 150, over 32 chains: 500 B1 and 500 B2, the
    mean within 0.1 and the sd within 10% of 1 in every dimension, rhat <
    1.05; divergences printed (C-12);
 29. ``[infer escalation 2d]``: tests/test_infer.py's bimodal target
-   (:303, its settings but NUTS at 100 + 200: 0.12-0.40 of the draws right
+   (:303, its settings but NUTS at 100 + 100: 0.12-0.40 of the draws right
    of 0, the x0 mean within 0.35 of -1.125) and its hard target (:353,
    whiten_batches=16): the ladder ends on the SMC rescue and escalates to
    SMC on the raw target, with exactly the rule's launches (5 B1 and 5
@@ -284,7 +287,7 @@ from generators of its own:
    unweighted share right of 0 printed, not gated (ROADMAP C-10);
 30. ``[infer data 2d]``: examples/one_call_infer.py's case [2] with
    100,000 draws as ``data=``, whiten_batches=200, whiten_epochs=8, NUTS
-   at 8 chains x 100 + 100:
+   at 8 chains x 100 + 50:
    exactly 1,600 B3 launches, rhat < 1.05, the mean within
    test_infer.py:92-94's bound;
 31. ``[infer refine]``: test_infer.py:101's target and gates, one
@@ -350,9 +353,42 @@ The run utilities and the CLI run after 33 (``cli_phases``):
    raising ``HeartbeatTimeout`` after its rescue save (restored onto the
    card), and running through with the default probe.
 
+The multi-device layer runs after 37 (``mesh_phases``), a rank a child
+process (``python3 chip_smoke.py --mesh-child``, all of a phase started
+together under ``MESH_TIMEOUT``; a rank that fails fails the script), each
+run with the launch counters set to 0 just before it and read just after:
+
+38. ``[mesh nccl w1]``: one rank, NCCL on cuda:0: the whitening slice's
+   trainer on a mesh (12 B3), flow-VI on a mesh (the default template at
+   d=50, 2^17 rows: 12 B1 + 12 B2; the affine coupling template at d=64,
+   2^17 rows: 12 B4 + 12 B5), ``smc_sample_sharded`` with the default
+   transport on the 2-D transport configuration (T 61 B1 and T 60 B2),
+   ``sample_sharded`` NUTS and ``infer(mesh=)`` on the 2-D example target,
+   each held to the unsharded entry point on the same generator (the
+   whitening and elementwise histories within 1e-4, the coupling one by
+   the noise rule, the 2-D SMC by tests/test_smc.py's gates and a ladder
+   within 3 temperatures, the NUTS draws within 1e-5); NCCL collectives
+   counted, none staged; then ``torchrun --nproc_per_node=1 -m
+   enflows_tpu_torch.cli train --mesh.axes='{"batch": 1}'`` printing the
+   unsharded command's final loss;
+39. ``[mesh gloo w2]``: two ranks sharing cuda:0 over gloo: the whitening
+   slice's data and flagship flow at a global batch of 2^20 (2^19 a
+   rank), exactly 24 B3 a rank, the history within 1e-4 of the unsharded
+   fused run and every replicated output equal on both ranks; flow-VI as
+   in 38 at 2^17 global rows (B1 + B2) and, for the coupling template,
+   2^18 (2^17 a rank, B4 + B5), one of each a rank a step; the 100-D
+   mixture at 32,768 particles with the default transport under [smc
+   transport]'s gates, exactly T 101 B1 and T 100 B2 a rank; the
+   resampler's gather and ring exchanges giving the same rows; the
+   event-sharded forward of an elementwise chain at d=64, n=2^20 (32
+   columns a rank, one B1) within [B1]'s gate of the single-process B1;
+   the collectives launched and those staged through the host (STAGED).
+   Each rank prints its ms a whitening step and the collectives' share
+   of it (``torch.profiler``, the ``enflows.parallel.*`` ranges).
+
 The script ends with its total time, the kernels line (each kernel's
-launches summed over every main-path run, by path) and the ``{"ok": true,
-...}`` line.
+launches summed over every main-path run, by path, the mesh paths summed
+over their ranks) and the ``{"ok": true, ...}`` line.
 
 Tolerances: y 2e-5 and ladj 2e-4 (rtol = atol), input cotangents rtol 2e-4
 / atol 2e-5 elementwise, negll 1e-5 relative. Every parameter gradient is
@@ -2664,11 +2700,12 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
 # the plain whitening chain) and the tree bookkeeping.
 
 TREE = dict(chains=8192, warmup=200, samples=100)
-# The raw target at 100 + 150 (BASELINE.md:34's row runs 500 + 1000; cut to
-# 250 + 500 to keep the script near 400 s with the SMC phases, and to 100 +
-# 150 to keep it under 950 s with the CLI phases; its moments are not
-# gated); the flow= route at 100 + 100 (200 + 300 before PR 12).
-INFER_2D = dict(chains=128, warmup=100, samples=150)        # raw target
+# The raw target at 100 + 75 (BASELINE.md:34's row runs 500 + 1000; cut to
+# 250 + 500 to keep the script near 400 s with the SMC phases, to 100 + 150
+# to keep it under 950 s with the CLI phases, and to 100 + 75 for the mesh
+# phases; its moments are not gated); the flow= route at 100 + 100 (200 +
+# 300 before the CLI phases).
+INFER_2D = dict(chains=128, warmup=100, samples=75)         # raw target
 INFER_2D_FLOW = dict(chains=128, warmup=100, samples=100)   # flow= route
 INFER_PUSHFORWARD = dict(chains=1024, warmup=100, samples=100)
 TREE_ACCEPT = {"nuts": (0.6, 1.0), "chees": (0.45, 0.95)}  # test_chees.py:51
@@ -2737,7 +2774,7 @@ def tree_slice(et, NU, algorithm, target, dim, counters, gen, card):
 def infer_2d(et, method, through_flow, counters, seed, device, card):
     """``infer(logp, method=...)`` on the 2-D example target of
     benchmarks/bench_mcmc.py:35-44 (BASELINE.md:34's NUTS/ChEES row),
-    raw (``precondition=None``, 128 chains x 100 warmup + 150 samples) or
+    raw (``precondition=None``, 128 chains x 100 warmup + 75 samples) or
     through its exact transport (``flow=``, 128 x 100 + 100, where the
     chains see N(0, I)). The target has several modes
     that raw chains started near 0 do not cross (the JAX package's own
@@ -2833,7 +2870,8 @@ def tree_timing(et, NU, algorithm, target, stats, final, hmc_ms, card,
     mass (and trajectory length), on the host clock ending in a synchronize:
     ms a transition, a leaf (NUTS, the lockstep's) or a leapfrog step
     (ChEES), gradient evaluations a second and host reads a transition;
-    then ``torch.profiler`` over 5 transitions: the card's busy time, its
+    then ``torch.profiler`` over 2 (NUTS) or 5 (ChEES) transitions: the
+    card's busy time, its
     idle share against the unprofiled transition, device ops a leaf or
     step. The fused HMC transition of ``[hmc timing]`` (L=64, B6) stands
     beside them as context."""
@@ -2866,18 +2904,22 @@ def tree_timing(et, NU, algorithm, target, stats, final, hmc_ms, card,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / transitions
     per_leaf = ms * transitions / leaves
+    # NUTS's trace of 5 transitions took ~30 s to read; 2 since the mesh
+    # phases needed the time.
+    n_prof = 2 if algorithm == "nuts" else 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        leaves5, _ = run(5, 3)
+        leaves5, _ = run(n_prof, 3)
         torch.cuda.synchronize()
     by_name, ops = device_kernel_us(prof)
-    busy = sum(by_name.values()) / 1e3 / 5
+    busy = sum(by_name.values()) / 1e3 / n_prof
     unit, units = (("leaf", "leaves") if algorithm == "nuts" else
                    ("leapfrog step", "leapfrog steps"))
     profile_line = (
-        f"profiler over 5 transitions ({leaves5} {units}): device busy "
-        f"{busy:.3f} ms a transition, idle {100 * (1 - busy / ms):.1f}% of "
-        f"the unprofiled ms (if the 5 run as many {units} as the 20), "
+        f"profiler over {n_prof} transitions ({leaves5} {units}): device "
+        f"busy {busy:.3f} ms a transition, idle {100 * (1 - busy / ms):.1f}%"
+        f" of the unprofiled ms (if the {n_prof} run as many {units} as the "
+        f"20), "
         f"{ops / leaves5:.1f} device ops a {unit}" if busy else
         "profiler: no device time in the trace (not measured)")
     print(f"[{algorithm} timing] {n} chains x d={final.q.shape[1]}, "
@@ -3407,24 +3449,28 @@ def smc_phases(et, EW, counters, device, card):
 # depth 10, ~120 leaves a transition, at ~36 ms of host work a leaf
 # (ROADMAP C-12); the forced spline transport's NUTS too. The
 # configuration's NUTS (max_depth 10; 300 + 500, cut to 150 + 300 to make
-# room for the CLI phases) runs, gated, through the elementwise transport,
+# room for the CLI phases, and to 150 + 150 for the mesh phases: at 100 +
+# 100 its rhat gate failed, 1.1096) runs,
+# gated, through the elementwise transport,
 # the family that whitens this target exactly, at 32 chains.
 INFER_50D = dict(dim=50, rho=0.9, chains=128, warmup=10, samples=10,
                  max_depth=4)
-INFER_ELEMENTWISE_50D = dict(chains=32, warmup=150, samples=300,
+INFER_ELEMENTWISE_50D = dict(chains=32, warmup=150, samples=150,
                              max_depth=10)
 # tests/test_infer.py:303 and :353; examples/one_call_infer.py case [2];
 # test_infer.py:101.
 INFER_BIMODAL = dict(vi_steps=200, vi_batch=256, whiten_batches=16,
                      whiten_epochs=8, num_chains=8, num_warmup=100,
-                     num_samples=200)
+                     num_samples=100)
 INFER_HARD = dict(vi_steps=5, vi_batch=128, whiten_batches=16,
                   whiten_epochs=8, num_chains=8, num_warmup=150,
-                  num_samples=300)
-# The example's NUTS (8 chains x 400 + 500) cut to 100 + 100, the bimodal
-# test's (200 + 400) to 100 + 200 (PERF.md §4).
+                  num_samples=150)
+# The example's NUTS (8 chains x 400 + 500) cut to 100 + 100 (100 + 50 for
+# the mesh phases), the bimodal
+# test's (200 + 400) to 100 + 200, and to 100 + 100 for the mesh phases
+# (PERF.md §4).
 INFER_DATA = dict(n=100_000, whiten_batches=200, whiten_epochs=8,
-                  num_chains=8, num_warmup=100, num_samples=100)
+                  num_chains=8, num_warmup=100, num_samples=50)
 INFER_REFINE = dict(num_chains=8, num_warmup=150, num_samples=100)
 INFER_SEEDS = dict(auto=50, spline=51, elementwise=57, bimodal=52, hard=53,
                    data=55, refine=56)
@@ -3569,7 +3615,7 @@ def infer_50d(et, TI, counters, kind, device, card):
     transport the ladder keeps turns on the seed, and NUTS does not mix
     through the spline one here, in JAX as in the port (ROADMAP C-12). The
     elementwise call runs the configuration's NUTS (max_depth 10, cut to
-    150 + 300 over 32 chains) and holds the mean within 0.1 and the sd
+    150 + 150 over 32 chains) and holds the mean within 0.1 and the sd
     within 10% of 1 in every dimension, and rhat below 1.05; its
     divergences are printed
     (the reference diverges on ~9% of its transitions here, C-12)."""
@@ -3636,7 +3682,7 @@ def infer_50d(et, TI, counters, kind, device, card):
 
 def infer_escalation(et, TI, counters, device, card):
     """``[infer escalation 2d]``: tests/test_infer.py's bimodal target
-    (:303, its settings, NUTS cut to 100 + 200) must put 0.12-0.40 of the
+    (:303, its settings, NUTS cut to 100 + 100) must put 0.12-0.40 of the
     draws right of 0 with the x0 mean within 0.35 of -1.125; its hard
     target (:353, its settings, whiten_batches=16) must end on the SMC
     rescue, which samples the raw target by SMC, with exactly the launches
@@ -4663,7 +4709,7 @@ def cli_commands(counters, card):
     n = CLI_INFER_STEPS
     lines, launches, wall, calls = run_cli([
         "infer", "--flow.dim=2", "--sampler.precondition_kind=elementwise",
-        "--sampler.num_warmup=150", "--sampler.num_samples=150",
+        "--sampler.num_warmup=100", "--sampler.num_samples=100",
         "--sampler.num_chains=4", f"--train.nsteps={n}"], counters,
         record=[(infer_module, "optimize_elbo")])
     want = {**{k: 0 for k in launches}, "fwd": n, "bwd": n}
@@ -4677,7 +4723,7 @@ def cli_commands(counters, card):
     held = hold_cli_elbo(VI, "cli infer", calls[0], 64)
     paths["cli infer elementwise (d=2, n=1024)"] = launches
     print(f"[cli infer] infer --sampler.precondition_kind=elementwise on the "
-          f"demo target, {n} VI steps, NUTS 4 x 150 + 150: {lines}; "
+          f"demo target, {n} VI steps, NUTS 4 x 100 + 100: {lines}; "
           f"launches {launch_text(launches)}; the rung's fit: {held}; wall "
           f"{wall:.2f} s [{card}]", flush=True)
     return {key: {p: v[key] for p, v in paths.items()}
@@ -5525,6 +5571,531 @@ def bf16_phases(et, EW, C, TL, X, X64, initial_stacks, device, card):
     return rows
 
 
+# ----------------------------------------------------------------------
+# The multi-device layer (enflows_tpu_torch/parallel/) on the one card:
+# child processes, one a rank, each under a timeout. [mesh nccl w1]: one
+# rank, NCCL on cuda:0, every sharded entry point held to the unsharded one
+# on the same generator; [mesh gloo w2]: two ranks sharing cuda:0 over gloo
+# (NCCL refuses two ranks on one device), every rank's kernels on the card
+# and the cross-rank arithmetic real. The parent builds the library first.
+
+MESH_TIMEOUT = 300           # seconds, each child group
+MESH_WHITEN = dict(rows=1 << 22, nbatches=4, epochs_w1=3, epochs_w2=6)
+# Antithetic pairs a step: the coupling template's 2^16 pairs a rank keep
+# each rank's 2^17 rows on the kernels by the row rule (C-3).
+MESH_VI = dict(steps=12, pairs_ew=1 << 16, pairs_coupling_rank=1 << 16)
+MESH_NUTS = dict(chains=32, warmup=40, samples=20)
+MESH_CLI = dict(rows=1 << 20, nbatches=4, epochs=2)
+MESH_EVENT = dict(dim=64, n=1 << 20)
+
+
+def mesh_counts(*counters):
+    """Every launch count, once the card has finished its work."""
+    torch.cuda.synchronize()
+    return kernel_launches(counters)
+
+
+def collectives_share(run, steps):
+    """``run()`` under ``torch.profiler``: (ms a step, the host ms a step
+    inside ``enflows.parallel.*`` ranges, its share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    coll = sum(e.cpu_time_total for e in prof.key_averages()
+               if e.key.startswith("enflows.parallel.")) / 1e3 / steps
+    return wall, coll, coll / wall
+
+
+def mesh_whitening(et, EW, mesh, X, flow, epochs, card, tag, reference):
+    """The whitening slice's trainer on ``mesh``: each rank steps on its
+    rows of every batch (B3), the history held within ``SLICE_RTOL`` of the
+    unsharded fused run and every replicated output equal on every rank.
+    Returns the rank's launches and its ms a step."""
+    from enflows_tpu_torch.utils import assert_replicated_consistent
+
+    reset_launches(EW.LAUNCHES)
+    t0 = time.perf_counter()
+    r = et.optimize_whitening(X, flow, nbatches=MESH_WHITEN["nbatches"],
+                              nepochs=epochs, mesh=mesh, batch_axis="batch")
+    hist = r.negll_history.cpu()
+    launches = mesh_counts(EW.LAUNCHES)
+    step_ms = (time.perf_counter() - t0) * 1e3 / hist.numel()
+    steps = epochs * MESH_WHITEN["nbatches"]
+    check(launches == dict(fwd=0, bwd=0, negll=steps),
+          f"{tag} whitening: launches {launches}, not {steps} B3")
+    assert_replicated_consistent([r.result, r.optimizer_state, hist],
+                                 "whitening")
+    wall, coll, share = collectives_share(
+        lambda: et.optimize_whitening(X, flow, nbatches=4, nepochs=1,
+                                      mesh=mesh, batch_axis="batch"), 4)
+    rel = None
+    if reference:
+        ref = et.optimize_whitening(X, flow, nbatches=MESH_WHITEN["nbatches"],
+                                    nepochs=epochs).negll_history.cpu()
+        rel = rel_diff(hist, ref)
+        check(rel <= SLICE_RTOL, f"{tag} whitening: history {rel:.3e} from "
+              f"the unsharded fused run")
+    print(f"{tag} whitening: flagship d=2, batch {X.shape[0] // 4} "
+          f"({X.shape[0] // 4 // mesh.shape['batch']} a rank), {steps} steps:"
+          f" launches a rank {launches}; history {hist[-1].item():.5f} last"
+          f"{'' if rel is None else f', max rel diff {rel:.3e} from the unsharded fused run'}"
+          f"; ms a step {step_ms:.3f}, profiled {wall:.3f} of which "
+          f"collectives {coll:.3f} ({100 * share:.1f}%); params equal on "
+          f"every rank [{card}]", flush=True)
+    return launches, dict(step_ms=step_ms, profiled_ms=wall,
+                          collective_ms=coll)
+
+
+def mesh_vi_run(et, logp, flow, dim, pairs, seed, device, mesh=None,
+                reorder=None, **kw):
+    """``optimize_elbo`` for MESH_VI's steps of ``pairs`` antithetic pairs
+    from a generator seeded ``seed``; with ``reorder``, the single-process
+    fused route with each step's rows in another order."""
+    from enflows_tpu_torch.train import vi as VI
+
+    key = torch.Generator(device=device).manual_seed(seed)
+    if mesh is not None:
+        return et.optimize_elbo(logp, flow, dim=dim, batch_size=pairs,
+                                nsteps=MESH_VI["steps"], key=key, mesh=mesh,
+                                batch_axis="batch", **kw).nelbo_history.cpu()
+    if reorder is None:
+        return et.optimize_elbo(logp, flow, dim=dim, batch_size=pairs,
+                                nsteps=MESH_VI["steps"], key=key,
+                                **kw).nelbo_history.cpu()
+
+    def draws(generator, step, batch_size, d, dtype, dev):
+        xi = VI._base_draws(generator, step, batch_size, d, dtype, dev)
+        return xi[torch.randperm(batch_size, generator=reorder, device=dev)]
+    return VI._fit(logp, flow, kw.get("optimizer"), draws, dim=dim,
+                   batch_size=pairs, nsteps=MESH_VI["steps"],
+                   antithetic=True, key=key, opt_state=None,
+                   nelbo_history=None, dtype=torch.float32,
+                   use_fused_coupling=None, stl=False).nelbo_history.cpu()
+
+
+def mesh_vi(et, EW, C, mesh, device, card, tag, reference):
+    """Flow-VI on ``mesh``: the default template at d=50 (B1 + B2 a rank a
+    step) and the affine coupling template at d=64 (B4 + B5 a rank a step;
+    ``MESH_VI['pairs_coupling']`` pairs, so that each rank's rows keep the
+    kernels by the row rule at two ranks). Held to the single-process fused
+    run on the same draws: elementwise within ``SLICE_RTOL``, coupling by
+    the noise rule (the noise: the single-process route on rows reordered
+    within each step). Returns {path: launches}."""
+    from enflows_tpu_torch.utils import assert_replicated_consistent
+
+    gen = torch.Generator(device=device).manual_seed(60)
+    out = {}
+    ranks = mesh.shape["batch"]
+    for kind in ("elementwise", "affine"):
+        d = 50 if kind == "elementwise" else BASELINE["dim"]
+        logp = vi_target(et, d, gen, device)
+        if kind == "elementwise":
+            flow = et.default_flow_template(d, gen)
+            pairs, kw = MESH_VI["pairs_ew"], {}
+            want = dict(fwd=MESH_VI["steps"], bwd=MESH_VI["steps"])
+        else:
+            flow = et.coupling_flow_template(
+                BASELINE["n_layers"], BASELINE["hidden"], kind=kind)(d, gen)
+            pairs = MESH_VI["pairs_coupling_rank"] * ranks
+            kw = dict(optimizer=adam)
+            want = dict(coupling_fwd=MESH_VI["steps"],
+                        coupling_bwd=MESH_VI["steps"])
+        reset_launches(EW.LAUNCHES, C.LAUNCHES)
+        hist = mesh_vi_run(et, logp, flow, d, pairs, 61, device, mesh, **kw)
+        launches = {k: v for k, v in mesh_counts(EW.LAUNCHES,
+                                                  C.LAUNCHES).items() if v}
+        check(launches == want, f"{tag} vi {kind}: launches a rank "
+              f"{launches}, not {want}")
+        check(bool(torch.isfinite(hist).all()) and hist[-1] < hist[0],
+              f"{tag} vi {kind}: history {hist.tolist()}")
+        assert_replicated_consistent(hist, f"vi {kind}")
+        rule = "not held on this rank"
+        if reference:
+            ref = mesh_vi_run(et, logp, flow, d, pairs, 61, device, **kw)
+            if kind == "elementwise":
+                rel = rel_diff(hist, ref)
+                check(rel <= SLICE_RTOL, f"{tag} vi {kind}: {rel:.3e} from "
+                      f"the unsharded fused run")
+                rule = f"max rel diff {rel:.3e} (limit {SLICE_RTOL:.0e})"
+            else:
+                others = [mesh_vi_run(
+                    et, logp, flow, d, pairs, 61, device,
+                    reorder=torch.Generator(device=device).manual_seed(62),
+                    **kw)]
+                gate = NoiseGate.of(hist, ref, others)
+                gate.check(f"{tag} vi {kind}", ref="the unsharded fused run")
+                rule = f"against the unsharded fused run {gate}"
+        print(f"{tag} vi {kind}: d={d}, {2 * pairs} rows a step "
+              f"({2 * pairs // ranks} a rank), {MESH_VI['steps']} steps: "
+              f"launches a rank {launches}; nELBO "
+              f"{hist[0].item():.4f} -> {hist[-1].item():.4f}; {rule} "
+              f"[{card}]", flush=True)
+        out[kind] = launches
+    return out
+
+
+def mesh_smc(et, EW, mesh, device, card, tag, cfg):
+    """``smc_sample_sharded`` with the default transport: ``cfg`` 'mixture'
+    (the 100-D mixture at 32,768 particles, [smc transport]'s gates) or
+    '2d' (bench_smc.py's 2-D transport configuration, held against the
+    unsharded run on the same generator: log Z within 0.1, the mean within
+    0.05, a ladder within 3 temperatures of it). Exactly T (nsteps + 1) B1
+    and T nsteps B2 a rank. Returns the rank's launches."""
+    from enflows_tpu_torch.parallel import gather_chains
+    from enflows_tpu_torch.smc.flow_transport import default_template
+
+    if cfg == "mixture":
+        target, dim, n, nsteps, seed = (smc_mixture, SMC["dim"],
+                                        SMC["particles"], SMC["nsteps"], 63)
+        kw = dict(mutation_steps=SMC["mutation_steps"],
+                  leapfrog_steps=SMC["leapfrog_steps"])
+    else:
+        target, dim, n, nsteps, seed = (smc_gauss_2d, 2, SMC_2D["particles"],
+                                        SMC_2D["nsteps"], 64)
+        kw = {}
+    reset_launches(EW.LAUNCHES)
+    t0 = time.perf_counter()
+    parts, lw, logz, infos = et.parallel.smc_sample_sharded(
+        target, torch.Generator(device=device).manual_seed(seed), mesh,
+        dim=dim, num_particles=n, axis_name="batch",
+        transport_template_fn=default_template, transport_steps=nsteps, **kw)
+    launches = mesh_counts(EW.LAUNCHES)
+    wall = time.perf_counter() - t0
+    smc_launch_check(f"{tag} smc {cfg}", launches, len(infos), nsteps)
+    parts, lw = gather_chains(parts, mesh, "batch"), gather_chains(
+        lw, mesh, "batch")
+    if cfg == "mixture":
+        err, frac = smc_mixture_gates(f"{tag} smc", parts, lw, logz, infos)
+        detail = f"log Z error {err:.4f}, mass with x_0 > 0 {frac:.4f}"
+    else:
+        true_logz = math.log(2 * math.pi * 0.25)
+        _, mean, _ = weighted_moments(parts, lw)
+        ref = smc_run(et, target, dim, n, torch.Generator(
+            device=device).manual_seed(seed), (EW.LAUNCHES,),
+            et.smc.make_transport_fitter(et.std_normal_logpdf_sum, target,
+                                         nsteps=nsteps))
+        check(abs(float(logz) - true_logz) < 0.1 and float(
+            (mean - torch.tensor([3.0, -2.0], device=device,
+                                 dtype=torch.float64)).abs().max()) < 0.05,
+              f"{tag} smc 2d: log Z {float(logz):.4f}, mean {mean.tolist()}")
+        check(abs(len(infos) - len(ref[3])) <= 3,
+              f"{tag} smc 2d: {len(infos)} temperatures, unsharded "
+              f"{len(ref[3])}")
+        detail = (f"log Z {float(logz):.4f} (unsharded {float(ref[2]):.4f},"
+                  f" truth {true_logz:.4f}), {len(ref[3])} temperatures "
+                  f"unsharded")
+    print(f"{tag} smc {cfg}: {n} particles x d={dim} ({n // mesh.shape['batch']}"
+          f" a rank), default transport nsteps={nsteps}: {len(infos)} "
+          f"temperatures in {wall:.3f} s ({wall * 1e3 / len(infos):.1f} ms a "
+          f"temperature); launches a rank {launches}; {detail} [{card}]",
+          flush=True)
+    return launches
+
+
+def mesh_resampler(et, mesh, device, card, tag):
+    """The resampler's two exchanges on the same weights: the same rows."""
+    gen = torch.Generator(device=device).manual_seed(65)
+    n, dim = SMC["particles"], SMC["dim"]
+    lw = 2.0 * torch.randn(n, generator=gen, device=device)
+    parts = torch.randn(n, dim, generator=gen, device=device)
+    lo, hi = et.parallel.block_range(n, mesh.axis("batch"))
+    rows = {m: et.parallel.sharded_systematic_resample(
+        torch.Generator(device=device).manual_seed(66), lw[lo:hi],
+        parts[lo:hi], mesh.axis("batch"), m) for m in ("gather", "ring")}
+    check(torch.equal(rows["gather"], rows["ring"]),
+          f"{tag} resampler: ring and gather rows differ")
+    print(f"{tag} resampler: {n} x d={dim}, gather and ring give the same "
+          f"{hi - lo} rows a rank [{card}]", flush=True)
+
+
+def mesh_event(et, EW, mesh, device, card, tag):
+    """``event_sharded_forward_and_ladj`` of an elementwise chain at
+    MESH_EVENT's shape, the rank's columns through B1, within [B1]'s gate
+    of the single-process B1 on all columns."""
+    gen = torch.Generator(device=device).manual_seed(67)
+    d, n = MESH_EVENT["dim"], MESH_EVENT["n"]
+    vec = lambda v: torch.full((d,), v, device=device)
+    chain = et.compose(
+        et.Johnson(vec(0.0), vec(5.0), vec(0.0), vec(5.0)),
+        et.ScaleShift(torch.linspace(0.5, 2.0, d, device=device), vec(0.0)),
+        et.invert(et.CenterStretch(vec(0.5), vec(1.0), vec(0.0))))
+    x = torch.randn(n, d, generator=gen, device=device)
+    dmesh = et.parallel.make_mesh({"dim": mesh.shape["batch"]},
+                                  device=device)
+    run = et.parallel.event_sharded_forward_and_ladj(chain, dmesh)
+    xl = et.parallel.shard_event_batch(x, dmesh)
+    reset_launches(EW.LAUNCHES)
+    y, ladj = run(xl)
+    launches = mesh_counts(EW.LAUNCHES)
+    check(launches == dict(fwd=1, bwd=0, negll=0),
+          f"{tag} event: launches {launches}")
+    with torch.no_grad():
+        y1, l1 = EW.fused_forward_and_ladj(chain, x)
+    lo, hi = et.parallel.block_range(d, dmesh.axis("dim"))
+    ey, el = max_abs(y, y1[:, lo:hi]), max_abs(ladj, l1)
+    check(torch.allclose(y, y1[:, lo:hi], rtol=Y_TOL, atol=Y_TOL) and
+          torch.allclose(ladj, l1, rtol=LADJ_TOL, atol=LADJ_TOL),
+          f"{tag} event: y {ey:.3e}, ladj {el:.3e} from the single B1")
+    print(f"{tag} event-sharded forward: d={d}, n={n}, {hi - lo} columns a "
+          f"rank through B1: launches a rank {launches}; max abs diff from "
+          f"the single-process B1 y {ey:.3e}, ladj {el:.3e} [{card}]",
+          flush=True)
+    return launches
+
+
+def mesh_nuts_infer(et, mesh, device, card, tag):
+    """``sample_sharded`` NUTS and ``infer(mesh=)`` on the 2-D example
+    target, each against the unsharded call on the same generator."""
+    logp = et.FlowDistribution(example_2d_flow(et, device)).requires_grad_(
+        False).logpdf
+    kw = dict(dim=2, num_chains=MESH_NUTS["chains"],
+              num_warmup=MESH_NUTS["warmup"],
+              num_samples=MESH_NUTS["samples"])
+    g = lambda: torch.Generator(device=device).manual_seed(68)
+    d1, _, s1 = et.mcmc.sample(logp, g(), device=device, **kw)
+    d2, _, s2 = et.parallel.sample_sharded(logp, g(), mesh,
+                                           axis_name="batch", **kw)
+    e = max_abs(d1, d2)
+    check(e <= 1e-5 and float(s1.step_size) == float(s2.step_size),
+          f"{tag} nuts: draws {e:.3e} from the unsharded run")
+    r1 = et.infer(logp, key=g(), precondition=None, **kw)
+    r2 = et.infer(logp, key=g(), precondition=None, mesh=mesh, **kw)
+    ei = max_abs(r1.draws, r2.draws)
+    check(ei <= 1e-5 and bool(torch.isfinite(r2.draws).all()),
+          f"{tag} infer: draws {ei:.3e} from the unsharded call")
+    print(f"{tag} nuts: {kw['num_chains']} chains x "
+          f"{kw['num_warmup']} + {kw['num_samples']}, max abs diff from the "
+          f"unsharded sample {e:.3e}, step size {float(s2.step_size):.4f}; "
+          f"infer(mesh=) draws {ei:.3e} from infer(), rhat "
+          f"{r2.diagnostics['rhat'].max():.4f} [{card}]", flush=True)
+
+
+def mesh_child(phase, rank, world, init, outfile, go=None):
+    """One rank of a mesh phase (``python3 chip_smoke.py --mesh-child``):
+    join the group, make the data, warm the path up (a whitening epoch on a
+    small batch: the kernels' first launches and the group's first
+    collectives), wait for the file ``go`` if one is named (the parent
+    starts these ranks early and lets them go once the phase before has
+    ended), run the phase, write its counts to ``outfile``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import enflows_tpu_torch as et
+    from enflows_tpu_torch import parallel as P
+    from enflows_tpu_torch.ops import coupling as C
+    from enflows_tpu_torch.ops import elementwise as EW
+    from enflows_tpu_torch.ops._build import load_library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    load_library()
+    card = nvidia_smi_line()
+    backend = "nccl" if phase == "nccl" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{init}",
+                            world_size=world, rank=rank)
+    tag = f"[mesh {backend} w{world} r{rank}]"
+    mesh = P.make_mesh({"batch": world}, device=device)
+    ref = rank == 0
+    out = {"launches": {}, "times": {}}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    f_true, _ = example_2d(et, gen, device)
+    with torch.no_grad():
+        X = f_true(torch.randn(MESH_WHITEN["rows"], 2, generator=gen,
+                               device=device))
+    flow = flagship_flow(et, 2, gen, device)
+    et.optimize_whitening(X[:1 << 14], flow, nbatches=4, nepochs=1,
+                          mesh=mesh, batch_axis="batch")
+    torch.cuda.synchronize()
+    P.COLLECTIVES.clear()
+    P.STAGED.clear()
+    if go is not None:
+        while not os.path.exists(go):
+            time.sleep(0.01)
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        result = fn()
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return result
+
+    epochs = MESH_WHITEN["epochs_w1" if world == 1 else "epochs_w2"]
+    out["launches"]["whitening"], out["times"]["whitening"] = timed(
+        "whitening", lambda: mesh_whitening(et, EW, mesh, X, flow, epochs,
+                                            card, tag, ref))
+    vi = timed("vi", lambda: mesh_vi(et, EW, C, mesh, device, card, tag,
+                                     ref))
+    out["launches"].update({f"vi {k}": v for k, v in vi.items()})
+    if phase == "nccl":
+        out["launches"]["smc 2d"] = timed("smc", lambda: mesh_smc(
+            et, EW, mesh, device, card, tag, "2d"))
+        timed("nuts+infer", lambda: mesh_nuts_infer(et, mesh, device, card,
+                                                    tag))
+    else:
+        out["launches"]["smc mixture"] = timed("smc", lambda: mesh_smc(
+            et, EW, mesh, device, card, tag, "mixture"))
+        timed("resampler", lambda: mesh_resampler(et, mesh, device, card,
+                                                  tag))
+        out["launches"]["event"] = timed("event", lambda: mesh_event(
+            et, EW, mesh, device, card, tag))
+    out["collectives"] = dict(P.COLLECTIVES)
+    out["staged"] = dict(P.STAGED)
+    out["seconds"] = time.perf_counter() - t0
+    check(sum(P.COLLECTIVES.values()) > 0, f"{tag}: no collective ran")
+    if backend == "nccl":
+        check(not P.STAGED, f"{tag}: staged under NCCL {dict(P.STAGED)}")
+    print(f"{tag} collectives launched {dict(P.COLLECTIVES)}; staged "
+          f"through the host (STAGED) {dict(P.STAGED)}; {out['seconds']:.1f} s"
+          f" after the warm-up, by part {seconds} [{card}]", flush=True)
+    with open(outfile, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def start_mesh_children(phase, world, root, go=None):
+    """Start the ``world`` ranks of ``phase`` together; returns (processes,
+    their output files)."""
+    init = os.path.join(root, f"{phase}.init")
+    outs = [os.path.join(root, f"{phase}.r{r}.json") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", phase,
+         str(r), str(world), init, outs[r]] + ([go] if go else []),
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    return procs, outs
+
+
+def wait_mesh_children(phase, procs, outs, deadline):
+    """Wait for the ranks until ``deadline`` (killing every one left then),
+    print their output and fail if any failed. Returns each rank's
+    counts."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for log in logs:
+        print(log.rstrip(), flush=True)
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * len(procs), f"[mesh {phase} w{len(procs)}] ranks "
+          f"exited {codes}")
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    return res
+
+
+def mesh_cli(et, device, root, card, deadline):
+    """``torchrun --nproc_per_node=1 -m enflows_tpu_torch.cli train`` with a
+    mesh (NCCL), held to the same command in this process without one;
+    the torchrun child runs while this process runs the reference."""
+    import contextlib
+    import io
+    import numpy as np
+    from enflows_tpu_torch import cli
+
+    gen = torch.Generator(device=device).manual_seed(69)
+    f_true, _ = example_2d(et, gen, device)
+    with torch.no_grad():
+        X = f_true(torch.randn(MESH_CLI["rows"], 2, generator=gen,
+                               device=device))
+    data = os.path.join(root, "mesh_cli.npz")
+    np.savez(data, X=X.cpu().numpy())
+    argv = ["train", "--data", data, "--flow.dim=2",
+            f"--flow.stages={json.dumps(CLI_STAGES)}",
+            f"--train.nbatches={MESH_CLI['nbatches']}",
+            f"--train.nepochs={MESH_CLI['epochs']}"]
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+         "--master_addr=127.0.0.1", f"--master_port={port}", "-m",
+         "enflows_tpu_torch.cli", *argv, '--mesh.axes={"batch": 1}'],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(argv) == 0, "[mesh cli] unsharded run")
+        stdout, stderr = p.communicate(
+            timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    want = buf.getvalue().strip().splitlines()[-1]
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"[mesh cli] torchrun exited {p.returncode}: "
+          f"{stderr[-3000:]}")
+    got = stdout.strip().splitlines()[-1]
+    check(got == want, f"[mesh cli] torchrun printed {got!r}, unsharded "
+          f"{want!r}")
+    print(f"[mesh cli] torchrun --nproc_per_node=1 -m enflows_tpu_torch.cli "
+          f"train --mesh.axes='{{\"batch\": 1}}' (NCCL): {got} as the "
+          f"unsharded command, {wall:.1f} s [{card}]", flush=True)
+
+
+def mesh_phases(et, device, card):
+    """[mesh nccl w1] beside the torchrun CLI, then [mesh gloo w2], whose
+    ranks start (and warm up) beside [mesh nccl w1] and run once it has
+    ended. Returns each path's launches summed over the ranks, and the
+    step times."""
+    import tempfile
+
+    paths, times = {}, {}
+    t_start = time.perf_counter()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    with tempfile.TemporaryDirectory() as root:
+        go = os.path.join(root, "gloo.go")
+        nccl = start_mesh_children("nccl", 1, root)
+        gloo = start_mesh_children("gloo", 2, root, go)
+        try:
+            mesh_cli(et, device, root, card, deadline)
+            results = {"nccl": wait_mesh_children("nccl", *nccl, deadline)}
+            print(f"[time] [mesh nccl w1] {time.perf_counter() - t_start:.1f}"
+                  f" s, the torchrun CLI beside it [{card}]", flush=True)
+            t0 = time.perf_counter()
+            open(go, "w").close()
+            results["gloo"] = wait_mesh_children("gloo", *gloo, deadline)
+            print(f"[time] [mesh gloo w2] {time.perf_counter() - t0:.1f} s "
+                  f"after its warm-up [{card}]", flush=True)
+        finally:
+            for p in nccl[0] + gloo[0]:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    for phase, res in results.items():
+        world = len(res)
+        for r in res:
+            for path, counts in r["launches"].items():
+                key = f"mesh {phase} w{world} {path}"
+                paths.setdefault(key, {})
+                for k, v in counts.items():
+                    paths[key][k] = paths[key].get(k, 0) + v
+        times[phase] = [r["times"] for r in res]
+    check(all(r["collectives"] and not r["staged"] for r in results["nccl"]),
+          f"[mesh nccl w1] collectives {results['nccl'][0]['collectives']}")
+    print(f"[time] mesh phases {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]", flush=True)
+    return paths, times
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5671,7 +6242,7 @@ def main():
         gen, device, smi))
     _, hmc_example_launches = hmc_route(
         et, TL, "examples/fused_pushforward_hmc.py", example_d8(
-            et, gen, device), 8, 256, 200, 500,
+            et, gen, device), 8, 256, 200, 250,
         torch.Generator(device=device).manual_seed(4), smi)
     hmc_t = hmc_timing(TL, target.whiten, res.stats.step_size, gen, device,
                        smi)
@@ -5711,6 +6282,14 @@ def main():
     # profiler's kernel ranges and the heartbeat.
     cli_paths, cli_times = cli_phases(et, EW, counters, device, smi)
 
+    # The multi-device layer: a rank a child process, NCCL at one rank,
+    # then two ranks sharing the card over gloo; the torchrun CLI.
+    mesh_paths, _ = mesh_phases(et, device, smi)
+
+    def mesh_launches(key):
+        return {f"{path} (summed over ranks)": n[key]
+                for path, n in mesh_paths.items() if n.get(key)}
+
     def infer_paths(key):
         return {path: n[key] for path, n in infer_runs.items() if n[key]}
 
@@ -5723,7 +6302,7 @@ def main():
                       "vi elementwise stl (d=50, n=2^17)": vi_ew[True][key],
                       "vi example (d=1, n=200)": vi_ex[key],
                       **smc_paths[key], **infer_paths(key),
-                      **cli_paths[key]}
+                      **cli_paths[key], **mesh_launches(key)}
                 for key in ("fwd", "bwd")}
     b2 = {**b2, **{f"{k}_d50": b2_d50[k]
                    for k in ("ms", "plain_ms", "bound_ms")}}
@@ -5747,7 +6326,8 @@ def main():
              f"{pallas}:642", b2),
             ("B3 fused_negll_value_and_grad",
              {"whitening slice (d=2, n=2^20)": launches["negll"],
-              **infer_paths("negll"), **cli_paths["negll"]}, src,
+              **infer_paths("negll"), **cli_paths["negll"],
+              **mesh_launches("negll")}, src,
              f"{pallas}:853", b3)]
     csrc = "enflows_tpu_torch/ops/csrc/coupling.cu"
     cpallas = "enflows_tpu/ops/pallas/coupling.py"
@@ -5758,7 +6338,8 @@ def main():
                           f"(d=64, n=2^17)": n_l[key]
                           for stl, n_l in vi_c[k].items()},
                        # every infer rung and rescue fits a spline template
-                       **(infer_paths(key) if k == "spline" else {})}
+                       **(infer_paths(key) if k == "spline" else {}),
+                       **(mesh_launches(key) if k == "affine" else {})}
                  for key in ("coupling_fwd", "coupling_bwd")}
         t = vi_tiles[k]
         yard = {b: {f"{key}_vi_template": v[key] for key in
@@ -5811,4 +6392,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-child"]:
+        a = sys.argv[2:]
+        mesh_child(a[0], int(a[1]), int(a[2]), a[3], a[4], *a[5:])
+    else:
+        main()

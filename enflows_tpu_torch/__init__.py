@@ -20,7 +20,11 @@ annealing transports (fitted and applied through B1/B2 on the card), with
 ``precondition="auto"`` ladder with its SMC rescue, ``data=`` and
 ``refine_rounds``; and the run utilities (``utils``: checkpoint/resume,
 ``run_checkpointed``, metrics streams, profiler ranges, NaN guards, run
-configs) with the CLI, ``python -m enflows_tpu_torch.cli``. The kernels
+configs) with the CLI, ``python -m enflows_tpu_torch.cli``; and the
+multi-device layer (``parallel``: ``torch.distributed`` meshes and
+collectives, sharded SMC with the distributed resampler and data-parallel
+transports, sharded NUTS/HMC/ChEES, event sharding) with ``mesh=`` in the
+trainers, ``infer``, the checkpoints and the CLI. The kernels
 are written in CUDA C++ for Hopper and built at first use. The package
 imports ``torch`` and never ``jax``; ``interop`` carries weights over from
 the JAX package without importing it.
@@ -43,5 +47,6 @@ from .infer import (InferenceResult, coupling_flow_template,
                     default_flow_template, infer, summarize_draws)
 from .train import (VIResult, WhiteningResult, mvnormal_negll, neg_elbo,
                     neg_elbo_stl, optimize_elbo, optimize_whitening)
+from . import parallel
 
 __version__ = "0.1.0"

@@ -10,6 +10,13 @@ names a per-sample log density, (dim,) -> scalar, written in torch, which
 the CLI batches with ``mcmc.per_sample``; ``--data`` an (n, dim) .npz/.npy
 array for the whitening objective. Everything runs on the card; ``--cpu``
 runs it on the CPU. The printed lines are the JAX CLI's.
+
+``--mesh.axes='{"batch": N}'`` trains the whitening objective data-parallel
+over the mesh's first axis, N ranks, one process a rank started by
+``torchrun`` (each on ``cuda:{LOCAL_RANK}``, NCCL; with ``--cpu``, gloo):
+
+    torchrun --nproc_per_node=N -m enflows_tpu_torch.cli train \
+        --mesh.axes='{"batch": N}' ...
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ def _demo_data(cfg, gen, dtype, device):
                                  dtype=dtype, device=device))
 
 
-def cmd_train(cfg, device):
+def cmd_train(cfg, device, mesh=None):
     from .distributions import std_normal_logpdf_sum
     from .train import optimize_elbo, optimize_whitening
     from .utils import MetricsLogger, build_flow, save_checkpoint
@@ -80,7 +87,10 @@ def cmd_train(cfg, device):
         res = optimize_whitening(X, flow, _optimizer(cfg),
                                  nbatches=cfg.train.nbatches,
                                  nepochs=cfg.train.nepochs, metrics=log,
-                                 **_checkpointing(cfg))
+                                 **_checkpointing(cfg),
+                                 **({} if mesh is None else dict(
+                                     mesh=mesh,
+                                     batch_axis=mesh.axis_names[0])))
         hist = res.negll_history
     else:
         res = optimize_elbo(std_normal_logpdf_sum, flow, _optimizer(cfg),
@@ -110,7 +120,7 @@ def _target(cfg):
     return per_sample(resolve_target(cfg.target)) if cfg.target else None
 
 
-def cmd_sample(cfg, device):
+def cmd_sample(cfg, device, mesh=None):
     from .mcmc import ess_per_dim, sample, split_rhat_per_dim
     from .smc import smc_sample
     from .utils import MetricsLogger
@@ -162,7 +172,7 @@ def _demo_target(dim, dtype, device):
     return FlowDistribution(compose(*stages)).requires_grad_(False).logpdf
 
 
-def cmd_infer(cfg, device):
+def cmd_infer(cfg, device, mesh=None):
     """``infer``: fit a transport, sample the preconditioned target and print
     the diagnostics. The target is ``--target``'s, else a warped demo."""
     from . import infer
@@ -201,7 +211,7 @@ def cmd_infer(cfg, device):
 
 def main(argv=None):
     from .utils import load_config
-    from .utils.config import check_single_device
+    from .utils.config import mesh_from_config
 
     parser = argparse.ArgumentParser(prog="enflows_tpu_torch")
     parser.add_argument("command", choices=["train", "sample", "infer"])
@@ -220,14 +230,17 @@ def main(argv=None):
         cfg.target = args.target
     if args.data:
         cfg.data_path = args.data
-    check_single_device(cfg)
     if not args.cpu and not torch.cuda.is_available():
         raise SystemExit("enflows_tpu_torch.cli: no CUDA card "
                          "(torch.cuda.is_available() is False); pass --cpu "
                          "to run on the CPU")
-    device = torch.device("cpu") if args.cpu else torch.device("cuda")
+    from .parallel import local_device
+    device = local_device(cpu=args.cpu)
+    # As in JAX, the mesh reaches the whitening trainer; the other
+    # commands run each rank's whole work.
+    mesh = mesh_from_config(cfg, device)
     return {"train": cmd_train, "sample": cmd_sample,
-            "infer": cmd_infer}[args.command](cfg, device)
+            "infer": cmd_infer}[args.command](cfg, device, mesh)
 
 
 if __name__ == "__main__":

@@ -29,7 +29,11 @@ the rescue's inverted spline) takes B4 + B5 only at batches of at least
 (``ops.coupling.coupling_batch_held``, ROADMAP C-3), so at the ladder's
 batches of 40-1,024 rows the coupling rungs and the rescue run the plain
 path.
-``mesh=`` raises ``NotImplementedError`` (ROADMAP A.10).
+``mesh=`` (a ``parallel.Mesh``) shards the pipeline over the mesh's first
+axis, one process a rank (``infer.py:280-297,457-491``): the trainers'
+batches, the chains (``parallel.sample_sharded``) or the particles
+(``parallel.smc_sample_sharded``); the probes and the rescue's SMC run
+replicated, every rank the same.
 """
 from __future__ import annotations
 
@@ -49,7 +53,6 @@ from .mcmc import FlowPushforwardTarget, flow_preconditioned, sample
 from .mcmc.diagnostics import (_host, bfmi, bulk_ess, pareto_khat,
                                rank_normalized_rhat_per_dim, tail_ess)
 from .mcmc.fused_hmc import fused_flow_hmc_sample
-from .mcmc.sample import _unported
 from .smc import smc_sample
 from .train import optimize_elbo, optimize_whitening
 
@@ -301,7 +304,7 @@ def _whitening_start(template: Bijector) -> Bijector:
 
 
 def _smc_rescue(logdensity_fn, dim, keys: _Keys, dtype, vi_optimizer,
-                whiten_batches, whiten_epochs) -> Bijector:
+                whiten_batches, whiten_epochs, mesh=None) -> Bijector:
     """The mode-covering rescue (``enflows_tpu/infer.py:391-419``): tempered
     SMC over 4096 particles from ``keys.fit(7)``, a multinomial resample by
     the weights from the same generator, then the inverted spline template
@@ -315,13 +318,22 @@ def _smc_rescue(logdensity_fn, dim, keys: _Keys, dtype, vi_optimizer,
     white = _whitening_start(coupling_flow_template(kind="spline")(
         dim, keys.fit(8), dtype))
     fit = optimize_whitening(draws, white, vi_optimizer,
-                             nbatches=whiten_batches, nepochs=whiten_epochs)
+                             nbatches=whiten_batches, nepochs=whiten_epochs,
+                             **_sharded(mesh))
     return invert(fit.result)
+
+
+def _sharded(mesh) -> dict:
+    """The trainers' keywords that shard their batches over the mesh's
+    first axis (JAX's ``batch_axis=axis``)."""
+    return {} if mesh is None else dict(mesh=mesh,
+                                        batch_axis=mesh.axis_names[0])
 
 
 def _precondition_auto(logdensity_fn, dim, keys: _Keys, method: str,
                        precondition_kind, flow_template, vi_steps, vi_batch,
-                       vi_optimizer, whiten_batches, whiten_epochs, dtype):
+                       vi_optimizer, whiten_batches, whiten_epochs, dtype,
+                       mesh=None):
     """The family ladder (``enflows_tpu/infer.py:338-444``). Each rung fits
     its template (drawn from ``keys.fit(i)``) by ``vi_steps`` ELBO steps of
     ``vi_batch`` antithetic pairs (the VI draws from ``keys.fit()``, the
@@ -338,7 +350,8 @@ def _precondition_auto(logdensity_fn, dim, keys: _Keys, method: str,
         vi = optimize_elbo(logdensity_fn,
                            template_fn(dim, keys.fit(i), dtype),
                            vi_optimizer, dim=dim, batch_size=vi_batch,
-                           nsteps=vi_steps, key=keys.fit(), dtype=dtype)
+                           nsteps=vi_steps, key=keys.fit(), dtype=dtype,
+                           **_sharded(mesh))
         sev, kh, gap = _fit_quality(logdensity_fn, vi.result, dim, keys, i,
                                     dtype)
         if best is None or sev < best[0]:
@@ -347,7 +360,7 @@ def _precondition_auto(logdensity_fn, dim, keys: _Keys, method: str,
             break
     if best[0] > 1.0 and len(ladder) > 1 and method != "smc":
         rescue = _smc_rescue(logdensity_fn, dim, keys, dtype, vi_optimizer,
-                             whiten_batches, whiten_epochs)
+                             whiten_batches, whiten_epochs, mesh)
         sev, kh, gap = _fit_quality(logdensity_fn, rescue, dim, keys, 9,
                                     dtype)
         if sev < best[0]:
@@ -369,7 +382,7 @@ def _precondition_auto(logdensity_fn, dim, keys: _Keys, method: str,
 
 def _whitening_transport(data, dim, keys: _Keys, flow_template,
                          vi_optimizer, whiten_batches, whiten_epochs,
-                         dtype) -> Bijector:
+                         dtype, mesh=None) -> Bijector:
     """``data=``'s transport (``enflows_tpu/infer.py:322-335``): the template
     (drawn from ``keys.fit()``) inverted is an identity-initialized
     whitening flow; it is fitted to ``data`` by ``optimize_whitening`` and
@@ -378,25 +391,32 @@ def _whitening_transport(data, dim, keys: _Keys, flow_template,
         dim, keys.fit(), dtype))
     x = torch.as_tensor(data).to(device=keys.device, dtype=dtype)
     fit = optimize_whitening(x, white, vi_optimizer, nbatches=whiten_batches,
-                             nepochs=whiten_epochs)
+                             nepochs=whiten_epochs, **_sharded(mesh))
     return invert(fit.result)
 
 
 def _infer_smc(target, pre, flow, gen, dim, default_particles, dtype,
-               sampler_kw, pre_diag) -> InferenceResult:
+               sampler_kw, pre_diag, mesh=None) -> InferenceResult:
     """``infer``'s SMC route (``enflows_tpu/infer.py:454-485``): the
-    particles of ``smc_sample`` on ``target``, pushed forward through the
-    preconditioner ``pre`` if any, and their weighted moments, with the
-    ladder's diagnostics ``pre_diag``."""
+    particles of ``smc_sample`` (``parallel.smc_sample_sharded`` under a
+    mesh, the moments over every rank's particles) on ``target``, pushed
+    forward through the preconditioner ``pre`` if any, and their weighted
+    moments, with the ladder's diagnostics ``pre_diag``."""
     n_particles = sampler_kw.pop("num_particles", default_particles)
-    particles, log_w, log_z, infos = smc_sample(
-        target, gen, dim=dim, num_particles=n_particles, dtype=dtype,
-        **sampler_kw)
+    if mesh is None:
+        particles, log_w, log_z, infos = smc_sample(
+            target, gen, dim=dim, num_particles=n_particles, dtype=dtype,
+            **sampler_kw)
+    else:
+        from .parallel import smc_sample_sharded
+        particles, log_w, log_z, infos = smc_sample_sharded(
+            target, gen, mesh, dim=dim, num_particles=n_particles,
+            axis_name=mesh.axis_names[0], dtype=dtype, **sampler_kw)
     if pre is not None:
         with torch.no_grad():
             particles = pre.push_forward(particles)
-    x = _host(particles, np.float64)
-    lw = _host(log_w, np.float64)
+    x = _host(_gathered(particles, mesh), np.float64)
+    lw = _host(_gathered(log_w, mesh), np.float64)
     w = np.exp(lw - lw.max())
     w /= w.sum()
     mean_w = (w[:, None] * x).sum(axis=0)
@@ -408,6 +428,31 @@ def _infer_smc(target, pre, flow, gen, dim, default_particles, dtype,
                    "weight_ess": float(1.0 / np.sum(w**2)), **pre_diag}
     return InferenceResult(draws=particles, diagnostics=diagnostics,
                            stats=infos, flow=flow)
+
+
+def _gathered(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's block of ``x`` along the mesh's first axis, or ``x``."""
+    if mesh is None:
+        return x
+    from .parallel import gather_chains
+    return gather_chains(x, mesh, mesh.axis_names[0])
+
+
+def _gathered_stats(stats, mesh):
+    """``stats`` with its per-chain fields gathered over the mesh's first
+    axis (their chain axis: 1 for the (steps, chains) fields, 0 for the
+    (chains, steps) energy)."""
+    if mesh is None:
+        return stats
+    from .parallel import gather_chains
+    axis = mesh.axis_names[0]
+    per_chain = {"accept_prob": 1, "divergent": 1, "num_steps": 1,
+                 "energy": 0}
+    return stats._replace(**{
+        k: gather_chains(getattr(stats, k), mesh, axis, dim=d)
+        for k, d in per_chain.items()
+        if isinstance(getattr(stats, k, None), torch.Tensor)
+        and getattr(stats, k).dim() == 2})
 
 
 def infer(logdensity_fn: Callable, *, dim: int, key=None,
@@ -471,12 +516,20 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     with ``data=`` the round's draws, ``key`` the round's derived generator
     and the same keywords, N times; JAX's recursion drops
     ``vi_optimizer``, the port passes it on.
+
+    ``mesh`` (a ``parallel.Mesh``, every rank calling ``infer`` with the
+    same arguments and a generator seeded the same on its device): the
+    trainers shard their batches over the mesh's first axis, the chains
+    run through ``parallel.sample_sharded`` and the particles through
+    ``parallel.smc_sample_sharded``; the probes and the rescue's SMC run
+    replicated. ``draws`` (and ``stats``' per-chain fields) are the rank's
+    block; the diagnostics are taken over every rank's draws, the same on
+    every rank. The declared-pushforward route is not taken under a mesh,
+    as in JAX.
     """
     if method not in ("nuts", "hmc", "chees", "smc"):
         raise ValueError(f"method must be 'nuts', 'hmc', 'chees' or 'smc', "
                          f"got {method!r}")
-    if mesh is not None:
-        raise _unported("mesh=", "A.10")
     gen = key if key is not None else \
         torch.Generator(device=device).manual_seed(0)
     keys = _Keys(gen)
@@ -485,7 +538,7 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     # and its trajectories run in kernel B6. The sampler draws q with density
     # N(whiten(q)) + ladj_whiten(q) == logdensity_fn(q): data space.
     if (method == "hmc" and isinstance(logdensity_fn, FlowPushforwardTarget)
-            and flow is None and data is None
+            and flow is None and data is None and mesh is None
             and logdensity_fn.fused_kernel_available(dim, dtype)
             and _fused_hmc_accepts(sampler_kw)):
         draws, _final, stats = fused_flow_hmc_sample(
@@ -501,12 +554,12 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     if used_flow is None and data is not None and precondition is not None:
         used_flow = _whitening_transport(data, dim, keys, flow_template,
                                          vi_optimizer, whiten_batches,
-                                         whiten_epochs, dtype)
+                                         whiten_epochs, dtype, mesh)
     if used_flow is None and precondition == "auto":
         used_flow, pre_diag, method, raw_sampling = _precondition_auto(
             logdensity_fn, dim, keys, method, precondition_kind,
             flow_template, vi_steps, vi_batch, vi_optimizer, whiten_batches,
-            whiten_epochs, dtype)
+            whiten_epochs, dtype, mesh)
 
     sampling_flow = None if raw_sampling else used_flow
     pre = None if sampling_flow is None else \
@@ -520,11 +573,19 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
     if method == "smc":
         return _infer_smc(target, pre, used_flow, gen, dim,
                           num_chains * num_samples, dtype, sampler_kw,
-                          pre_diag)
-    draws, _final, stats = sample(
-        target, gen, dim=dim, num_chains=num_chains, num_warmup=num_warmup,
-        num_samples=num_samples, algorithm=method, dtype=dtype,
-        device=gen.device, **sampler_kw)
+                          pre_diag, mesh)
+    if mesh is None:
+        draws, _final, stats = sample(
+            target, gen, dim=dim, num_chains=num_chains,
+            num_warmup=num_warmup, num_samples=num_samples, algorithm=method,
+            dtype=dtype, device=gen.device, **sampler_kw)
+    else:
+        from .parallel import sample_sharded
+        draws, _final, stats = sample_sharded(
+            target, gen, mesh, dim=dim, num_chains=num_chains,
+            axis_name=mesh.axis_names[0], num_warmup=num_warmup,
+            num_samples=num_samples, algorithm=method, dtype=dtype,
+            **sampler_kw)
     if pre is not None:
         with torch.no_grad():
             draws = pre.push_forward(draws)
@@ -533,14 +594,16 @@ def infer(logdensity_fn: Callable, *, dim: int, key=None,
         return infer(logdensity_fn, dim=dim, key=keys.refine(refine_rounds),
                      method=method, num_chains=num_chains,
                      num_warmup=num_warmup, num_samples=num_samples,
-                     data=draws.reshape(-1, dim), flow_template=flow_template,
+                     data=_gathered(draws, mesh).reshape(-1, dim),
+                     flow_template=flow_template,
                      vi_optimizer=vi_optimizer,
                      whiten_batches=whiten_batches,
                      whiten_epochs=whiten_epochs,
-                     refine_rounds=refine_rounds - 1, dtype=dtype,
+                     refine_rounds=refine_rounds - 1, mesh=mesh, dtype=dtype,
                      **sampler_kw)
 
-    diagnostics = summarize_draws(draws, stats)
+    diagnostics = summarize_draws(_gathered(draws, mesh),
+                                  _gathered_stats(stats, mesh))
     diagnostics.update(pre_diag)
     return InferenceResult(draws=draws, diagnostics=diagnostics,
                            stats=stats, flow=used_flow)

@@ -9,7 +9,8 @@ warmup loop reads nothing back to the host.
 All chains share one step size and one mass matrix: the dual-averaging
 statistic and the Welford moments are averaged over the chains axis before
 the update. The JAX version's ``axis_name`` (explicit collectives under
-``shard_map``) waits for the multi-device port.
+``shard_map``) is ``axis=``, a ``parallel`` mesh axis: the chains are the
+rank's block and the averages are all-reduced.
 """
 from __future__ import annotations
 
@@ -81,13 +82,22 @@ def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
     return WelfordState(mean, m2, count)
 
 
-def welford_update_batch(state: WelfordState, X: torch.Tensor
-                         ) -> WelfordState:
+def welford_update_batch(state: WelfordState, X: torch.Tensor,
+                         axis=None) -> WelfordState:
     """Add a batch of observations X (chains, dim) via Chan's parallel
-    merge."""
+    merge. ``axis`` (a ``parallel`` mesh axis, ``adaptation.py:80-105``'s
+    ``axis_name``): X is this rank's block of chains, and the batch
+    moments are taken over every rank's chains (a mean and a sum
+    all-reduced), so every rank merges the same global batch."""
     nb = X.shape[0]
     mean_b = X.mean(0)
-    m2_b = ((X - mean_b) ** 2).sum(0)
+    if axis is not None:
+        from ..parallel.collectives import pmean, psum
+        nb = nb * axis.size
+        mean_b = pmean(mean_b, axis)
+        m2_b = psum(((X - mean_b) ** 2).sum(0), axis)
+    else:
+        m2_b = ((X - mean_b) ** 2).sum(0)
     delta = mean_b - state.mean
     count = state.count + nb
     mean = state.mean + delta * nb / count

@@ -36,7 +36,7 @@ from .adaptation import (build_schedule, da_init, da_update, welford_init,
                          welford_update_batch, welford_variance)
 from ..utils.profiling import annotate
 from .hmc import (HMCState, init_state, initial_positions,
-                  metropolis_proposal, value_and_grad)
+                  metropolis_proposal, rand, randn, value_and_grad)
 
 OPTIMAL_ACCEPT = 0.651   # optimal acceptance rate for fixed-length HMC
 
@@ -108,10 +108,8 @@ def hmc_proposal_transition(value_grad_fn: Callable, state: HMCState,
 def _draws(generator, q):
     """A transition's draws: the momentum's unit normals (n, dim), then the
     acceptance uniforms (n,)."""
-    noise = torch.randn(q.shape, generator=generator, dtype=q.dtype,
-                        device=q.device)
-    u = torch.rand(q.shape[0], generator=generator, dtype=q.dtype,
-                   device=q.device)
+    noise = randn(generator, q.shape, q.dtype, q.device)
+    u = rand(generator, (q.shape[0],), q.dtype, q.device)
     return noise, u
 
 
@@ -141,16 +139,31 @@ def _num_leapfrog_steps(traj_len, step_size, max_num_steps):
     return torch.clamp(n, 1, max_num_steps)
 
 
-def _chees_grad(q0, info: ChEESInfo, traj_len):
-    """Ascent direction for log h; every mean is over the chains."""
-    dq0 = q0 - q0.mean(0)
-    dq1 = info.q_prop - info.q_prop.mean(0)
+def _chees_grad(q0, info: ChEESInfo, traj_len, axis=None):
+    """Ascent direction for log h; every mean is over the chains (over all
+    ranks' chains when ``axis``, a ``parallel`` mesh axis, is given)."""
+    dq0 = q0 - _chain_mean(q0, axis)
+    dq1 = info.q_prop - _chain_mean(info.q_prop, axis)
     c = (dq1 * dq1).sum(-1) - (dq0 * dq0).sum(-1)
     dtau = c * (dq1 * info.v_prop).sum(-1)       # d/dtau of c^2/4
     w = info.accept_prob
-    g_tau = (w * dtau).sum() / torch.clamp(w.sum(), min=1e-6)
+    sums = torch.stack([(w * dtau).sum(), w.sum()])
+    if axis is not None:
+        from ..parallel.collectives import psum
+        sums = psum(sums, axis)
+    g_tau = sums[0] / torch.clamp(sums[1], min=1e-6)
     # chain rule: tau = u * h  =>  d/dlog h = tau * d/dtau
     return g_tau * traj_len
+
+
+def _chain_mean(x, axis=None):
+    """The mean over the chains axis 0, over every rank's chains when
+    ``axis`` is given (equal blocks: the mean of the ranks' means)."""
+    m = x.mean(0)
+    if axis is None:
+        return m
+    from ..parallel.collectives import pmean
+    return pmean(m, axis)
 
 
 def _adam_ascent(adapt: ChEESAdaptState, grad, lr=0.025, b1=0.9, b2=0.999,
@@ -168,12 +181,15 @@ def chees_warmup(logdensity_fn: Callable, initial_states: HMCState,
                  generator, num_warmup: int, *, initial_step_size=0.1,
                  target_accept=OPTIMAL_ACCEPT, max_num_steps: int = 512,
                  adam_lr: float = 0.025,
-                 value_and_grad_fn: Callable | None = None
+                 value_and_grad_fn: Callable | None = None, axis=None
                  ) -> ChEESWarmupResult:
     """Joint step size, trajectory length and mass matrix adaptation
     (``chees.py:183-256``). Every per-iteration scalar (jitter, step size,
     step count, log h) is shared by the chains and stays on the device but
-    the step count, read once per iteration."""
+    the step count, read once per iteration. ``axis`` (a ``parallel`` mesh
+    axis): the chains are this rank's block, and the acceptance mean, the
+    ChEES gradient and the Welford moments are taken over every rank's
+    chains, so every rank holds the same settings."""
     q = initial_states.q
     dim, dtype, dev = q.shape[-1], q.dtype, q.device
     in_slow, window_end = build_schedule(num_warmup)
@@ -198,16 +214,16 @@ def chees_warmup(logdensity_fn: Callable, initial_states: HMCState,
             q0 = states.q
             states, info = kernel(generator, states, step_size, inv_mass,
                                   num_steps)
-            da = da_update(da, info.accept_prob.mean(),
+            da = da_update(da, _chain_mean(info.accept_prob, axis),
                            target=target_accept)
-            adapt = _adam_ascent(adapt, _chees_grad(q0, info, traj),
+            adapt = _adam_ascent(adapt, _chees_grad(q0, info, traj, axis),
                                  lr=adam_lr)
             # Keep h within [step, max_num_steps * step] so the step count
             # stays sane.
             adapt = adapt._replace(log_h=torch.clamp(
                 adapt.log_h, da.log_step, max_log_h + da.log_step))
             if in_slow[t]:
-                wf = welford_update_batch(wf, states.q)
+                wf = welford_update_batch(wf, states.q, axis=axis)
             if window_end[t]:
                 inv_mass = welford_variance(wf)
                 da = da_init(torch.exp(da.log_step), dtype)
@@ -257,7 +273,7 @@ def chees_sample(logdensity_fn: Callable, generator, *, dim: int,
                  num_samples: int = 1000, max_num_steps: int = 512,
                  initial_position=None, initial_step_size: float = 0.1,
                  target_accept: float = OPTIMAL_ACCEPT,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", axis=None):
     """ChEES-HMC: adaptive warmup then jittered fixed-length sampling.
 
     Same return contract as ``mcmc.sample``: (samples (chains, steps,
@@ -266,6 +282,8 @@ def chees_sample(logdensity_fn: Callable, generator, *, dim: int,
     chains run on: ``device`` (the card unless the caller asks for the
     CPU), or ``initial_position``'s when that is a tensor. Meant for many
     chains: the ChEES expectation is a mean over them (16 or more).
+    ``axis``: see ``chees_warmup`` (``parallel.sample_sharded`` passes it,
+    with a ``hmc.Rows`` generator and this rank's initial positions).
     """
     q0 = initial_positions(initial_position, generator, num_chains, dim,
                            dtype, device)
@@ -273,7 +291,7 @@ def chees_sample(logdensity_fn: Callable, generator, *, dim: int,
                         generator, num_warmup,
                         initial_step_size=initial_step_size,
                         target_accept=target_accept,
-                        max_num_steps=max_num_steps)
+                        max_num_steps=max_num_steps, axis=axis)
     return run_chains_chees(logdensity_fn, warm.states, generator,
                             num_samples, warm.step_size,
                             warm.trajectory_length, warm.inv_mass_diag,

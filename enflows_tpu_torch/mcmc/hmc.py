@@ -11,7 +11,11 @@ v = M^-1 p. ``step_size`` and ``inv_mass_diag`` may be device tensors, so a
 warmup loop adapts them without reading them back to the host.
 
 Random numbers come from a ``torch.Generator``; ``hmc_transition`` takes its
-draws as arguments, so a test can hand it the JAX kernel's own draws.
+draws as arguments, so a test can hand it the JAX kernel's own draws. A
+sharded sampler passes its kernels a :class:`Rows` in the generator's
+place: ``randn`` and ``rand`` then draw the chains axis at the global size
+and keep the rank's block, so the rank's chains see the draws the
+single-process run gives them.
 """
 from __future__ import annotations
 
@@ -19,6 +23,38 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+
+class Rows(NamedTuple):
+    """A generator of which a rank keeps rows ``[start, stop)`` of every
+    draw's chains axis, drawn at ``total`` rows on every rank."""
+    generator: torch.Generator
+    start: int
+    stop: int
+    total: int
+
+
+def _draw(fn, generator, shape, dtype, device, dim):
+    if not isinstance(generator, Rows):
+        return fn(tuple(shape), generator=generator, dtype=dtype,
+                  device=device)
+    full = list(shape)
+    full[dim] = generator.total
+    return fn(tuple(full), generator=generator.generator, dtype=dtype,
+              device=device).narrow(dim, generator.start,
+                                    generator.stop - generator.start)
+
+
+def randn(generator, shape, dtype, device=None, dim: int = 0):
+    """Standard normals of ``shape`` from ``generator`` (a
+    ``torch.Generator``, or :class:`Rows`: the chains axis ``dim`` drawn at
+    the global size, the rank's block kept)."""
+    return _draw(torch.randn, generator, shape, dtype, device, dim)
+
+
+def rand(generator, shape, dtype, device=None, dim: int = 0):
+    """Uniforms on [0, 1), drawn as ``randn`` draws."""
+    return _draw(torch.rand, generator, shape, dtype, device, dim)
 
 
 class HMCState(NamedTuple):
@@ -52,7 +88,7 @@ def init_state(logdensity_fn: Callable, q: torch.Tensor) -> HMCState:
 
 def sample_momentum(generator, inv_mass_diag, shape, dtype, device=None):
     """p ~ N(0, M) with M = diag(1/inv_mass_diag)."""
-    eps = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    eps = randn(generator, shape, dtype, device)
     return eps * torch.rsqrt(inv_mass_diag)
 
 
@@ -127,8 +163,7 @@ def initial_positions(initial_position, generator, num_chains: int,
     if isinstance(initial_position, torch.Tensor):
         return initial_position.to(dtype)
     if initial_position is None:
-        return 0.1 * torch.randn(num_chains, dim, generator=generator,
-                                 dtype=dtype, device=device)
+        return 0.1 * randn(generator, (num_chains, dim), dtype, device)
     return torch.as_tensor(initial_position, dtype=dtype, device=device)
 
 
@@ -143,8 +178,7 @@ def hmc_kernel(logdensity_fn: Callable, num_steps: int = 32,
         q = state.q
         p = sample_momentum(generator, inv_mass_diag, q.shape, q.dtype,
                             q.device)
-        u = torch.rand(q.shape[0], generator=generator, dtype=q.dtype,
-                       device=q.device)
+        u = rand(generator, (q.shape[0],), q.dtype, q.device)
         return hmc_transition(value_grad_fn, state, step_size, inv_mass_diag,
                               num_steps, p, u, divergence_threshold)
 

@@ -45,7 +45,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..utils.profiling import annotate
-from .hmc import HMCState, kinetic_energy, value_and_grad
+from .hmc import HMCState, kinetic_energy, rand, randn, value_and_grad
 
 # Lockstep cost of the transitions run so far: doublings, leaves (each one
 # gradient evaluation of every chain) and host reads of a stop flag.
@@ -296,40 +296,56 @@ def nuts_transition(value_grad_fn: Callable, state: HMCState, step_size,
 def _generator_draws(generator, n, dtype, device):
     """A doubling's draws from ``generator``, drawn when the doubling
     starts: one (2 + 2^depth, n) block of uniforms, whichever chains are
-    still running."""
+    still running. ``draws.doublings`` counts the doublings drawn."""
 
     def draws(depth):
-        u = torch.rand(2 + (1 << depth), n, generator=generator, dtype=dtype,
-                       device=device)
+        draws.doublings += 1
+        u = rand(generator, (2 + (1 << depth), n), dtype, device, dim=1)
         return u[0] < 0.5, u[1], u[2:]
 
+    draws.doublings = 0
     return draws
+
+
+def _catch_up(generator, draws, n, dtype, device, axis):
+    """After a sharded transition: draw (and drop) the doublings that other
+    ranks' chains went on to, so that every rank's generator stays where
+    the single-process run's is. One all-reduce a transition, at a point
+    every rank reaches once; each rank runs only its own chains' leaves."""
+    from ..parallel.collectives import pmax
+    count = torch.tensor(float(draws.doublings), device=device)
+    for depth in range(draws.doublings, int(pmax(count, axis))):
+        rand(generator, (2 + (1 << depth), n), dtype, device, dim=1)
 
 
 def nuts_kernel(logdensity_fn: Callable, max_depth: int = 10,
                 divergence_threshold: float = 1000.0,
                 extra_uturn_checks: bool = True,
-                value_and_grad_fn: Callable | None = None):
+                value_and_grad_fn: Callable | None = None, axis=None):
     """Build a one-transition NUTS kernel over all chains:
     (generator, state, step_size, inv_mass_diag) -> (state, info).
 
     ``logdensity_fn``: (n, dim) -> (n,). ``extra_uturn_checks``: Stan's
     merge-boundary conditions, on by default. ``value_and_grad_fn``:
     a batched q -> (logp, grad) that overrides autograd of
-    ``logdensity_fn``."""
+    ``logdensity_fn``. ``axis`` (a ``parallel`` mesh axis, with a
+    ``hmc.Rows`` generator): the chains are this rank's block, and each
+    transition ends with ``_catch_up``."""
     value_grad_fn = value_and_grad_fn or (
         lambda q: value_and_grad(logdensity_fn, q))
 
     def kernel(generator, state: HMCState, step_size, inv_mass_diag):
         q = state.q
-        noise = torch.randn(q.shape, generator=generator, dtype=q.dtype,
-                            device=q.device)
+        noise = randn(generator, q.shape, q.dtype, q.device)
+        draws = _generator_draws(generator, q.shape[0], q.dtype, q.device)
         with annotate("enflows.mcmc.nuts_transition"):
-            return nuts_transition(
+            out = nuts_transition(
                 value_grad_fn, state, step_size, inv_mass_diag, noise,
-                _generator_draws(generator, q.shape[0], q.dtype, q.device),
-                max_depth=max_depth,
+                draws, max_depth=max_depth,
                 divergence_threshold=divergence_threshold,
                 extra_uturn_checks=extra_uturn_checks)
+        if axis is not None:
+            _catch_up(generator, draws, q.shape[0], q.dtype, q.device, axis)
+        return out
 
     return kernel

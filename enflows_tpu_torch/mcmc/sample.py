@@ -45,11 +45,6 @@ class SampleStats(NamedTuple):
                                  # chains-leading to feed diagnostics.bfmi
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to enflows_tpu_torch "
-                               f"yet (ROADMAP {item})")
-
-
 def _divergences(info):
     div = getattr(info, "divergent", None)
     return torch.zeros((), dtype=torch.int64) if div is None else div.sum()
@@ -57,9 +52,14 @@ def _divergences(info):
 
 def window_adaptation(kernel, initial_states: HMCState, generator,
                       num_warmup: int, *, initial_step_size=0.1,
-                      target_accept=0.8, metrics=None) -> WarmupResult:
+                      target_accept=0.8, metrics=None,
+                      axis=None) -> WarmupResult:
     """Stan-style warmup. ``kernel(generator, states, step_size, inv_mass)``
-    transitions all chains of ``initial_states`` at once."""
+    transitions all chains of ``initial_states`` at once. ``axis`` (a
+    ``parallel`` mesh axis; JAX's ``axis_name``, ``sample.py:60-126``):
+    the chains are this rank's block, and the acceptance mean and the
+    Welford moments are all-reduced at every transition, so every rank
+    holds the same step size and mass matrix."""
     q = initial_states.q
     dim, dtype, dev = q.shape[-1], q.dtype, q.device
     in_slow, window_end = build_schedule(num_warmup)
@@ -72,10 +72,13 @@ def window_adaptation(kernel, initial_states: HMCState, generator,
         states, info = kernel(generator, states, step_size, inv_mass)
         # Cross-chain consensus before the update: one shared step size.
         accept_mean = info.accept_prob.mean()
+        if axis is not None:
+            from ..parallel.collectives import pmean
+            accept_mean = pmean(accept_mean, axis)
         da = da_update(da, accept_mean, target=target_accept)
         # Slow windows accumulate position moments over all chains.
         if in_slow[t]:
-            wf = welford_update_batch(wf, states.q)
+            wf = welford_update_batch(wf, states.q, axis=axis)
         # Window end: set the mass matrix, restart Welford and dual
         # averaging.
         if window_end[t]:

@@ -45,7 +45,7 @@ import torch
 
 from ..bijectors.base import Bijector
 from ..distributions.base import std_normal_logpdf_sum
-from ..mcmc.hmc import hmc_transition, init_state, value_and_grad
+from ..mcmc.hmc import hmc_transition, init_state, rand, randn, value_and_grad
 from ..train.vi import _route
 from ..utils.profiling import annotate
 
@@ -79,11 +79,11 @@ def _resample_uniform(generator, dtype, device) -> torch.Tensor:
 
 def _mutation_draws(generator, q):
     """One mutation transition's draws for all particles: the momentum's
-    unit normals (n, dim), then the acceptance uniforms (n,)."""
-    noise = torch.randn(q.shape, generator=generator, dtype=q.dtype,
-                        device=q.device)
-    u = torch.rand(q.shape[0], generator=generator, dtype=q.dtype,
-                   device=q.device)
+    unit normals (n, dim), then the acceptance uniforms (n,). A
+    ``mcmc.hmc.Rows`` generator (the sharded step's) draws them at the
+    global particle count and keeps the rank's block."""
+    noise = randn(generator, q.shape, q.dtype, q.device)
+    u = rand(generator, (q.shape[0],), q.dtype, q.device)
     return noise, u
 
 

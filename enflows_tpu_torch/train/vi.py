@@ -29,7 +29,7 @@ from ..ops.elementwise import (_grads_by_name, fused_forward_and_ladj,
                                is_fusible_chain)
 from ..utils.profiling import annotate
 from ..utils.resilience import run_chunked
-from .whitening import default_optimizer, make_train_step
+from .whitening import averaged, default_optimizer, make_train_step
 
 _LOG_2PI = 1.8378770664093453
 
@@ -227,13 +227,16 @@ def optimize_elbo(
     the uninterrupted run drew, and a chunked run equals an unchunked one
     bit for bit.
 
-    ``mesh`` (with ``batch_axis``) is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP A.10).
+    ``mesh`` (a ``parallel.Mesh``) with ``batch_axis``: data-parallel
+    ELBO (``enflows_tpu/train/vi.py:162-250``). Every rank passes the same
+    generator state; each step every rank draws the global MC batch, keeps
+    its contiguous block (the MC batch, antithetic pairs included, must
+    divide over the axis) and runs the step on it, the route chosen by the
+    rule above for the rank's rows; the nELBO and the gradients are
+    averaged over the ranks in one all-reduce and every rank runs the same
+    update, so the run follows the single-process one draw for draw and
+    the flow, the optimizer state and the history stay replicated.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "optimize_elbo(mesh=...) is not ported to enflows_tpu_torch yet "
-            "(ROADMAP A.10)")
     if key is None:
         key = torch.Generator(device="cuda").manual_seed(0)
     return _fit(logdensity_fn, initial_flow, optimizer, _base_draws,
@@ -242,25 +245,43 @@ def optimize_elbo(
                 nelbo_history=nelbo_history, dtype=dtype,
                 use_fused_coupling=use_fused_coupling, stl=stl,
                 metrics=metrics, checkpoint_every=checkpoint_every,
-                ckpt_dir=ckpt_dir)
+                ckpt_dir=ckpt_dir,
+                axis=None if mesh is None else mesh.axis(batch_axis))
 
 
 def _fit(logdensity_fn, initial_flow, optimizer, draws: Callable, *, dim,
          batch_size, nsteps, antithetic, key, opt_state, nelbo_history,
          dtype, use_fused_coupling, stl, metrics=None, checkpoint_every=None,
-         ckpt_dir=None) -> VIResult:
+         ckpt_dir=None, axis=None) -> VIResult:
     """``optimize_elbo``'s steps, each drawing its base samples as
-    ``draws(key, step, batch_size, dim, dtype, device)``."""
+    ``draws(key, step, batch_size, dim, dtype, device)``; with ``axis`` (a
+    ``parallel`` mesh axis) each rank steps on its block of every batch."""
     device = key.device
+    rows = batch_size * (2 if antithetic else 1)
+    lo, hi = 0, rows
+    if axis is not None:
+        from ..parallel.mesh import block_range
+        lo, hi = block_range(rows, axis)
     forward = _route(initial_flow, dim, dtype, device, use_fused_coupling,
-                     batch_size * (2 if antithetic else 1))
+                     hi - lo)
     loss_fn = _neg_elbo_stl if stl else _neg_elbo
 
     def value_and_grad(flow, xi):
         with torch.enable_grad():
             nelbo = loss_fn(forward, flow, logdensity_fn, xi)
             grads = _grads_by_name(flow, [nelbo])
-        return nelbo.detach(), grads
+        nelbo = nelbo.detach()
+        if stl:
+            # The standard nELBO differs from the STL value by the
+            # empirical-vs-analytic base entropy, computable from xi.
+            nb, nd = xi.shape
+            mean_log_n = (-0.5 * (xi * xi).sum() / nb
+                          - 0.5 * nd * _LOG_2PI)
+            nelbo = nelbo - mean_log_n - 0.5 * (_LOG_2PI + 1.0) * nd
+        return nelbo, grads
+
+    if axis is not None:
+        value_and_grad = averaged(value_and_grad, axis)
 
     flow = copy.deepcopy(initial_flow)
     opt = (optimizer or default_optimizer)(list(flow.parameters()))
@@ -274,14 +295,7 @@ def _fit(logdensity_fn, initial_flow, optimizer, draws: Callable, *, dim,
             xi = draws(key, i, batch_size, dim, dtype, device)
             if antithetic:
                 xi = torch.cat([xi, -xi])
-            nelbo = step(flow, xi)
-            if stl:
-                # The standard nELBO differs from the STL value by the
-                # empirical-vs-analytic base entropy, computable from xi.
-                nb, nd = xi.shape
-                mean_log_n = (-0.5 * (xi * xi).sum() / nb
-                              - 0.5 * nd * _LOG_2PI)
-                nelbo = nelbo - mean_log_n - 0.5 * (_LOG_2PI + 1.0) * nd
+            nelbo = step(flow, xi[lo:hi])
             if metrics is not None:
                 metrics.log(i, nelbo=nelbo)
             history.append(nelbo)

@@ -106,6 +106,22 @@ def make_train_step(optimizer: torch.optim.Optimizer,
     return step
 
 
+def averaged(value_and_grad: Callable, axis) -> Callable:
+    """``value_and_grad`` with the loss and every gradient averaged over the
+    ranks of ``axis`` (a ``parallel`` mesh axis) in one all-reduce: the
+    data-parallel step's consensus, after which every rank's update is the
+    same."""
+    from ..parallel.collectives import psum_flat
+
+    def reduced(flow, X):
+        value, grads = value_and_grad(flow, X)
+        names = [k for k, g in grads.items() if g is not None]
+        out = psum_flat([value] + [grads[k] for k in names], axis, mean=True)
+        return out[0], {**grads, **dict(zip(names, out[1:]))}
+
+    return reduced
+
+
 def _dispatch(flow: Bijector, dim: int, dtype, on_card: bool,
               batch_size: int):
     """``optimize_whitening``'s ``use_fused=None`` rule: True (B3) for a
@@ -134,6 +150,7 @@ def optimize_whitening(
     negll_history: torch.Tensor | None = None,
     use_fused: bool | str | None = None,
     mesh=None,
+    batch_axis: str = "batch",
     metrics=None,
     checkpoint_every: int | None = None,
     ckpt_dir: str | None = None,
@@ -177,21 +194,30 @@ def optimize_whitening(
     one (whitening draws nothing). A chunked run takes the same steps as an
     unchunked one, bit for bit.
 
-    ``mesh`` is not ported yet and raises ``NotImplementedError`` (ROADMAP
-    A.10).
+    ``mesh`` (a ``parallel.Mesh``) with ``batch_axis``: data-parallel
+    training (``enflows_tpu/train/whitening.py:160-291``). Every rank
+    passes the same ``samples``; each batch must divide over the axis, and
+    each rank runs the step on its contiguous block of every batch (B3, or
+    B4 + B5, on the card by the rule above applied to the rank's rows),
+    then the loss and the gradients are averaged over the ranks in one
+    all-reduce and every rank runs the same optimizer update, so the flow,
+    the optimizer state and the history stay replicated. The metrics get
+    one record a step on each rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "optimize_whitening(mesh=...) is not ported to enflows_tpu_torch "
-            "yet (ROADMAP A.10)")
     n, dim = samples.shape
     batch_size = n // nbatches
     batches = samples[:batch_size * nbatches].reshape(
-        nbatches, batch_size, dim).contiguous()
+        nbatches, batch_size, dim)
+    rows = batch_size
+    if mesh is not None:
+        from ..parallel.mesh import block_range
+        lo, hi = block_range(batch_size, mesh.axis(batch_axis))
+        batches, rows = batches[:, lo:hi], hi - lo
+    batches = batches.contiguous()
 
     if use_fused is None:
         use_fused = _dispatch(initial_flow, dim, samples.dtype,
-                              samples.is_cuda, batch_size)
+                              samples.is_cuda, rows)
     elif use_fused == "coupling":
         if not is_fusible_coupling_stack(initial_flow, dim, samples.dtype):
             raise ValueError('use_fused="coupling" needs a fusible coupling '
@@ -210,6 +236,8 @@ def optimize_whitening(
                       "coupling": functools.partial(
                           mvnormal_negll_grad,
                           loss_fn=mvnormal_negll_coupling)}[use_fused]
+    if mesh is not None:
+        value_and_grad = averaged(value_and_grad, mesh.axis(batch_axis))
     step = make_train_step(opt, value_and_grad)
 
     def epochs(e0: int, e1: int) -> list:

@@ -6,8 +6,8 @@ dataclasses, fields and defaults, so that one config file drives either
 package's CLI. ``build_flow`` builds the port's bijectors on a device;
 its random initializers draw from a ``torch.Generator`` seeded 0, so their
 weights differ from the JAX package's (carry them across with
-``interop.from_jax`` to compare). A mesh (``MeshConfig.axes`` other than
-``{}``) waits for the multi-device port (ROADMAP A.10).
+``interop.from_jax`` to compare). ``MeshConfig.axes`` other than ``{}``
+builds a ``parallel`` mesh over the ranks (``mesh_from_config``).
 """
 from __future__ import annotations
 
@@ -138,13 +138,19 @@ def load_config(path: Optional[str] = None,
     return cfg
 
 
-def check_single_device(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for a mesh: the multi-device paths are
-    not ported yet."""
-    if cfg.mesh.axes:
-        raise NotImplementedError(
-            f"mesh.axes={cfg.mesh.axes!r}: multi-device runs are not ported "
-            f"to enflows_tpu_torch yet (ROADMAP A.10)")
+def mesh_from_config(cfg: RunConfig, device=None):
+    """The mesh ``cfg.mesh`` describes (``enflows_tpu/cli.py:17-21``), or
+    None for ``axes = {}``: ``parallel.make_mesh(axes,
+    axis_name=cfg.mesh.axis_name)`` over the process group, joined first
+    from ``torchrun``'s environment if it is not up (NCCL on a card, gloo
+    for a CPU ``device``)."""
+    if not cfg.mesh.axes:
+        return None
+    from ..parallel import distributed_init, make_mesh
+    cpu = device is not None and torch.device(device).type == "cpu"
+    distributed_init(backend="gloo" if cpu else None)
+    return make_mesh(dict(cfg.mesh.axes), axis_name=cfg.mesh.axis_name,
+                     device=device)
 
 
 def resolve_target(spec: str):

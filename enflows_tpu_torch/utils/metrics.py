@@ -1,7 +1,9 @@
 """Structured metrics logging: a JSONL sink of per-step records.
 
-PyTorch counterpart of ``enflows_tpu/utils/metrics.py`` for one device.
-Each record is ``{"step", "time", ...}`` as JAX writes it. A record may
+PyTorch counterpart of ``enflows_tpu/utils/metrics.py``. Each record is
+``{"step", "time", ...}`` as JAX writes it. With more than one rank
+(``torch.distributed`` up), each rank writes its own file,
+``{root}.r{rank}{ext}``, as each JAX process writes ``{root}.p{i}{ext}``. A record may
 carry 0-d device tensors; they stay on the device while the record is
 pending and are read back together, in one copy a device, when the logger
 writes: every ``flush_every`` records, when ``history`` is read, and at
@@ -12,11 +14,13 @@ use ``log``.
 from __future__ import annotations
 
 import json
+import os
 import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _read(tensors: list) -> list:
@@ -45,6 +49,10 @@ class MetricsLogger:
     in place before then), a larger one a list at once."""
 
     def __init__(self, path: Optional[str] = None, flush_every: int = 1):
+        if path is not None and dist.is_available() and \
+                dist.is_initialized() and dist.get_world_size() > 1:
+            root, ext = os.path.splitext(path)
+            path = f"{root}.r{dist.get_rank()}{ext or '.jsonl'}"
         self.path = path
         self.flush_every = flush_every
         self._pending: list[dict] = []

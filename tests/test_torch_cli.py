@@ -229,12 +229,16 @@ def test_cli_precondition_kind_flag(tmp_path, capsys):
 
 def test_cli_needs_the_card_unless_asked_for_the_cpu():
     """Without ``--cpu`` the CLI runs on the card, and fails where there is
-    none; a mesh waits for ROADMAP A.10."""
+    none. A mesh runs since ROADMAP A.10: one of one rank here (two ranks
+    under torchrun: tests/test_torch_parallel_train.py); one that asks for
+    more ranks than the process has raises."""
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="pass --cpu"):
             cli.main(["train", "--flow.dim=1", "--train.nepochs=1",
                       "--train.nbatches=10"])
-    with pytest.raises(NotImplementedError, match=r"A\.10"):
+    assert cli.main(["train", "--cpu", "--flow.dim=1", "--train.nepochs=1",
+                     "--train.nbatches=10", '--mesh.axes={"batch": 1}']) == 0
+    with pytest.raises(ValueError, match="do not cover"):
         cli.main(["train", "--cpu", '--mesh.axes={"chains": 2}'])
 
 

@@ -452,7 +452,8 @@ def test_role_generators_are_derived_without_advancing_the_callers():
 # The keyword surface and the device.
 
 def test_infer_takes_every_jax_keyword_but_mesh():
-    """C-9: every keyword of JAX's infer, with JAX's defaults."""
+    """C-9: every keyword of JAX's infer, with JAX's defaults, ``mesh``
+    too since ROADMAP A.10 (the name is the one the test had before)."""
     jsig = inspect.signature(jax_infer).parameters
     tsig = inspect.signature(et.infer).parameters
     for name, p in jsig.items():
@@ -463,6 +464,7 @@ def test_infer_takes_every_jax_keyword_but_mesh():
             continue
         assert tsig[name].default == p.default, name
     assert str(tsig["dtype"].default) == "torch.float32"
+    assert "mesh" in tsig and tsig["mesh"].default is None
 
 
 @pytest.mark.parametrize("route", ["flow", "raw"])

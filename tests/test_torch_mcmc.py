@@ -411,19 +411,25 @@ def test_summarize_draws_matches_jax():
 @pytest.mark.parametrize("kw,item", [
     (dict(method="smc"), "A.9"), (dict(), "A.9"),
     (dict(data=np.random.default_rng(8).normal(size=(8, 2))), "A.9"),
-    (dict(mesh=object()), "A.10"),
+    (dict(mesh=None), "A.10"),
     (dict(precondition=None, refine_rounds=1), "A.9"),
 ])
 def test_infer_unported_routes_raise(kw, item):
-    """Of the routes that raised before ROADMAP A.9 was ported, ``mesh=``
-    (A.10) still raises; the A.9 routes (the auto transport with and
-    without SMC, ``data=``, ``refine_rounds``) run at a tiny size. The name
-    is the one the test had while all of them raised."""
+    """The routes that raised before ROADMAP A.9 and A.10 were ported run
+    at a tiny size: the A.9 routes (the auto transport with and without
+    SMC, ``data=``, ``refine_rounds``) and ``mesh=`` (A.10, a one-rank
+    mesh). The name is the one the test had while all of them raised."""
     kw = {"method": "hmc", **kw}
     logp = lambda q: -0.5 * (q * q).sum(-1)
     if item == "A.10":
-        with pytest.raises(NotImplementedError, match=item):
-            et.infer(logp, dim=2, key=torch.Generator(), **kw)
+        # Runs since A.10 was ported; a one-rank mesh samples as without.
+        kw["mesh"] = et.parallel.make_mesh(device="cpu")
+        small = dict(precondition=None, num_chains=4, num_warmup=10,
+                     num_samples=5)
+        got, want = (et.infer(logp, dim=2, key=torch.Generator()
+                              .manual_seed(2), **k, **small)
+                     for k in (kw, {"method": "hmc"}))
+        assert torch.equal(got.draws, want.draws)
         return
     tiny = dict(vi_steps=40, vi_batch=32, whiten_batches=2, whiten_epochs=1,
                 num_chains=4, num_warmup=10, num_samples=5)

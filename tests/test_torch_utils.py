@@ -188,9 +188,12 @@ def test_checkpoint_write_is_atomic(tmp_path, monkeypatch):
 
 
 def test_checkpoint_orbax_waits_for_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"A\.10"):
+    """``use_orbax=True`` raised naming ROADMAP A.10 until A.10 was ported
+    (the test keeps its name); A.10 ported the per-rank shard files, and
+    Orbax, a JAX library, has no counterpart: it still raises, saying so."""
+    with pytest.raises(NotImplementedError, match="no counterpart"):
         TU.save_checkpoint(str(tmp_path), {}, use_orbax=True)
-    with pytest.raises(NotImplementedError, match=r"A\.10"):
+    with pytest.raises(NotImplementedError, match="no counterpart"):
         TU.restore_checkpoint(str(tmp_path), {}, use_orbax=True)
 
 
@@ -797,12 +800,19 @@ def test_build_flow_identity_init():
 
 
 def test_mesh_config_waits_for_a10():
-    from enflows_tpu_torch.utils.config import check_single_device
+    """``MeshConfig`` builds a mesh since ROADMAP A.10 (the name is the
+    one the test had while it raised): none for ``axes = {}``, a mesh of
+    the world for axes that cover it, a ``ValueError`` for axes that do
+    not (two ranks asked of one process)."""
+    from enflows_tpu_torch.utils.config import mesh_from_config
 
-    check_single_device(TU.load_config())
-    with pytest.raises(NotImplementedError, match=r"A\.10"):
-        check_single_device(TU.load_config(
-            None, ['--mesh.axes={"chains": 2}']))
+    assert mesh_from_config(TU.load_config(), "cpu") is None
+    mesh = mesh_from_config(TU.load_config(
+        None, ['--mesh.axes={"batch": 1}']), "cpu")
+    assert mesh.shape == {"batch": 1} and mesh.device.type == "cpu"
+    with pytest.raises(ValueError, match="do not cover"):
+        mesh_from_config(TU.load_config(
+            None, ['--mesh.axes={"chains": 2}']), "cpu")
 
 
 def test_resolve_target_and_load_array(tmp_path):

@@ -462,14 +462,20 @@ def test_forced_fused_route_on_a_flow_it_cannot_take_raises():
     ("mesh", "A.10"), ("metrics", "A.11"), ("checkpoint_every", "A.11"),
     ("ckpt_dir", "A.11")])
 def test_unported_options_raise(option, item, tmp_path):
-    """``mesh=`` still raises, naming ROADMAP A.10; the A.11 keywords, which
-    raised until A.11 was ported, now run (tests/test_torch_utils.py holds
-    them to JAX). The name is the one the test had while all raised."""
+    """``mesh=``, which raised until ROADMAP A.10 was ported, now runs: on
+    a one-rank mesh it gives the unsharded run bit for bit
+    (tests/test_torch_parallel_train.py holds 2 and 4 ranks to JAX); the
+    A.11 keywords, which raised until A.11 was ported, also run
+    (tests/test_torch_utils.py holds them to JAX). The name is the one the
+    test had while all raised."""
     flow = et.ScaleShift(torch.ones(2), torch.zeros(2))
     if item == "A.10":
-        with pytest.raises(NotImplementedError, match=r"A\.10"):
-            optimize_elbo(_tlogp, flow, dim=2, nsteps=1,
-                          key=torch.Generator(), **{option: 1})
+        mesh = et.parallel.make_mesh({"batch": 1}, device="cpu")
+        got, want = (optimize_elbo(_tlogp, flow, dim=2, nsteps=3,
+                                   batch_size=8, key=torch.Generator()
+                                   .manual_seed(5), **kw)
+                     for kw in ({option: mesh}, {}))
+        assert torch.equal(got.nelbo_history, want.nelbo_history)
         return
     value = {"metrics": et.utils.MetricsLogger(None),
              "checkpoint_every": 1, "ckpt_dir": str(tmp_path)}[option]

@@ -158,15 +158,20 @@ def test_trainer_leaves_the_initial_flow_as_given():
 @pytest.mark.parametrize("option", ["mesh", "metrics", "checkpoint_every",
                                     "ckpt_dir"])
 def test_unported_options_raise(option, tmp_path):
-    """``mesh=`` still raises, naming ROADMAP A.10; ``metrics=``,
-    ``checkpoint_every=`` and ``ckpt_dir=``, which raised until A.11 was
-    ported, now run (tests/test_torch_utils.py holds them to JAX). The
-    name is the one the test had while all of them raised."""
+    """``mesh=``, which raised until ROADMAP A.10 was ported, now runs: on
+    a one-rank mesh it gives the unsharded run bit for bit
+    (tests/test_torch_parallel_train.py holds 2 and 4 ranks to JAX);
+    ``metrics=``, ``checkpoint_every=`` and ``ckpt_dir=``, which raised
+    until A.11 was ported, also run (tests/test_torch_utils.py holds them
+    to JAX). The name is the one the test had while all of them raised."""
     X = torch.zeros(8, 2)
     flow = et.ScaleShift(torch.ones(2), torch.zeros(2))
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match=r"A\.10"):
-            optimize_whitening(X, flow, nbatches=1, nepochs=1, mesh=1)
+        X = torch.from_numpy(_data(n=64, seed=2))
+        mesh = et.parallel.make_mesh({"batch": 1}, device="cpu")
+        got = optimize_whitening(X, flow, nbatches=2, nepochs=2, mesh=mesh)
+        want = optimize_whitening(X, flow, nbatches=2, nepochs=2)
+        assert torch.equal(got.negll_history, want.negll_history)
         return
     value = {"metrics": et.utils.MetricsLogger(None),
              "checkpoint_every": 1, "ckpt_dir": str(tmp_path)}[option]
