@@ -205,13 +205,13 @@ before it, reads them just after and fails if any kernel launched:
    and leapfrog steps an iteration;
 19. ``[nuts infer]``: ``infer(logp, method='nuts'/'chees')`` on the 2-D
    example target of benchmarks/bench_mcmc.py:35-44, raw
-   (``precondition=None``, 128 chains, 100 + 75: finite draws and the
+   (``precondition=None``, 128 chains, 100 + 40: finite draws and the
    acceptance range; its moments, min bulk ESS and max rhat are printed
    but not gated, since raw chains do not cross the target's modes) and
    through its exact transport (``flow=``, 128 chains, 100 + 100: mean
    within 0.1 sd, sd within 10% of Monte-Carlo truth); then
    ``infer(target, method='nuts', precondition=None)`` on the BASELINE
-   pushforward at 1024 chains, 100 + 100, through ``mcmc.sample``, with no
+   pushforward at 1024 chains, 100 + 50, through ``mcmc.sample``, with no
    B6 launch;
 20. ``[nuts timing]`` / ``[chees timing]``: 20 warm transitions from the
    slice's final states at its adapted settings (host clock): ms a
@@ -275,7 +275,7 @@ from generators of its own:
    the family and the launches gated, the moments printed;
    ``[infer elementwise 50d]``: the same with
    ``precondition_kind='elementwise'`` and the configuration's NUTS at
-   max_depth 10, cut to 150 + 150, over 32 chains: 500 B1 and 500 B2, the
+   max_depth 10, cut to 150 + 300, over 32 chains: 500 B1 and 500 B2, the
    mean within 0.1 and the sd within 10% of 1 in every dimension, rhat <
    1.05; divergences printed (C-12);
 29. ``[infer escalation 2d]``: tests/test_infer.py's bimodal target
@@ -354,9 +354,11 @@ The run utilities and the CLI run after 33 (``cli_phases``):
    card), and running through with the default probe.
 
 The multi-device layer runs after 37 (``mesh_phases``), a rank a child
-process (``python3 chip_smoke.py --mesh-child``, all of a phase started
-together under ``MESH_TIMEOUT``; a rank that fails fails the script), each
-run with the launch counters set to 0 just before it and read just after:
+process (``python3 chip_smoke.py --mesh-child``, every rank started
+together under ``MESH_TIMEOUT``; a rank that fails fails the script). The
+ranks warm up beside the torchrun CLI of 38; then each phase runs alone
+on the card, each run with the launch counters set to 0 just before it
+and read just after:
 
 38. ``[mesh nccl w1]``: one rank, NCCL on cuda:0: the whitening slice's
    trainer on a mesh (12 B3), flow-VI on a mesh (the default template at
@@ -368,7 +370,7 @@ run with the launch counters set to 0 just before it and read just after:
    whitening and elementwise histories within 1e-4, the coupling one by
    the noise rule, the 2-D SMC by tests/test_smc.py's gates and a ladder
    within 3 temperatures, the NUTS draws within 1e-5); NCCL collectives
-   counted, none staged; then ``torchrun --nproc_per_node=1 -m
+   counted, none staged; and, before it, ``torchrun --nproc_per_node=1 -m
    enflows_tpu_torch.cli train --mesh.axes='{"batch": 1}'`` printing the
    unsharded command's final loss;
 39. ``[mesh gloo w2]``: two ranks sharing cuda:0 over gloo: the whitening
@@ -383,8 +385,11 @@ run with the launch counters set to 0 just before it and read just after:
    event-sharded forward of an elementwise chain at d=64, n=2^20 (32
    columns a rank, one B1) within [B1]'s gate of the single-process B1;
    the collectives launched and those staged through the host (STAGED).
-   Each rank prints its ms a whitening step and the collectives' share
-   of it (``torch.profiler``, the ``enflows.parallel.*`` ranges).
+   Each rank of 38 and 39 prints its ms a whitening step and the
+   collectives' share of it (``torch.profiler``): under NCCL the device
+   time of the NCCL kernels against the unprofiled step, under gloo the
+   host time inside the ``enflows.parallel.*`` ranges against the
+   profiled step.
 
 The script ends with its total time, the kernels line (each kernel's
 launches summed over every main-path run, by path, the mesh paths summed
@@ -2700,14 +2705,15 @@ def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
 # the plain whitening chain) and the tree bookkeeping.
 
 TREE = dict(chains=8192, warmup=200, samples=100)
-# The raw target at 100 + 75 (BASELINE.md:34's row runs 500 + 1000; cut to
+# The raw target at 100 + 40 (BASELINE.md:34's row runs 500 + 1000; cut to
 # 250 + 500 to keep the script near 400 s with the SMC phases, to 100 + 150
-# to keep it under 950 s with the CLI phases, and to 100 + 75 for the mesh
+# to keep it under 950 s with the CLI phases, and to 100 + 40 for the mesh
 # phases; its moments are not gated); the flow= route at 100 + 100 (200 +
-# 300 before the CLI phases).
-INFER_2D = dict(chains=128, warmup=100, samples=75)         # raw target
+# 300 before the CLI phases). The pushforward through infer at 100 + 50
+# (100 + 100 before the mesh phases; its moments are not gated).
+INFER_2D = dict(chains=128, warmup=100, samples=40)         # raw target
 INFER_2D_FLOW = dict(chains=128, warmup=100, samples=100)   # flow= route
-INFER_PUSHFORWARD = dict(chains=1024, warmup=100, samples=100)
+INFER_PUSHFORWARD = dict(chains=1024, warmup=100, samples=50)
 TREE_ACCEPT = {"nuts": (0.6, 1.0), "chees": (0.45, 0.95)}  # test_chees.py:51
 
 
@@ -2774,7 +2780,7 @@ def tree_slice(et, NU, algorithm, target, dim, counters, gen, card):
 def infer_2d(et, method, through_flow, counters, seed, device, card):
     """``infer(logp, method=...)`` on the 2-D example target of
     benchmarks/bench_mcmc.py:35-44 (BASELINE.md:34's NUTS/ChEES row),
-    raw (``precondition=None``, 128 chains x 100 warmup + 75 samples) or
+    raw (``precondition=None``, 128 chains x 100 warmup + 40 samples) or
     through its exact transport (``flow=``, 128 x 100 + 100, where the
     chains see N(0, I)). The target has several modes
     that raw chains started near 0 do not cross (the JAX package's own
@@ -2826,7 +2832,7 @@ def infer_2d(et, method, through_flow, counters, seed, device, card):
 
 def infer_pushforward_tree(et, target, dim, counters, gen, card):
     """``infer(target, method='nuts', precondition=None)`` on the BASELINE
-    pushforward at 1024 chains x 100 + 100: a declared target with a tree
+    pushforward at 1024 chains x 100 + 50: a declared target with a tree
     method takes ``mcmc.sample``, not the fused HMC route: no B6 launch,
     no launch at all."""
     n, nw, ns = (INFER_PUSHFORWARD[k] for k in ("chains", "warmup",
@@ -3449,13 +3455,13 @@ def smc_phases(et, EW, counters, device, card):
 # depth 10, ~120 leaves a transition, at ~36 ms of host work a leaf
 # (ROADMAP C-12); the forced spline transport's NUTS too. The
 # configuration's NUTS (max_depth 10; 300 + 500, cut to 150 + 300 to make
-# room for the CLI phases, and to 150 + 150 for the mesh phases: at 100 +
-# 100 its rhat gate failed, 1.1096) runs,
+# room for the CLI phases; at 150 + 150 its rhat, 1.0481, came within 0.002
+# of the gate, at 100 + 100 it failed, 1.1096) runs,
 # gated, through the elementwise transport,
 # the family that whitens this target exactly, at 32 chains.
 INFER_50D = dict(dim=50, rho=0.9, chains=128, warmup=10, samples=10,
                  max_depth=4)
-INFER_ELEMENTWISE_50D = dict(chains=32, warmup=150, samples=150,
+INFER_ELEMENTWISE_50D = dict(chains=32, warmup=150, samples=300,
                              max_depth=10)
 # tests/test_infer.py:303 and :353; examples/one_call_infer.py case [2];
 # test_infer.py:101.
@@ -3615,7 +3621,7 @@ def infer_50d(et, TI, counters, kind, device, card):
     transport the ladder keeps turns on the seed, and NUTS does not mix
     through the spline one here, in JAX as in the port (ROADMAP C-12). The
     elementwise call runs the configuration's NUTS (max_depth 10, cut to
-    150 + 150 over 32 chains) and holds the mean within 0.1 and the sd
+    150 + 300 over 32 chains) and holds the mean within 0.1 and the sd
     within 10% of 1 in every dimension, and rhat below 1.05; its
     divergences are printed
     (the reference diverges on ~9% of its transitions here, C-12)."""
@@ -5595,20 +5601,35 @@ def mesh_counts(*counters):
     return kernel_launches(counters)
 
 
-def collectives_share(run, steps):
-    """``run()`` under ``torch.profiler``: (ms a step, the host ms a step
-    inside ``enflows.parallel.*`` ranges, its share)."""
+def collectives_share(run, steps, step_ms, backend):
+    """``run()`` (``steps`` steps) under ``torch.profiler``: (the profiled
+    ms a step, the host ms a step inside the ``enflows.parallel.*``
+    ranges, the collectives' ms a step, their share, what that is). Under
+    NCCL the host only enqueues an asynchronous op, so the collectives'
+    time is the device time of the NCCL kernels in the trace, its share
+    taken of the unprofiled step ``step_ms``. Under gloo the rank blocks
+    in the op (the host copies of a staged op included), so it is the host
+    time inside the ranges, its share taken of the profiled wall, which
+    the profiler lengthens alike."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    coll = sum(e.cpu_time_total for e in prof.key_averages()
+    host = sum(e.cpu_time_total for e in prof.key_averages()
                if e.key.startswith("enflows.parallel.")) / 1e3 / steps
-    return wall, coll, coll / wall
+    if backend == "gloo":
+        return wall, host, host, host / wall, "host ms in the ranges"
+    by_name, _ = device_kernel_us(prof)
+    nccl = {k: us for k, us in by_name.items() if "nccl" in k.lower()}
+    dev = sum(nccl.values()) / 1e3 / steps
+    return wall, host, dev, dev / step_ms, (
+        f"device ms of the NCCL kernels, {len(nccl)} kernel names in the "
+        f"trace, of the unprofiled step")
 
 
 def mesh_whitening(et, EW, mesh, X, flow, epochs, card, tag, reference):
@@ -5630,9 +5651,10 @@ def mesh_whitening(et, EW, mesh, X, flow, epochs, card, tag, reference):
           f"{tag} whitening: launches {launches}, not {steps} B3")
     assert_replicated_consistent([r.result, r.optimizer_state, hist],
                                  "whitening")
-    wall, coll, share = collectives_share(
+    wall, host, coll, share, what = collectives_share(
         lambda: et.optimize_whitening(X, flow, nbatches=4, nepochs=1,
-                                      mesh=mesh, batch_axis="batch"), 4)
+                                      mesh=mesh, batch_axis="batch"), 4,
+        step_ms, mesh.axis("batch").backend)
     rel = None
     if reference:
         ref = et.optimize_whitening(X, flow, nbatches=MESH_WHITEN["nbatches"],
@@ -5644,9 +5666,10 @@ def mesh_whitening(et, EW, mesh, X, flow, epochs, card, tag, reference):
           f"({X.shape[0] // 4 // mesh.shape['batch']} a rank), {steps} steps:"
           f" launches a rank {launches}; history {hist[-1].item():.5f} last"
           f"{'' if rel is None else f', max rel diff {rel:.3e} from the unsharded fused run'}"
-          f"; ms a step {step_ms:.3f}, profiled {wall:.3f} of which "
-          f"collectives {coll:.3f} ({100 * share:.1f}%); params equal on "
-          f"every rank [{card}]", flush=True)
+          f"; ms a step {step_ms:.3f}, profiled {wall:.3f} with {host:.3f}"
+          f" host ms in enflows.parallel.* ranges; collectives {coll:.3f} "
+          f"ms a step, {100 * share:.1f}% ({what}); params equal on every "
+          f"rank [{card}]", flush=True)
     return launches, dict(step_ms=step_ms, profiled_ms=wall,
                           collective_ms=coll)
 
@@ -5875,13 +5898,14 @@ def mesh_nuts_infer(et, mesh, device, card, tag):
           f"{r2.diagnostics['rhat'].max():.4f} [{card}]", flush=True)
 
 
-def mesh_child(phase, rank, world, init, outfile, go=None):
+def mesh_child(phase, rank, world, init, outfile, go):
     """One rank of a mesh phase (``python3 chip_smoke.py --mesh-child``):
     join the group, make the data, warm the path up (a whitening epoch on a
     small batch: the kernels' first launches and the group's first
-    collectives), wait for the file ``go`` if one is named (the parent
-    starts these ranks early and lets them go once the phase before has
-    ended), run the phase, write its counts to ``outfile``."""
+    collectives), write ``outfile``.ready, wait for the file ``go`` (the
+    parent starts every phase's ranks together and lets one phase go at a
+    time, so that no other work shares the card with its timings), run the
+    phase, write its counts to ``outfile``."""
     import torch.distributed as dist
 
     sys.path.insert(0, HERE)
@@ -5916,9 +5940,9 @@ def mesh_child(phase, rank, world, init, outfile, go=None):
     torch.cuda.synchronize()
     P.COLLECTIVES.clear()
     P.STAGED.clear()
-    if go is not None:
-        while not os.path.exists(go):
-            time.sleep(0.01)
+    open(outfile + ".ready", "w").close()
+    while not os.path.exists(go):
+        time.sleep(0.01)
     t0 = time.perf_counter()
     seconds = {}
 
@@ -5961,23 +5985,39 @@ def mesh_child(phase, rank, world, init, outfile, go=None):
     dist.destroy_process_group()
 
 
-def start_mesh_children(phase, world, root, go=None):
+def start_mesh_children(phase, world, root):
     """Start the ``world`` ranks of ``phase`` together; returns (processes,
-    their output files)."""
+    their output files, the file that lets them go)."""
     init = os.path.join(root, f"{phase}.init")
+    go = os.path.join(root, f"{phase}.go")
     outs = [os.path.join(root, f"{phase}.r{r}.json") for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-child", phase,
-         str(r), str(world), init, outs[r]] + ([go] if go else []),
+         str(r), str(world), init, outs[r], go],
         cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
-    return procs, outs
+    return procs, outs, go
 
 
-def wait_mesh_children(phase, procs, outs, deadline):
-    """Wait for the ranks until ``deadline`` (killing every one left then),
-    print their output and fail if any failed. Returns each rank's
-    counts."""
+def wait_mesh_ready(groups, deadline):
+    """Wait until every rank of ``groups`` has warmed up (its ``.ready``
+    file), or one has exited (``wait_mesh_children`` then reports it)."""
+    while time.monotonic() < deadline:
+        if all(os.path.exists(o + ".ready") for _, outs, _ in groups
+               for o in outs):
+            return
+        if any(p.poll() is not None for procs, _, _ in groups
+               for p in procs):
+            return
+        time.sleep(0.05)
+    check(False, "[mesh] ranks not warmed up by the deadline")
+
+
+def wait_mesh_children(phase, procs, outs, go, deadline):
+    """Let the ranks go and wait for them until ``deadline`` (killing every
+    one left then), print their output and fail if any failed. Returns
+    each rank's counts."""
+    open(go, "w").close()
     logs = []
     try:
         for p in procs:
@@ -6003,7 +6043,8 @@ def wait_mesh_children(phase, procs, outs, deadline):
 def mesh_cli(et, device, root, card, deadline):
     """``torchrun --nproc_per_node=1 -m enflows_tpu_torch.cli train`` with a
     mesh (NCCL), held to the same command in this process without one;
-    the torchrun child runs while this process runs the reference."""
+    the torchrun child runs while this process runs the reference, and
+    the mesh phases' ranks warm up beside both."""
     import contextlib
     import io
     import numpy as np
@@ -6049,13 +6090,14 @@ def mesh_cli(et, device, root, card, deadline):
           f"{want!r}")
     print(f"[mesh cli] torchrun --nproc_per_node=1 -m enflows_tpu_torch.cli "
           f"train --mesh.axes='{{\"batch\": 1}}' (NCCL): {got} as the "
-          f"unsharded command, {wall:.1f} s [{card}]", flush=True)
+          f"unsharded command, {wall:.1f} s beside the mesh ranks' warm-up "
+          f"[{card}]", flush=True)
 
 
 def mesh_phases(et, device, card):
-    """[mesh nccl w1] beside the torchrun CLI, then [mesh gloo w2], whose
-    ranks start (and warm up) beside [mesh nccl w1] and run once it has
-    ended. Returns each path's launches summed over the ranks, and the
+    """Every mesh rank started together, and the torchrun CLI run while
+    they warm up; then [mesh nccl w1] alone on the card, then [mesh gloo
+    w2] alone. Returns each path's launches summed over the ranks, and the
     step times."""
     import tempfile
 
@@ -6063,16 +6105,16 @@ def mesh_phases(et, device, card):
     t_start = time.perf_counter()
     deadline = time.monotonic() + MESH_TIMEOUT
     with tempfile.TemporaryDirectory() as root:
-        go = os.path.join(root, "gloo.go")
         nccl = start_mesh_children("nccl", 1, root)
-        gloo = start_mesh_children("gloo", 2, root, go)
+        gloo = start_mesh_children("gloo", 2, root)
         try:
             mesh_cli(et, device, root, card, deadline)
-            results = {"nccl": wait_mesh_children("nccl", *nccl, deadline)}
-            print(f"[time] [mesh nccl w1] {time.perf_counter() - t_start:.1f}"
-                  f" s, the torchrun CLI beside it [{card}]", flush=True)
+            wait_mesh_ready([nccl, gloo], deadline)
             t0 = time.perf_counter()
-            open(go, "w").close()
+            results = {"nccl": wait_mesh_children("nccl", *nccl, deadline)}
+            print(f"[time] [mesh nccl w1] {time.perf_counter() - t0:.1f} s "
+                  f"after its warm-up [{card}]", flush=True)
+            t0 = time.perf_counter()
             results["gloo"] = wait_mesh_children("gloo", *gloo, deadline)
             print(f"[time] [mesh gloo w2] {time.perf_counter() - t0:.1f} s "
                   f"after its warm-up [{card}]", flush=True)
@@ -6394,6 +6436,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         a = sys.argv[2:]
-        mesh_child(a[0], int(a[1]), int(a[2]), a[3], a[4], *a[5:])
+        mesh_child(a[0], int(a[1]), int(a[2]), a[3], a[4], a[5])
     else:
         main()

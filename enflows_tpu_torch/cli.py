@@ -13,7 +13,8 @@ runs it on the CPU. The printed lines are the JAX CLI's.
 
 ``--mesh.axes='{"batch": N}'`` trains the whitening objective data-parallel
 over the mesh's first axis, N ranks, one process a rank started by
-``torchrun`` (each on ``cuda:{LOCAL_RANK}``, NCCL; with ``--cpu``, gloo):
+``torchrun`` (each on ``cuda:{LOCAL_RANK}``, NCCL; with ``--cpu``, gloo);
+``sample`` and ``infer`` refuse a mesh:
 
     torchrun --nproc_per_node=N -m enflows_tpu_torch.cli train \
         --mesh.axes='{"batch": N}' ...
@@ -120,7 +121,7 @@ def _target(cfg):
     return per_sample(resolve_target(cfg.target)) if cfg.target else None
 
 
-def cmd_sample(cfg, device, mesh=None):
+def cmd_sample(cfg, device):
     from .mcmc import ess_per_dim, sample, split_rhat_per_dim
     from .smc import smc_sample
     from .utils import MetricsLogger
@@ -172,7 +173,7 @@ def _demo_target(dim, dtype, device):
     return FlowDistribution(compose(*stages)).requires_grad_(False).logpdf
 
 
-def cmd_infer(cfg, device, mesh=None):
+def cmd_infer(cfg, device):
     """``infer``: fit a transport, sample the preconditioned target and print
     the diagnostics. The target is ``--target``'s, else a warped demo."""
     from . import infer
@@ -236,11 +237,15 @@ def main(argv=None):
                          "to run on the CPU")
     from .parallel import local_device
     device = local_device(cpu=args.cpu)
-    # As in JAX, the mesh reaches the whitening trainer; the other
-    # commands run each rank's whole work.
-    mesh = mesh_from_config(cfg, device)
-    return {"train": cmd_train, "sample": cmd_sample,
-            "infer": cmd_infer}[args.command](cfg, device, mesh)
+    # As in JAX, the mesh reaches the whitening trainer only.
+    if args.command == "train":
+        return cmd_train(cfg, device, mesh_from_config(cfg, device))
+    if cfg.mesh.axes:
+        raise SystemExit(f"enflows_tpu_torch.cli: --mesh.axes shards the "
+                         f"train command only; {args.command} runs in one "
+                         f"process")
+    return {"sample": cmd_sample, "infer": cmd_infer}[args.command](
+        cfg, device)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Tempered SMC with the particles sharded over a mesh axis.
 
-PyTorch counterpart of ``enflows_tpu/parallel/smc_sharded.py``. Every
-per-particle computation stays on the rank that holds the particle; the
-ranks exchange only
+PyTorch counterpart of ``enflows_tpu/parallel/smc_sharded.py``: the
+single-process ``smc.smc`` pieces with ``axis=`` given. Every per-particle
+computation stays on the rank that holds the particle; the ranks exchange
+only
 
 * the global log-ESS and logsumexp (each rank's max and shifted sums,
   gathered in one collective),
@@ -13,12 +14,12 @@ ranks exchange only
   global ESS asks for it,
 * the ensemble mass matrix (two sums) and the mutations' acceptance mean
   (step-size consensus),
-* the learned annealing transport's fit (optional): the AFT loss is a sum
-  over particles, so its gradient is the all-reduced sum of the ranks'
-  gradients, and every rank runs the same Adam update: the flow stays
-  replicated. Each rank's fit and application run the flow-VI route on its
-  block, kernels B1 + B2 on the card for the default per-dimension
-  transport.
+* the learned annealing transport's fit (optional,
+  ``smc.flow_transport``): the AFT loss is a sum over particles, so its
+  gradient is the all-reduced sum of the ranks' gradients, and every rank
+  runs the same Adam update: the flow stays replicated. Each rank's fit
+  and application run the flow-VI route on its block, kernels B1 + B2 on
+  the card for the default per-dimension transport.
 
 RNG contract: every rank passes the same generator and draws each random
 tensor at the global particle count, keeping its block (``mcmc.hmc.Rows``
@@ -34,72 +35,12 @@ from typing import Callable, Optional
 import torch
 
 from ..distributions.base import std_normal_logpdf_sum
-from ..mcmc.hmc import Rows, hmc_transition, init_state, randn, \
-    value_and_grad
-from ..ops.elementwise import _grads_by_name
+from ..mcmc.hmc import randn
 from ..smc import smc as _smc
-from ..smc.smc import SMCInfo, SMCState, _HALVINGS, make_tempered
-from ..train.vi import _route
-from ..train.whitening import make_train_step
+from ..smc.flow_transport import make_transport_fitter
+from ..smc.smc import SMCState
 from ..utils.profiling import annotate
-from .collectives import all_gather, pmean, psum, psum_flat
-from .mesh import Axis, Mesh, block_range
-from .resample import sharded_systematic_resample
-
-
-def _shifted_sums(x, powers, axis: Axis):
-    """(M, [sum over every rank's x of exp(p (x - M)) for p in powers]),
-    M the global max, in one collective: each rank's max and its sums
-    shifted by it are gathered (k x (1 + len(powers)) numbers) and
-    rescaled to M. A rank whose x are all -inf adds nothing."""
-    m = x.max()
-    shift = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    e = torch.exp(x - shift)
-    local = torch.stack([m] + [(e ** p).sum() for p in powers])
-    parts = all_gather(local[None], axis)            # (k, 1 + len(powers))
-    M = parts[:, 0].max()
-    sums = [(parts[:, 1 + i] * torch.exp(p * (parts[:, 0] - M))).sum()
-            for i, p in enumerate(powers)]
-    return M, sums
-
-
-def _global_log_ess(log_weights, axis: Axis):
-    """log ESS = 2 log sum(w) - log sum(w^2) over every rank's weights."""
-    _, (s1, s2) = _shifted_sums(log_weights, (1, 2), axis)
-    return 2.0 * torch.log(s1) - torch.log(s2)
-
-
-def _global_logsumexp(x, axis: Axis):
-    M, (s,) = _shifted_sums(x, (1,), axis)
-    return M + torch.log(s)
-
-
-def _fit_transport(flow, particles, log_weights, logp_next, nsteps: int,
-                   lr: float, axis: Axis):
-    """Fit ``flow`` in place to the AFT objective on the even-index rows of
-    this rank's block, the gradients summed over the ranks
-    (``enflows_tpu/parallel/smc_sharded.py:126-165``). n_local is even, so
-    the local even rows are the global even rows of the single-process
-    fitter."""
-    x = particles[0::2].contiguous()
-    lw = log_weights[0::2]
-    w = torch.exp(lw - _global_logsumexp(lw, axis))
-    forward = _route(flow, x.shape[1], x.dtype, x.device, None, x.shape[0])
-
-    def value_and_grad_sum(flow, x):
-        with torch.enable_grad():
-            y, ladj = forward(flow, x)
-            loss = -(w * (logp_next(y) + ladj)).sum()
-            grads = _grads_by_name(flow, [loss])
-        names = list(grads)
-        summed = psum_flat([loss.detach()] + [grads[k] for k in names], axis)
-        return summed[0], dict(zip(names, summed[1:]))
-
-    step = make_train_step(torch.optim.Adam(list(flow.parameters()), lr=lr),
-                           value_and_grad_sum)
-    for _ in range(nsteps):
-        step(flow, x)
-    return flow
+from .mesh import Mesh, block_range
 
 
 def build_sharded_smc_step(log_base: Callable, log_target: Callable,
@@ -124,103 +65,25 @@ def build_sharded_smc_step(log_base: Callable, log_target: Callable,
     AFT-corrected incremental weight, the log Z increment taken on the
     held-out odd half. Torch compiles nothing, so building is cheap; JAX's
     ``make_sharded_smc_step`` cache has no counterpart."""
-    tempered = make_tempered(log_base, log_target)
     axis = mesh.axis(axis_name)
-    k = axis.size
+    compute_next_beta = _smc.make_compute_next_beta(
+        log_base, log_target, ess_target, axis=axis)
+    reweight = _smc.make_reweight_resample_mutate(
+        log_base, log_target, mutation_steps=mutation_steps,
+        leapfrog_steps=leapfrog_steps,
+        resample_threshold=resample_threshold, target_accept=target_accept,
+        holdout_logz=transport_steps > 0, axis=axis,
+        resample_method=resample_method)
+    tempered = _smc.make_tempered(log_base, log_target)
 
     def step(generator, state: SMCState, flow=None):
-        particles, log_weights, beta = (state.particles, state.log_weights,
-                                        state.beta)
-        n_local, dim = particles.shape
-        dtype, device = particles.dtype, particles.device
-        n_global = k * n_local
-        lo = axis.index * n_local
-        rows = Rows(generator, lo, lo + n_local, n_global)
-
-        with torch.no_grad():
-            log_ratio = log_target(particles) - log_base(particles)
-        target_log_ess = torch.full((), ess_target * n_global, dtype=dtype,
-                                    device=device).log()
-
-        def ess_at(b):
-            return _global_log_ess(log_weights + (b - beta) * log_ratio,
-                                   axis)
-
-        with annotate("enflows.smc.tempering"):
-            one = torch.ones((), dtype=dtype, device=device)
-            full = ess_at(one) >= target_log_ess
-            lo_b, hi_b = beta, one
-            halvings = _HALVINGS if torch.finfo(dtype).eps <= 2.4e-7 else 60
-            for _ in range(halvings):
-                live = hi_b - lo_b > 1e-6
-                mid = 0.5 * (lo_b + hi_b)
-                ok = ess_at(mid) >= target_log_ess
-                lo_b = torch.where(live & ok, mid, lo_b)
-                hi_b = torch.where(live & ~ok, mid, hi_b)
-            beta_new = torch.where(full, one, lo_b)
-
+        fit = None
         if flow is not None:
-            with annotate("enflows.smc.transport_fit"):
-                flow = _fit_transport(flow, particles, log_weights,
-                                      tempered(beta_new), transport_steps,
-                                      transport_lr, axis)
-                y, ladj = _smc._transport_forward(flow, particles)
-            with torch.no_grad():
-                lw_inc = (tempered(beta_new)(y) + ladj
-                          - tempered(beta)(particles))
-            particles = y
-            lw_prev_z, lw_inc_z = log_weights[1::2], lw_inc[1::2]
-        else:
-            lw_inc = (beta_new - beta) * log_ratio
-            lw_prev_z, lw_inc_z = log_weights, lw_inc
-
-        log_z = state.log_z + _global_logsumexp(
-            lw_prev_z - _global_logsumexp(lw_prev_z, axis) + lw_inc_z, axis)
-        log_weights = log_weights + lw_inc
-        cur_ess = torch.exp(_global_log_ess(log_weights, axis))
-        do_resample = cur_ess <= resample_threshold * n_global * (1 + 1e-6)
-        with annotate("enflows.smc.resample"):
-            # Every rank draws the uniform, resampling or not, as the
-            # single-process step does; the decision is replicated, so all
-            # ranks take the same branch and run the same collectives.
-            if bool(do_resample):
-                particles = sharded_systematic_resample(
-                    generator, log_weights, particles, axis,
-                    method=resample_method)
-                log_weights = torch.zeros_like(log_weights)
-            else:
-                _smc._resample_uniform(generator, dtype, device)
-
-        logp_fn = tempered(beta_new)
-        value_grad_fn = lambda q: value_and_grad(logp_fn, q)
-        states = init_state(logp_fn, particles)
-        w_norm = torch.exp(log_weights - _global_logsumexp(log_weights,
-                                                           axis))
-        mean_p = psum(w_norm @ particles, axis)
-        var_p = psum(w_norm @ (particles - mean_p) ** 2, axis)
-        inv_mass = torch.clamp(var_p, 1e-6, 1e6)
-        inv_sd = torch.rsqrt(inv_mass)
-
-        with annotate("enflows.smc.mutate"):
-            step_size, accs = state.step_size, []
-            for _ in range(mutation_steps):
-                noise, u = _smc._mutation_draws(rows, states.q)
-                states, info = hmc_transition(value_grad_fn, states,
-                                              step_size, inv_mass,
-                                              leapfrog_steps, noise * inv_sd,
-                                              u)
-                acc = pmean(info.accept_prob.mean(), axis)
-                step_size = step_size * torch.exp(
-                    0.5 * (acc - target_accept))
-                accs.append(acc)
-        accept_prob = (torch.stack(accs).mean() if accs else
-                       torch.full_like(step_size, float("nan")))
-        new_state = SMCState(particles=states.q, log_weights=log_weights,
-                             beta=beta_new, log_z=log_z,
-                             step_size=step_size)
-        return new_state, SMCInfo(beta=beta_new, ess=cur_ess,
-                                  accept_prob=accept_prob,
-                                  resampled=do_resample, log_z=log_z)
+            fit = make_transport_fitter(
+                log_base, log_target, lambda _: flow, transport_steps,
+                lambda p: torch.optim.Adam(p, lr=transport_lr), axis=axis)
+        return _smc._temperature(compute_next_beta, reweight, tempered,
+                                 log_base, log_target, fit)(generator, state)
 
     step.has_transport = transport_steps > 0
     return step
@@ -233,26 +96,14 @@ def make_sharded_smc_step(*args, **kwargs):
     return build_sharded_smc_step(*args, **kwargs)
 
 
-def _ladder(step, generator, state: SMCState, max_temps: int,
-            template_fn: Optional[Callable], metrics=None):
-    """Temperatures until beta reaches 1 or ``max_temps`` ran; one host read
-    a temperature (beta, the same on every rank) and one for the resampling
-    decision. Returns (state, [SMCInfo])."""
-    infos = []
-    for _ in range(max_temps):
-        if template_fn is not None:
-            state, info = step(generator, state, template_fn(
-                state.particles))
-        else:
-            state, info = step(generator, state)
-        infos.append(info)
-        if metrics is not None:
-            metrics.log(len(infos) - 1, beta=info.beta, ess=info.ess,
-                        accept=info.accept_prob, resampled=info.resampled,
-                        log_z=info.log_z)
-        if float(state.beta) >= 1.0:
-            break
-    return state, infos
+def _temperature(step: Callable, template_fn: Optional[Callable]):
+    """``(generator, state) -> (state, info)`` over a sharded step, a fresh
+    transport from ``template_fn`` a temperature where it has one."""
+    if not getattr(step, "has_transport", False):
+        return step
+    if template_fn is None:
+        raise ValueError("a transport step needs a transport_template_fn")
+    return lambda g, state: step(g, state, template_fn(state.particles))
 
 
 def make_sharded_smc_ladder(step: Callable,
@@ -262,22 +113,8 @@ def make_sharded_smc_ladder(step: Callable,
     (``enflows_tpu/parallel/smc_sharded.py:275-328``), its infos stacked
     into (max_temps,) buffers as JAX's ``lax.while_loop`` ladder returns
     them; the same eager ladder as ``smc_sample_sharded``'s."""
-    if getattr(step, "has_transport", False) and transport_template_fn is None:
-        raise ValueError("a transport step needs a transport_template_fn")
-
-    def ladder(generator, state: SMCState, max_temps: int):
-        state, infos = _ladder(step, generator, state, max_temps,
-                               transport_template_fn if getattr(
-                                   step, "has_transport", False) else None)
-        if not infos:
-            return state, 0, None
-        pad = max_temps - len(infos)
-        bufs = SMCInfo(*(torch.cat([torch.stack(v), torch.zeros(
-            pad, dtype=v[0].dtype, device=v[0].device)])
-            for v in zip(*infos)))
-        return state, len(infos), bufs
-
-    return ladder
+    return _smc._build_ladder(_temperature(step, transport_template_fn),
+                              getattr(step, "has_transport", False))
 
 
 def smc_sample_sharded(log_target: Callable, key: torch.Generator,
@@ -354,6 +191,7 @@ def smc_sample_sharded(log_target: Callable, key: torch.Generator,
             "in_graph=True cannot stream metrics (the ladder runs in one "
             "jit); drop metrics= or pass in_graph=False")
     with annotate("enflows.smc.sharded_ladder"):
-        state, infos = _ladder(step, key, state, max_temps,
-                               transport_template_fn, metrics)
+        state, infos = _smc._run_ladder(
+            key, state, max_temps, _temperature(step, transport_template_fn),
+            metrics)
     return state.particles, state.log_weights, state.log_z, infos

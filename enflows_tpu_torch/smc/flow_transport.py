@@ -30,7 +30,8 @@ from ..bijectors.base import Bijector
 from ..bijectors.scale_shift import ScaleShift
 from ..ops.elementwise import _grads_by_name
 from ..train.vi import _route
-from ..train.whitening import make_train_step
+from ..train.whitening import averaged, make_train_step
+from .smc import _normalized
 
 
 def default_template(particles) -> Bijector:
@@ -48,14 +49,21 @@ def default_optimizer(params) -> torch.optim.Optimizer:
 
 def _fit(log_base: Callable, log_target: Callable, optimizer: Callable,
          nsteps: int, particles, log_weights, beta_next, flow: Bijector,
-         forward: Optional[Callable] = None):
+         forward: Optional[Callable] = None, axis=None):
     """Train ``flow`` in place for ``nsteps`` steps on the even-index half
     of the particles; returns (flow, the loss of every step)
     (``enflows_tpu/smc/flow_transport.py:54-78``). ``forward(flow, x) ->
     (y, ladj)`` is the route of every step, by default ``train.vi``'s rule
-    for the batch."""
+    for the batch.
+
+    ``axis`` (a ``parallel`` mesh axis): the particles are this rank's
+    block, of an even length, so its even rows are the global even rows
+    (``enflows_tpu/parallel/smc_sharded.py:126-165``). The weights are
+    normalized over every rank, the loss is a sum over particles, so its
+    gradient is the ranks' gradients summed; every rank runs the same
+    update and the flow stays replicated."""
     x = particles[0::2].contiguous()
-    w = torch.softmax(log_weights[0::2], 0)
+    w = _normalized(log_weights[0::2], axis)
     forward = forward or _route(flow, x.shape[1], x.dtype, x.device, None,
                                  x.shape[0])
 
@@ -69,6 +77,8 @@ def _fit(log_base: Callable, log_target: Callable, optimizer: Callable,
             grads = _grads_by_name(flow, [loss])
         return loss.detach(), grads
 
+    if axis is not None:
+        value_and_grad = averaged(value_and_grad, axis, mean=False)
     step = make_train_step(optimizer(list(flow.parameters())),
                            value_and_grad)
     losses = [step(flow, x) for _ in range(nsteps)]
@@ -79,19 +89,22 @@ def _fit(log_base: Callable, log_target: Callable, optimizer: Callable,
 def make_transport_fitter(log_base: Callable, log_target: Callable,
                           template_fn: Callable = default_template,
                           nsteps: int = 100,
-                          optimizer: Optional[Callable] = None) -> Callable:
+                          optimizer: Optional[Callable] = None,
+                          axis=None) -> Callable:
     """Returns ``fit_transport(key, particles, log_weights, beta,
     beta_next)`` for ``smc_sample(fit_transport=...)``: a fresh template
     from ``template_fn(particles)`` trained for ``nsteps`` steps. ``key`` is
     unused, as in JAX. ``optimizer``: a factory ``params ->
     torch.optim.Optimizer``, by default Adam(5e-2), the counterpart of
-    ``optax.adam(5e-2)``."""
+    ``optax.adam(5e-2)``. ``axis``: fit data-parallel over the ranks'
+    blocks (see ``_fit``)."""
     optimizer = optimizer or default_optimizer
 
     def fit_transport(key, particles, log_weights, beta, beta_next):
         del key, beta
         flow, _ = _fit(log_base, log_target, optimizer, nsteps, particles,
-                       log_weights, beta_next, template_fn(particles))
+                       log_weights, beta_next, template_fn(particles),
+                       axis=axis)
         return flow
 
     return fit_transport

@@ -33,7 +33,13 @@ previous weights + incremental weights) each step.
 Random numbers: the resampling uniform (``_resample_uniform``) and each
 mutation's momentum normals and acceptance uniforms (``_mutation_draws``)
 are drawn in one place each, so that a test can hand the step another
-framework's draws. Torch compiles nothing, so the JAX factories'
+framework's draws.
+
+Sharded (``parallel.smc_sample_sharded``): the same pieces with ``axis=``
+a mesh axis, the particles this rank's block; the reductions over the
+particles (log-ESS, logsumexp, the ensemble mass, the acceptance mean, the
+transport fit's gradients) run over every rank, and the resampler is the
+distributed one. Torch compiles nothing, so the JAX factories'
 identity-keyed ``lru_cache`` has no counterpart: every factory here builds
 its closures anew and cheaply.
 """
@@ -45,7 +51,8 @@ import torch
 
 from ..bijectors.base import Bijector
 from ..distributions.base import std_normal_logpdf_sum
-from ..mcmc.hmc import hmc_transition, init_state, rand, randn, value_and_grad
+from ..mcmc.hmc import (Rows, hmc_transition, init_state, rand, randn,
+                        value_and_grad)
 from ..train.vi import _route
 from ..utils.profiling import annotate
 
@@ -66,10 +73,55 @@ class SMCInfo(NamedTuple):
     log_z: torch.Tensor
 
 
-def log_ess(log_weights: torch.Tensor) -> torch.Tensor:
-    """log ESS = 2*logsumexp(w) - logsumexp(2w)."""
-    return (2.0 * torch.logsumexp(log_weights, 0)
-            - torch.logsumexp(2.0 * log_weights, 0))
+def _shifted_sums(x, powers, axis):
+    """(M, [sum over every rank's x of exp(p (x - M)) for p in powers]),
+    M the global max, in one collective: each rank's max and its sums
+    shifted by it are gathered (k x (1 + len(powers)) numbers) and
+    rescaled to M. A rank whose x are all -inf adds nothing."""
+    from ..parallel.collectives import all_gather
+
+    m = x.max()
+    shift = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(x - shift)
+    local = torch.stack([m] + [(e ** p).sum() for p in powers])
+    parts = all_gather(local[None], axis)            # (k, 1 + len(powers))
+    M = parts[:, 0].max()
+    sums = [(parts[:, 1 + i] * torch.exp(p * (parts[:, 0] - M))).sum()
+            for i, p in enumerate(powers)]
+    return M, sums
+
+
+def _logsumexp(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """logsumexp over the particles, of every rank's block along ``axis``
+    (a ``parallel`` mesh axis; None: this process's particles)."""
+    if axis is None:
+        return torch.logsumexp(x, 0)
+    M, (s,) = _shifted_sums(x, (1,), axis)
+    return M + torch.log(s)
+
+
+def _normalized(log_weights: torch.Tensor, axis=None) -> torch.Tensor:
+    """The weights normalized over every rank's particles."""
+    if axis is None:
+        return torch.softmax(log_weights, 0)
+    return torch.exp(log_weights - _logsumexp(log_weights, axis))
+
+
+def _psum(x: torch.Tensor, axis=None) -> torch.Tensor:
+    if axis is None:
+        return x
+    from ..parallel.collectives import psum
+    return psum(x, axis)
+
+
+def log_ess(log_weights: torch.Tensor, axis=None) -> torch.Tensor:
+    """log ESS = 2*logsumexp(w) - logsumexp(2w), over every rank's weights
+    along ``axis`` where one is given."""
+    if axis is None:
+        return (2.0 * torch.logsumexp(log_weights, 0)
+                - torch.logsumexp(2.0 * log_weights, 0))
+    _, (s1, s2) = _shifted_sums(log_weights, (1, 2), axis)
+    return 2.0 * torch.log(s1) - torch.log(s2)
 
 
 def _resample_uniform(generator, dtype, device) -> torch.Tensor:
@@ -135,21 +187,19 @@ def _transport_forward(T: Bijector, x: torch.Tensor):
         return forward(T, x)
 
 
-def _run_ladder(generator, state: SMCState, max_temps: int,
-                compute_next_beta, step, tempered, log_base, log_target,
-                fit_transport, metrics=None):
-    """The temperature ladder: beta', the optional transport, the step, until
-    beta reaches 1 or ``max_temps`` steps ran. One host read a temperature
-    (beta, for the stop test), and with ``metrics`` one record a temperature
-    (beta, ESS, acceptance, resampled, running log Z; read when the logger
-    writes). Returns (state, [SMCInfo])."""
-    infos = []
-    for _ in range(max_temps):
+def _temperature(compute_next_beta, step, tempered, log_base, log_target,
+                 fit_transport):
+    """One temperature ``(generator, state) -> (state, info)``: beta', the
+    optional transport (fit, then applied to every particle with the
+    AFT-corrected incremental weight), the step."""
+
+    def run(generator, state: SMCState):
         beta_new = compute_next_beta(state)
         if fit_transport is not None:
-            T = fit_transport(generator, state.particles, state.log_weights,
-                              state.beta, beta_new)
-            y, ladj = _transport_forward(T, state.particles)
+            with annotate("enflows.smc.transport_fit"):
+                T = fit_transport(generator, state.particles,
+                                  state.log_weights, state.beta, beta_new)
+                y, ladj = _transport_forward(T, state.particles)
             with torch.no_grad():
                 lw_inc = (tempered(beta_new)(y) + ladj
                           - tempered(state.beta)(state.particles))
@@ -158,7 +208,22 @@ def _run_ladder(generator, state: SMCState, max_temps: int,
             with torch.no_grad():
                 lw_inc = (beta_new - state.beta) * (
                     log_target(state.particles) - log_base(state.particles))
-        state, info = step(generator, state, beta_new, lw_inc)
+        return step(generator, state, beta_new, lw_inc)
+
+    return run
+
+
+def _run_ladder(generator, state: SMCState, max_temps: int, temperature,
+                metrics=None):
+    """The temperature ladder: ``temperature(generator, state)`` until beta
+    reaches 1 or ``max_temps`` temperatures ran. One host read a
+    temperature (beta, for the stop test; replicated under a mesh, so every
+    rank stops alike), and with ``metrics`` one record a temperature
+    (beta, ESS, acceptance, resampled, running log Z; read when the logger
+    writes). Returns (state, [SMCInfo])."""
+    infos = []
+    for _ in range(max_temps):
+        state, info = temperature(generator, state)
         infos.append(info)
         if metrics is not None:
             metrics.log(len(infos) - 1, beta=info.beta, ess=info.ess,
@@ -169,17 +234,14 @@ def _run_ladder(generator, state: SMCState, max_temps: int,
     return state, infos
 
 
-def _build_ladder(compute_next_beta, step, tempered, log_base, log_target,
-                  fit_transport):
+def _build_ladder(temperature, has_transport: bool):
     """The whole-ladder runner of ``SMCKernels.ladder``
     (``enflows_tpu/smc/smc.py:106-158``): the same eager ladder as
     ``smc_sample``'s, its infos stacked into (max_temps,) buffers as the
     JAX ``lax.while_loop`` ladder returns them."""
 
     def ladder(generator, state: SMCState, max_temps: int):
-        state, infos = _run_ladder(generator, state, max_temps,
-                                   compute_next_beta, step, tempered,
-                                   log_base, log_target, fit_transport)
+        state, infos = _run_ladder(generator, state, max_temps, temperature)
         if not infos:
             return state, 0, None
         pad = max_temps - len(infos)
@@ -188,7 +250,7 @@ def _build_ladder(compute_next_beta, step, tempered, log_base, log_target,
             for v in zip(*infos)))
         return state, len(infos), bufs
 
-    ladder.has_transport = fit_transport is not None
+    ladder.has_transport = has_transport
     return ladder
 
 
@@ -208,9 +270,11 @@ def make_smc_ladder(log_base: Callable, log_target: Callable,
         resample_threshold=resample_threshold,
         target_accept=target_accept,
         holdout_logz=fit_transport is not None)
-    return _build_ladder(compute_next_beta, step,
-                         make_tempered(log_base, log_target),
-                         log_base, log_target, fit_transport)
+    return _build_ladder(
+        _temperature(compute_next_beta, step,
+                     make_tempered(log_base, log_target), log_base,
+                     log_target, fit_transport),
+        fit_transport is not None)
 
 
 def build_smc_kernels(log_base: Callable, log_target: Callable, *,
@@ -242,8 +306,10 @@ def build_smc_kernels(log_base: Callable, log_target: Callable, *,
         step=step,
         tempered=tempered,
         holdout_logz=holdout_logz,
-        ladder=_build_ladder(compute_next_beta, step, tempered, log_base,
-                             log_target, fit_transport),
+        ladder=_build_ladder(_temperature(compute_next_beta, step, tempered,
+                                          log_base, log_target,
+                                          fit_transport),
+                             fit_transport is not None),
     )
 
 
@@ -256,17 +322,21 @@ _HALVINGS = 24
 
 
 def make_compute_next_beta(log_base: Callable, log_target: Callable,
-                           ess_target: float = 0.5):
+                           ess_target: float = 0.5, axis=None):
     """``compute_next_beta(state) -> beta'``, a 0-d tensor: bisection on the
     incremental-weight ESS (``enflows_tpu/smc/smc.py:223-265``), with JAX's
     stopping rule and its full-step short cut (beta' = 1 where the ESS at
     1 already meets the target). The loop runs a fixed number of masked
     halvings on the device, each freezing the bracket once the rule has
-    stopped, so it reads nothing back."""
+    stopped, so it reads nothing back.
+
+    ``axis`` (a ``parallel`` mesh axis): the particles are this rank's
+    block, the ESS is global (one collective a halving) and every rank
+    runs the same halvings to the same beta'."""
 
     def compute_next_beta(state: SMCState):
         x = state.particles
-        n, dtype = x.shape[0], x.dtype
+        n, dtype = x.shape[0] * (1 if axis is None else axis.size), x.dtype
         with torch.no_grad():
             log_ratio = log_target(x) - log_base(x)
         # A fill, not a copy from the host: no synchronization.
@@ -274,7 +344,8 @@ def make_compute_next_beta(log_base: Callable, log_target: Callable,
                                     device=x.device).log()
 
         def ess_at(b):
-            return log_ess(state.log_weights + (b - state.beta) * log_ratio)
+            return log_ess(state.log_weights + (b - state.beta) * log_ratio,
+                           axis)
 
         with annotate("enflows.smc.tempering"):
             one = torch.ones((), dtype=dtype, device=x.device)
@@ -296,41 +367,70 @@ def make_reweight_resample_mutate(
         log_base: Callable, log_target: Callable, *,
         mutation_steps: int = 5, leapfrog_steps: int = 10,
         resample_threshold: float = 0.5, target_accept: float = 0.65,
-        holdout_logz: bool = False):
+        holdout_logz: bool = False, axis=None,
+        resample_method: str | None = None):
     """``step(generator, state, beta_new, lw_inc) -> (state, info)``
     (``enflows_tpu/smc/smc.py:268-354``).
 
     ``holdout_logz``: estimate the log Z increment from the odd-index half
     of the population only, as needed when ``lw_inc`` came from a learned
     transport fit on the even-index half (see ``flow_transport``).
+
+    ``axis`` (a ``parallel`` mesh axis): the particles are this rank's
+    block (``enflows_tpu/parallel/smc_sharded.py:172-259``). log Z, the
+    ESS, the ensemble mass and the acceptance mean are reduced over the
+    ranks; the resampler is ``parallel.sharded_systematic_resample``
+    (``resample_method``: its exchange); the mutation draws are drawn at
+    the global particle count and the rank's block kept, so the run
+    follows the single-process one draw for draw.
     """
     tempered = make_tempered(log_base, log_target)
 
     def step(generator, state: SMCState, beta_new, lw_inc):
         n = state.particles.shape[0]
+        n_global, draws = n, generator
+        if axis is not None:
+            n_global = n * axis.size
+            draws = Rows(generator, axis.index * n, (axis.index + 1) * n,
+                         n_global)
         # log Z: weighted mean of incremental weights under prev weights
         # (restricted to the held-out half when the transport was fit on
         # the training half).
         lw_prev = state.log_weights[1::2] if holdout_logz else \
             state.log_weights
         lw_i = lw_inc[1::2] if holdout_logz else lw_inc
-        log_w_prev_norm = lw_prev - torch.logsumexp(lw_prev, 0)
-        log_z = state.log_z + torch.logsumexp(log_w_prev_norm + lw_i, 0)
+        log_w_prev_norm = lw_prev - _logsumexp(lw_prev, axis)
+        log_z = state.log_z + _logsumexp(log_w_prev_norm + lw_i, axis)
 
         log_weights = state.log_weights + lw_inc
-        cur_ess = torch.exp(log_ess(log_weights))
+        cur_ess = torch.exp(log_ess(log_weights, axis))
         # Inclusive: adaptive tempering drives ESS exactly TO the target,
         # so a strict < would never fire and beta would stall at the
         # boundary (ess_target == resample_threshold is the default).
-        do_resample = cur_ess <= resample_threshold * n * (1.0 + 1e-6)
+        do_resample = cur_ess <= resample_threshold * n_global * (1.0 + 1e-6)
         with annotate("enflows.smc.resample"):
-            particles = torch.where(
-                do_resample,
-                systematic_resample(generator, log_weights, state.particles),
-                state.particles)
-            log_weights = torch.where(do_resample,
-                                      torch.zeros_like(log_weights),
-                                      log_weights)
+            if axis is None:
+                particles = torch.where(
+                    do_resample,
+                    systematic_resample(generator, log_weights,
+                                        state.particles),
+                    state.particles)
+                log_weights = torch.where(do_resample,
+                                          torch.zeros_like(log_weights),
+                                          log_weights)
+            elif bool(do_resample):
+                # The decision is replicated, so every rank takes the same
+                # branch and runs the same collectives.
+                from ..parallel.resample import sharded_systematic_resample
+                particles = sharded_systematic_resample(
+                    generator, log_weights, state.particles, axis,
+                    method=resample_method)
+                log_weights = torch.zeros_like(log_weights)
+            else:
+                # The uniform is drawn, resampling or not, as above.
+                particles = state.particles
+                _resample_uniform(generator, log_weights.dtype,
+                                  log_weights.device)
 
         logp_fn = tempered(beta_new)
         value_grad_fn = lambda q: value_and_grad(logp_fn, q)
@@ -338,21 +438,23 @@ def make_reweight_resample_mutate(
 
         # Particle-ensemble mass matrix: the weighted population variance
         # preconditions the mutation kernel (M^-1 = var).
-        w_norm = torch.softmax(log_weights, 0)
-        mean_p = w_norm @ particles
-        var_p = w_norm @ (particles - mean_p) ** 2
+        w_norm = _normalized(log_weights, axis)
+        mean_p = _psum(w_norm @ particles, axis)
+        var_p = _psum(w_norm @ (particles - mean_p) ** 2, axis)
         inv_mass = torch.clamp(var_p, 1e-6, 1e6)
         inv_sd = torch.rsqrt(inv_mass)
 
         with annotate("enflows.smc.mutate"):
             step_size, accs = state.step_size, []
             for _ in range(mutation_steps):
-                noise, u = _mutation_draws(generator, states.q)
+                noise, u = _mutation_draws(draws, states.q)
                 states, info = hmc_transition(value_grad_fn, states,
                                               step_size, inv_mass,
                                               leapfrog_steps, noise * inv_sd,
                                               u)
                 acc = info.accept_prob.mean()
+                if axis is not None:
+                    acc = _psum(acc, axis) / axis.size
                 step_size = step_size * torch.exp(
                     0.5 * (acc - target_accept))
                 accs.append(acc)
@@ -465,6 +567,7 @@ def smc_sample(log_target: Callable, key: Optional[torch.Generator] = None,
             infos = [SMCInfo(*(b[i] for b in bufs)) for i in range(n_t)]
         else:
             state, infos = _run_ladder(
-                key, state, max_temps, compute_next_beta, step, tempered,
-                log_base, log_target, fit_transport, metrics)
+                key, state, max_temps,
+                _temperature(compute_next_beta, step, tempered, log_base,
+                             log_target, fit_transport), metrics)
     return state.particles, state.log_weights, state.log_z, infos

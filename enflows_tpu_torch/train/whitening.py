@@ -106,17 +106,17 @@ def make_train_step(optimizer: torch.optim.Optimizer,
     return step
 
 
-def averaged(value_and_grad: Callable, axis) -> Callable:
-    """``value_and_grad`` with the loss and every gradient averaged over the
-    ranks of ``axis`` (a ``parallel`` mesh axis) in one all-reduce: the
-    data-parallel step's consensus, after which every rank's update is the
-    same."""
+def averaged(value_and_grad: Callable, axis, mean: bool = True) -> Callable:
+    """``value_and_grad`` with the loss and every gradient averaged (summed,
+    ``mean=False``) over the ranks of ``axis`` (a ``parallel`` mesh axis)
+    in one all-reduce: the data-parallel step's consensus, after which
+    every rank's update is the same."""
     from ..parallel.collectives import psum_flat
 
     def reduced(flow, X):
         value, grads = value_and_grad(flow, X)
         names = [k for k, g in grads.items() if g is not None]
-        out = psum_flat([value] + [grads[k] for k in names], axis, mean=True)
+        out = psum_flat([value] + [grads[k] for k in names], axis, mean=mean)
         return out[0], {**grads, **dict(zip(names, out[1:]))}
 
     return reduced

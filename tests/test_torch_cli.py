@@ -242,6 +242,15 @@ def test_cli_needs_the_card_unless_asked_for_the_cpu():
         cli.main(["train", "--cpu", '--mesh.axes={"chains": 2}'])
 
 
+def test_cli_mesh_is_for_train_only():
+    """As in JAX, the mesh reaches the whitening trainer only: ``sample`` and
+    ``infer`` with ``--mesh.axes`` refuse, rather than join a process group
+    and run the whole job on every rank."""
+    for command in ("sample", "infer"):
+        with pytest.raises(SystemExit, match="train command only"):
+            cli.main([command, "--cpu", '--mesh.axes={"chains": 1}'])
+
+
 def test_cli_module_entry_point(tmp_path):
     """``python -m enflows_tpu_torch.cli`` from another directory, without
     importing JAX."""
