@@ -4,10 +4,15 @@ flow-VI (B1/B2 and B4/B5), flow-preconditioned HMC (B6), NUTS and ChEES
 (no kernel), tempered SMC (no kernel; B1/B2 in its learned transports),
 infer's default path (the auto ladder through B1/B2 and B4/B5, data=
 through B3), the CLI (train through B3, killed and resumed; the ELBO
-and infer commands through B1/B2) and the multi-device layer (one rank on
-NCCL, two ranks sharing the card over gloo: B1-B5 a rank).
+and infer commands through B1/B2), the multi-device layer (one rank on
+NCCL, two ranks sharing the card over gloo: B1-B5 a rank) and the example
+scripts (``enflows_tpu_torch/examples/``: B3, B1/B2 and B6).
 
 Run from the repository root:  python3 chip_smoke.py
+(``--timing`` adds the phases that only time and gate nothing: the
+whitening and coupling profiles, ``[householder auto]``, ``[hmc
+timing]``, ``[nuts timing]``, ``[chees timing]`` and ``[infer
+timing]``.)
 
 Phases, one printed line each (more for the slice); any mismatch or
 exception exits non-zero and prints no result:
@@ -24,7 +29,10 @@ exception exits non-zero and prints no result:
    n=2^22 and 2^20 (the slice's batch) and at d=50, n=2^17, then all three
    on a sweep of other chains and shapes (``SWEEP``) against the plain
    version in float32 and float64, and at the float32 stability corners
-   (|b x| >> 88; finite values and gradients). Each B1-B3 line gives the
+   (|b x| >> 88; finite values and gradients); ``[B3 examples]``: B3 on the
+   whitening examples' models at their batch shapes (d=1 n=1,000, d=2
+   n=100 and n=250) against the plain version in float32 and float64,
+   timed. Each B1-B3 line gives the
    launch (lanes per sample, elements per lane, blocks per SM, registers)
    and the flagship's special functions at the MUFU rate beside the byte
    bound;
@@ -108,9 +116,10 @@ exception exits non-zero and prints no result:
    ``infer(FlowPushforwardTarget(transport), method="hmc")`` with
    8192 chains x d=50, 200 warmup + 50 samples (100 before PR 12) of L=64
    on the BASELINE
-   chain (exactly one B6 launch per transition), then the d=8 example of
-   examples/fused_pushforward_hmc.py (256 chains, its mean/var base,
-   200 + 250 transitions of L=16, cut from 500 for the mesh phases).
+   chain (exactly one B6 launch per transition), then ``[example
+   fused_pushforward_hmc]``: the port's module's ``main()`` on the d=8
+   declared target (256 chains, its mean/var base, 200 + 500 transitions
+   of L=16: exactly 700 B6 launches; its own moment gate).
    Each run's draws are finite, its
    acceptance within 0.6-1.0, and its mean and sd within 0.1 (absolute /
    relative) of Monte-Carlo truth from the generative definition (200,000
@@ -289,7 +298,15 @@ from generators of its own:
    100,000 draws as ``data=``, whiten_batches=200, whiten_epochs=8, NUTS
    at 8 chains x 100 + 50:
    exactly 1,600 B3 launches, rhat < 1.05, the mean within
-   test_infer.py:92-94's bound;
+   test_infer.py:92-94's bound; then ``[example one_call_infer]``: the
+   port's module's ``main()`` at ``EXAMPLES``' depth (NUTS 10 + 10), its
+   three cases: [1] the auto ladder (the
+   elementwise rung's 500 B1 + B2), [2] ``data=`` (exactly 1,600 B3), [3]
+   SMC at 16,384 particles (no kernel); launches exactly as the dispatch
+   rule gives the fits, [1] and [2] finite, [2]'s mean within the same
+   bound, rhat printed (its NUTS through the fitted flows runs hundreds
+   of leaves a transition at ~1-3 ms a leaf: 485 s at the script's
+   400 + 500 on an NVIDIA H100);
 31. ``[infer refine]``: test_infer.py:101's target and gates, one
    refinement round, NUTS at 8 chains x 150 + 100 a round;
 32. ``[infer B4/B5 hold]`` (ROADMAP C-3): B4 and B5 on every coupling flow
@@ -302,6 +319,8 @@ from generators of its own:
    error with their distance to a knot. ``python3 chip_smoke.py
    --infer-probe`` runs this sweep alone at 2^10-2^17 rows on standalone
    fits, every reading printed, then ``[infer elementwise 50d]``;
+   ``python3 chip_smoke.py --examples [name ...]`` runs only the named
+   example scripts (all by default) at the JAX scripts' full defaults;
 33. ``[infer timing]``: ms a step fused against plain (host clock) for a VI
    step at each rung's shape and a whitening step at the rescue's 40 and
    256 rows and the data fit's 500 (the coupling steps forced through
@@ -311,10 +330,17 @@ from generators of its own:
    bound and, for B4/B5, TF32 torch.matmul. Each infer phase's line splits
    its call's seconds into the VI fit, the probes, the rescue, the
    sampling and the diagnostics.
-
-The run utilities and the CLI run after 33 (``cli_phases``):
-
-34. ``[cli train]``: ``python -m enflows_tpu_torch.cli train`` in a child
+34. ``[example ...]``: the port's other example modules' ``main()`` at
+   ``EXAMPLES``' depths, each run with the launch counters set to 0 just
+   before it and read just after, its own gates deciding its return
+   code: nf_example_1d (exactly 1,000 B3 at d=1), nf_example_2d (10,000
+   B3 at d=2), full_pipeline (2,000 B3, then NUTS raw and preconditioned
+   at 10 + 10 and SMC, no kernel; its SMC gates held, its NUTS gates
+   printed: JAX's own adaptation runs 860 leaves a transition there),
+   coupling_conditional_2d (30 epochs, NUTS 200 + 200) and
+   spline_multimodal_2d (150 VI steps); no launch in the last two: d=2
+   batches take the plain path by the row rule, ROADMAP C-3.
+35. ``[cli train]``: ``python -m enflows_tpu_torch.cli train`` in a child
    process run from the repository root (``CLI_CHILD``, which writes the
    process's launch counts), the flagship stages as ``FlowConfig`` stages
    at d=2 with 4 Householder reflections, on 2^22 samples of the whitening
@@ -332,7 +358,7 @@ The run utilities and the CLI run after 33 (``cli_phases``):
    unless the plain path on rows reordered within each batch already
    differs by more, then the noise rule. Printed: ms a step of the CLI run
    (its metrics clock) and in process, and a checkpoint's milliseconds;
-35. ``[cli elbo]``, ``[cli sample]``, ``[cli infer]``: ``cli.main`` in this
+36. ``[cli elbo]``, ``[cli sample]``, ``[cli infer]``: ``cli.main`` in this
    process at tests/test_utils.py:179-290's sizes: the ELBO objective at
    d=1 (exactly 50 B1 and 50 B2, the final loss within 0.05 of 0), ``sample``
    with SMC at its 8192 particles on the demo target (one temperature,
@@ -344,23 +370,23 @@ The run utilities and the CLI run after 33 (``cli_phases``):
    (``family=elementwise``, exactly 150 B1 and 150 B2). Each ELBO fit,
    recorded from the run, is held to the plain path from the same flow and
    generator state as [vi elementwise] holds its own (``hold_history``);
-36. ``[trace]``: ``utils.trace`` around four fused whitening steps: the
+37. ``[trace]``: ``utils.trace`` around four fused whitening steps: the
    Chrome trace holds the trainer's range, four
    ``enflows.cuda.fused_negll_grad`` ranges and B3 kernel events, each
    launched inside one of them;
-37. ``[heartbeat]``: the default probe True within its deadline, a hung
+38. ``[heartbeat]``: the default probe True within its deadline, a hung
    probe False at its deadline, ``run_checkpointed`` with a failing probe
    raising ``HeartbeatTimeout`` after its rescue save (restored onto the
    card), and running through with the default probe.
 
-The multi-device layer runs after 37 (``mesh_phases``), a rank a child
+The multi-device layer runs after 38 (``mesh_phases``), a rank a child
 process (``python3 chip_smoke.py --mesh-child``, every rank started
 together under ``MESH_TIMEOUT``; a rank that fails fails the script). The
-ranks warm up beside the torchrun CLI of 38; then each phase runs alone
+ranks warm up beside the torchrun CLI of 39; then each phase runs alone
 on the card, each run with the launch counters set to 0 just before it
 and read just after:
 
-38. ``[mesh nccl w1]``: one rank, NCCL on cuda:0: the whitening slice's
+39. ``[mesh nccl w1]``: one rank, NCCL on cuda:0: the whitening slice's
    trainer on a mesh (12 B3), flow-VI on a mesh (the default template at
    d=50, 2^17 rows: 12 B1 + 12 B2; the affine coupling template at d=64,
    2^17 rows: 12 B4 + 12 B5), ``smc_sample_sharded`` with the default
@@ -373,7 +399,7 @@ and read just after:
    counted, none staged; and, before it, ``torchrun --nproc_per_node=1 -m
    enflows_tpu_torch.cli train --mesh.axes='{"batch": 1}'`` printing the
    unsharded command's final loss;
-39. ``[mesh gloo w2]``: two ranks sharing cuda:0 over gloo: the whitening
+40. ``[mesh gloo w2]``: two ranks sharing cuda:0 over gloo: the whitening
    slice's data and flagship flow at a global batch of 2^20 (2^19 a
    rank), exactly 24 B3 a rank, the history within 1e-4 of the unsharded
    fused run and every replicated output equal on both ranks; flow-VI as
@@ -385,11 +411,17 @@ and read just after:
    event-sharded forward of an elementwise chain at d=64, n=2^20 (32
    columns a rank, one B1) within [B1]'s gate of the single-process B1;
    the collectives launched and those staged through the host (STAGED).
-   Each rank of 38 and 39 prints its ms a whitening step and the
+   Each rank of 39 and 40 prints its ms a whitening step and the
    collectives' share of it (``torch.profiler``): under NCCL the device
    time of the NCCL kernels against the unprofiled step, under gloo the
    host time inside the ``enflows.parallel.*`` ranges against the
    profiled step.
+41. ``[mesh shapes]``: in this process, each kernel at the shapes a rank
+   gives it in 39 and 40 (B1/B2 on the VI template and the SMC
+   transport's fit and application rows, B1 on the event-sharded columns,
+   B3 at 2^19 rows, B4/B5 on the affine VI template at 2^17 rows): device
+   time against the plain version, the bound and, for B4/B5, TF32
+   torch.matmul.
 
 The script ends with its total time, the kernels line (each kernel's
 launches summed over every main-path run, by path, the mesh paths summed
@@ -431,6 +463,7 @@ import sys
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2627,22 +2660,6 @@ def hmc_route(et, TL, name, target, dim, num_chains, num_warmup,
     return res, launches
 
 
-def example_d8(et, gen, device):
-    """examples/fused_pushforward_hmc.py:29-46: a rotate, stretch and
-    shift/scale transport at d=8 over a N(0.3, diag(linspace(0.8, 1.4)))
-    base."""
-    dim = 8
-    v = lambda val: torch.full((dim,), val, device=device)
-    lin = lambda a, b: torch.linspace(a, b, dim, device=device)
-    transport = et.compose(
-        et.ScaleShift(lin(0.5, 2.0), lin(-1.0, 1.0)),
-        et.invert(et.Johnson(v(0.0), v(4.0), v(0.0), v(4.0))),
-        et.Householder(torch.randn(4, dim, generator=gen,
-                                   device=device)).canonicalize())
-    return et.mcmc.FlowPushforwardTarget(transport, base_mean=v(0.3),
-                                         base_var=lin(0.8, 1.4))
-
-
 def hmc_timing(TL, chain, step_size, gen, device, card, transitions=20):
     """ms per transition of the fused sampler against the same sampler over
     leapfrog_plain at the BASELINE config and the slice's adapted step size:
@@ -3975,8 +3992,8 @@ def ew_kernel_times(EW, flow, x, mode):
         kernel = lambda: EW._launch("negll", plan, x, bufs)
         plain = lambda: EW.negll_value_and_grad_plain(flow, x)
     with torch.no_grad() if mode == "fwd" else torch.enable_grad():
-        p1, k1, k2, p2 = (queued_ms(f) for f in (plain, kernel, kernel,
-                                                 plain))
+        p1, k1, k2, p2 = (queued_ms(f, iters=10) for f in (plain, kernel,
+                                                           kernel, plain))
     return min(k1, k2), min(p1, p2), plan
 
 
@@ -4017,14 +4034,15 @@ def coupling_kernel_times(C, flow, x):
     # The wrappers read the card's free memory (``_rows_fit``) and sync,
     # so calls cannot queue behind a sleep: CUDA events, paced by the host
     # at these sizes.
+    ms = functools.partial(cuda_ms, iters=4, warmup=1)
     with torch.no_grad():
-        b4 = cuda_ms(lambda: C._launch_fwd(st, x, wbuf, pbuf, True))
-        both = cuda_ms(b4b5)
-        plain4 = cuda_ms(lambda: C.coupling_forward_plain(st, wbuf, pbuf, x))
+        b4 = ms(lambda: C._launch_fwd(st, x, wbuf, pbuf, True))
+        both = ms(b4b5)
+        plain4 = ms(lambda: C.coupling_forward_plain(st, wbuf, pbuf, x))
         with matmul_tf32(True):
-            lib4 = cuda_ms(lambda: products(False))
-            lib5 = cuda_ms(lambda: products(True))
-    plain5 = cuda_ms(lambda: torch.autograd.grad(
+            lib4 = ms(lambda: products(False))
+            lib5 = ms(lambda: products(True))
+    plain5 = ms(lambda: torch.autograd.grad(
         [y0, l0], [xr, *params], [gy, gl], retain_graph=True))
     flops = conditioner_flops(st) * n
     return {"b4": {**bound_of(4 * (n * (2 * d + 1) + st.w_len), flops,
@@ -4066,9 +4084,9 @@ def infer_timing(et, EW, C, VI, TI, fits, data_x, device, card):
         flow = make(d, gen())
         kernels = True if label == "vi spline" else None
         run = lambda route: lambda: VI.optimize_elbo(
-            logp, flow, dim=d, batch_size=n // 2, nsteps=20, key=gen(),
+            logp, flow, dim=d, batch_size=n // 2, nsteps=8, key=gen(),
             use_fused_coupling=route)
-        fused, plain = fused_against_plain(run(kernels), run(False), 20)
+        fused, plain = fused_against_plain(run(kernels), run(False), 8)
         rows.append(f"{label} d={d} n={n}: fused {fused:.3f} ms/step, plain "
                     f"{plain:.3f}")
     # The rescue's and the data fit's step shapes (40 and 500 rows), over
@@ -4240,7 +4258,7 @@ def c3_sweep(et, C, fits, device, card, enforce=None, sizes=C3_ROWS):
     return worst
 
 
-def infer_phases(et, EW, C, counters, device, card):
+def infer_phases(et, EW, C, counters, device, card, timing=True):
     """The infer phases, then the B4/B5 hold and sweep on every coupling
     flow they and ``c3_fits`` trained (C-3) and ``[infer timing]``. Returns
     (launches by path, the kernels' times at the new shapes by launch key,
@@ -4265,6 +4283,8 @@ def infer_phases(et, EW, C, counters, device, card):
         keep(f"infer escalation 2d {name}", shapes[name], launches, clock)
     launches, clock, data_x = infer_data_2d(et, TI, counters, device, card)
     keep("infer data 2d", "d=2, whitening n=500", launches, clock)
+    runs["example one_call_infer (d=2, vi n=1024, whitening n=500)"] = \
+        example_one_call_infer(TI, C, counters, card)
     launches, clock = infer_refine(et, TI, counters, device, card)
     keep("infer refine", "d=2, whitening n=32", launches, clock)
 
@@ -4273,7 +4293,9 @@ def infer_phases(et, EW, C, counters, device, card):
     # sweep over 2^10-2^17 is --infer-probe's).
     fits += c3_fits(et, TI, device, splines=False)
     worst = c3_sweep(et, C, fits, device, card, sizes=(1 << 17,))
-    times = infer_timing(et, EW, C, VI, TI, fits, data_x, device, card)
+    times = infer_timing(et, EW, C, VI, TI, fits, data_x, device, card) \
+        if timing else {k: {} for k in ("fwd", "bwd", "negll",
+                                         "coupling_fwd", "coupling_bwd")}
     return runs, times, worst
 
 
@@ -4291,6 +4313,330 @@ def infer_probe(et, C, device, card):
     from enflows_tpu_torch.ops import leapfrog as TL
     infer_50d(et, TI, (TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES), "elementwise",
               device, card)
+
+
+# ----------------------------------------------------------------------
+# The example scripts (enflows_tpu_torch/examples/, counterparts of
+# examples/): each module's main() on the card, as a user runs it, with the
+# launch counters set to 0 just before and read just after.
+
+# The depths each example runs at here: the JAX scripts' widths (dims, data
+# sizes, layers, bins, chains, particles) and, where the run fits the
+# script's time, their depths. one_call_infer's and full_pipeline's NUTS
+# run through flow densities whose adapted trees are hundreds of leaves
+# deep (JAX's own full_pipeline adapts to step 0.0021 and 860 leaves a
+# transition), at ~1-3 ms a leaf here: their full depths take 485 s and
+# more than 2,900 s on an NVIDIA H100, so they run at 10 + 10 and their NUTS
+# statistics are printed, not gated (PERF.md §4); [infer data 2d] keeps
+# one_call_infer [2]'s gates at 100 + 50 on its own seed.
+EXAMPLES = {
+    "one_call_infer": dict(vi_steps=500, warmup=10, samples=10,
+                           whiten_batches=200, whiten_epochs=8),
+    "fused_pushforward_hmc": dict(warmup=200, samples=500),
+    "nf_example_1d": dict(batches=100, epochs=10),
+    "nf_example_2d": dict(batches=1000, epochs=10),
+    "full_pipeline": dict(batches=200, epochs=10, warmup=10, samples=10),
+    "coupling_conditional_2d": dict(epochs=30, warmup=200, samples=200),
+    "spline_multimodal_2d": dict(vi_steps=150),
+}
+
+
+def example_argv(name):
+    """The command-line flags of ``EXAMPLES[name]``."""
+    return [a for k, v in EXAMPLES[name].items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def example_run(name, counters, gated=True):
+    """``enflows_tpu_torch.examples.<name>.main`` on the card at
+    ``EXAMPLES[name]``'s depths, the launch counters set to 0 just before
+    and read just after; with ``gated``, fails the run on a non-zero
+    return. Returns (the report main filled, launches, seconds, the
+    return code)."""
+    import importlib
+    ex = importlib.import_module(f"enflows_tpu_torch.examples.{name}")
+    argv = example_argv(name)
+    print(f"[example {name}] main({argv}):", flush=True)
+    report = {}
+    reset_launches(*counters)
+    t0 = time.perf_counter()
+    rc = ex.main(argv, report=report)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(counters)
+    check(rc == 0 or not gated, f"[example {name}]: main returned {rc}")
+    return report, launches, wall, rc
+
+
+def examples_at_defaults(names, counters, card):
+    """``--examples [name ...]``: each named example's ``main([])`` at the
+    JAX script's defaults, the launch counters set to 0 just before and read
+    just after; prints its seconds, launches and the numbers it reported,
+    and fails the run on a non-zero return."""
+    import importlib
+    for name in names:
+        ex = importlib.import_module(f"enflows_tpu_torch.examples.{name}")
+        print(f"[example {name}] main([]), the JAX script's defaults:",
+              flush=True)
+        report = {}
+        reset_launches(*counters)
+        t0 = time.perf_counter()
+        rc = ex.main([], report=report)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        numbers = {k: v for k, v in report.items()
+                   if isinstance(v, (int, float, np.ndarray))
+                   or (type(v) is tuple and all(
+                       isinstance(u, (int, float)) for u in v))}
+        example_line(name, kernel_launches(counters), f"{wall:.1f} s",
+                     f"return {rc}; {numbers}", card)
+        check(rc == 0, f"[example {name}]: main returned {rc}")
+
+
+def example_line(name, launches, seconds, detail, card):
+    print(f"[example {name}] {seconds} (host clock, the host-side "
+          f"diagnostics included); launches {launch_text(launches)}; "
+          f"{detail} [{card}]", flush=True)
+
+
+def example_gate_launches(name, launches, want):
+    full = {k: 0 for k in launches}
+    full.update(want)
+    check(launches == full, f"[example {name}]: launches "
+          f"{launch_text(launches)}, want {launch_text(full)}")
+
+
+def example_one_call_infer(TI, C, counters, card):
+    """``[example one_call_infer]``: [1] the auto ladder (its elementwise
+    rung B1 + B2 a VI step), [2] ``data=`` (B3 a whitening step: 1,600 at
+    200 x 8), [3] SMC (no kernel); launches exactly as the dispatch rule
+    gives the fits ``infer`` made, [1] and [2]'s draws finite and [2]'s
+    mean within test_infer.py:92-94's bound of the data's. The JAX script
+    only prints; at ``EXAMPLES``' NUTS depth rhat is printed, not gated
+    ([infer data 2d] holds [2]'s rhat). Returns the launches."""
+    cfg = EXAMPLES["one_call_infer"]
+    with infer_clock(TI) as clock:
+        rep, launches, wall, _ = example_run("one_call_infer", counters)
+    steps = {"vi": cfg["vi_steps"],
+             "whitening": cfg["whiten_batches"] * cfg["whiten_epochs"]}
+    want = expected_launches(C, clock, steps)
+    check(launches == want and launches["negll"] == steps["whitening"],
+          f"[example one_call_infer]: launches {launch_text(launches)}, "
+          f"want {launch_text(want)} with {steps['whitening']} B3")
+    for case in ("r1", "r2"):
+        check(bool(torch.isfinite(rep[case].draws).all()),
+              f"[example one_call_infer] {case}: draws not finite")
+    dg, X = rep["r2"].diagnostics, rep["X"]
+    bound = 5 * float(X.double().std(0).max()) / math.sqrt(
+        dg["min_bulk_ess"]) + 0.05
+    mean_err = float((torch.as_tensor(dg["mean"])
+                      - X.double().mean(0).cpu()).abs().max())
+    check(mean_err < bound, f"[example one_call_infer] [2]: mean err "
+          f"{mean_err:.4f} (bound {bound:.4f})")
+    d1, d3 = rep["r1"].diagnostics, rep["r3"].diagnostics
+    example_line("one_call_infer", launches, clock.text(wall),
+                 f"[1] family {d1.get('precondition_family')}, rhat "
+                 f"{float(d1['rhat'].max()):.4f} (not gated); [2] rhat "
+                 f"{float(dg['rhat'].max()):.4f} (not gated), mean err "
+                 f"{mean_err:.4f} (bound {bound:.4f}); [3] log Z "
+                 f"{d3['log_z']:.4f}, {len(rep['r3'].stats)} temperatures",
+                 card)
+    return launches
+
+
+def example_pushforward_hmc(counters, card):
+    """``[example fused_pushforward_hmc]``: ``infer(method="hmc")`` on the
+    declared d=8 target, 256 chains: exactly one B6 launch a transition,
+    the draws finite and of their shape, acceptance within 0.6-1.0, and
+    the example's own moment gate (it returns 1 otherwise)."""
+    cfg = EXAMPLES["fused_pushforward_hmc"]
+    rep, launches, wall, _ = example_run("fused_pushforward_hmc", counters)
+    res = rep["result"]
+    n = cfg["warmup"] + cfg["samples"]
+    example_gate_launches("fused_pushforward_hmc", launches,
+                          {"leapfrog": n})
+    check(res.draws.shape == (256, cfg["samples"], 8)
+          and bool(torch.isfinite(res.draws).all()),
+          f"[example fused_pushforward_hmc]: draws "
+          f"{tuple(res.draws.shape)}")
+    acc = res.diagnostics["accept_prob"]
+    check(0.6 <= acc <= 1.0, f"[example fused_pushforward_hmc]: "
+          f"acceptance {acc:.3f}")
+    example_line("fused_pushforward_hmc", launches, f"{wall:.1f} s",
+                 f"accept {acc:.3f}, step size "
+                 f"{float(res.stats.step_size):.4f}, mean err "
+                 f"{rep['mean_err']:.4f}, sd rel err {rep['sd_rel']:.4f}, "
+                 f"max rhat {float(res.diagnostics['rhat'].max()):.4f}",
+                 card)
+    return launches
+
+
+def example_phases(counters, card):
+    """The whitening examples (B3 a step), full_pipeline (B3, then NUTS and
+    SMC with no kernel) and the two coupling examples (no kernel: d=2
+    batches take the plain path by the row rule, C-3). Returns {path:
+    launches}."""
+    paths = {}
+    for name, want, detail in (
+            ("nf_example_1d", "negll", lambda r: (
+                f"final negll {r['final_negll']:.4f} (analytic "
+                f"{r['target_negll']:.4f})")),
+            ("nf_example_2d", "negll", lambda r: (
+                f"cov - I {np.abs(r['cov'] - np.eye(2)).max():.4f}, "
+                f"|mean| {np.abs(r['mean']).max():.4f}")),
+            ("full_pipeline", "negll", lambda r: (
+                f"medians NUTS {np.round(r['nuts_med'], 3)} SMC "
+                f"{np.round(r['smc_med'], 3)} data "
+                f"{np.round(r['data_med'], 3)}, log Z {r['logz']:.4f} "
+                f"({r['temperatures']} temperatures), min ESS raw "
+                f"{r['ess_raw']:.0f} / preconditioned {r['ess_pre']:.0f} "
+                f"(raw {r['t_raw']:.1f} s, preconditioned "
+                f"{r['t_pre']:.1f} s)")),
+            ("coupling_conditional_2d", None, lambda r: (
+                f"cov - I {np.abs(r['cov'] - np.eye(2)).max():.4f}, rhat "
+                f"{r['rhat']:.4f}, x1 mean/sd {r['x1'][0]:+.3f} / "
+                f"{r['x1'][1]:.3f}, resid {r['resid'][0]:+.3f} / "
+                f"{r['resid'][1]:.3f}")),
+            ("spline_multimodal_2d", None, lambda r: (
+                f"negll spline {r['n_spl']:.4f} affine {r['n_aff']:.4f} "
+                f"bound {r['bound']:.4f}, balance {r['balance']:.3f}, gap "
+                f"{r['gap']:.4f}, VI balance {r['balance_vi']:.3f}"))):
+        pipeline = name == "full_pipeline"
+        rep, launches, wall, rc = example_run(name, counters,
+                                              gated=not pipeline)
+        cfg = EXAMPLES[name]
+        example_gate_launches(name, launches, {} if want is None else {
+            want: cfg["batches"] * cfg["epochs"]})
+        if pipeline:
+            # Its SMC cross-check is gated as the script gates it; its NUTS
+            # agreement and ESS ratio (the return code) are printed at
+            # this depth (see EXAMPLES).
+            smc_err = float(np.abs(rep["smc_med"] - rep["data_med"]).max())
+            check(abs(rep["logz"]) < 0.2 and smc_err < 0.15,
+                  f"[example full_pipeline]: SMC log Z {rep['logz']:.4f}, "
+                  f"median err {smc_err:.4f}")
+        example_line(name, launches, f"{wall:.1f} s", detail(rep)
+                     + (f"; return {rc} (NUTS gates not held at this "
+                        f"depth)" if pipeline else ""), card)
+        paths[name] = launches
+    return paths
+
+
+def phase_b3_examples(et, EW, device, card):
+    """``[B3 examples]``: B3 on the whitening examples' models at their
+    batch shapes (nf_example_1d d=1 n=1,000, nf_example_2d d=2 n=100,
+    full_pipeline d=2 n=250), on data from their ground truths: the negll
+    and every gradient against the plain version in float32 and float64
+    (``close_to_f64``), then the kernel's time against the plain version's
+    (CUDA events: at these sizes the host's launch rate paces both), with
+    the byte bound. Returns {shape: times}."""
+    from enflows_tpu_torch.examples import full_pipeline as FP
+    from enflows_tpu_torch.examples import nf_example_1d as E1
+    from enflows_tpu_torch.examples import nf_example_2d as E2
+
+    gen = torch.Generator(device=device).manual_seed(70)
+    reflection = lambda: torch.randn(2, generator=gen, device=device)
+    out = {}
+    for label, ex, model, d, n in (
+            ("nf_example_1d", E1, E1.model(device), 1, 1000),
+            ("nf_example_2d", E2, E2.model(reflection()), 2, 100),
+            ("full_pipeline", FP, FP.model(reflection()), 2, 250)):
+        with torch.no_grad():
+            x = ex.ground_truth(device)(torch.randn(n, d, generator=gen,
+                                                    device=device))
+        v, g = EW.fused_negll_value_and_grad(model, x)
+        v0, g0 = EW.negll_value_and_grad_plain(model, x)
+        # The float64 reference on the host: a few hundred rows.
+        v64, g64 = EW.negll_value_and_grad_plain(
+            copy.deepcopy(model).cpu().double(), x.cpu().double())
+        v64 = v64.to(device)
+        g64 = {k: g.to(device) for k, g in g64.items()}
+        what = f"[B3 examples] {label} d={d} n={n}"
+        errs = [close_to_f64(v, v0, v64, NEGLL_RTOL, what + " negll")]
+        errs += [close_to_f64(g[k], g0[k], g64[k], G_RTOL,
+                              f"{what} grad {k}") for k in g64]
+        plan, bufs = EW._chain_plan(model, d, device)
+        bufs = tuple(b.detach() for b in bufs)
+        kernel = lambda: EW._launch("negll", plan, x, bufs)
+        plain = lambda: EW.negll_value_and_grad_plain(model, x)
+        p1, k1, k2, p2 = (cuda_ms(f, iters=20) for f in (plain, kernel,
+                                                         kernel, plain))
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        k = 1 if d == 2 else 0
+        t = {**bound_of(4 * n * d, 3 * n * hh_flops(d, k)), "ms": ms,
+             "plain_ms": plain_ms, "max_abs_err": max(errs)}
+        out[f"d={d} n={n} ({label})"] = t
+        print(f"{what}: negll {float(v):.7f} vs plain {float(v0):.7f}, "
+              f"worst |kernel - f64| {max(errs):.3e}; kernel "
+              f"{shape_text(t)} (CUDA events over 20 calls, paced by the "
+              f"host at these sizes); "
+              f"{chain_geometry_text(EW, plan, n, 'negll')} [{card}]",
+              flush=True)
+    return out
+
+
+def phase_mesh_shapes(et, EW, C, device, card):
+    """``[mesh shapes]``: each kernel's device time at the shapes a rank
+    gives it in the mesh phases (the same kernels on the same card, in
+    this process): B1 and B2 on the d=50 default template at 2^17 and
+    2^16 rows (VI at one and two ranks), on the SMC transport's ScaleShift
+    at its fit (B1 + B2) and application (B1) rows, 100-D at 8,192 /
+    16,384 (two ranks) and 2-D at 32,768 / 65,536 (one rank), B1 on the
+    event-sharded chain's 32 columns at 2^20 rows; B3 on the flagship flow
+    at d=2, 2^19 rows; B4/B5 on the affine VI template at d=64, 2^17 rows
+    (CUDA events), with the conditioner products alone in TF32
+    torch.matmul. Returns {kernel key: {shape: times}}."""
+    from enflows_tpu_torch.smc.flow_transport import default_template
+
+    gen = torch.Generator(device=device).manual_seed(72)
+    shapes = {k: {} for k in ("fwd", "bwd", "negll", "coupling_fwd",
+                              "coupling_bwd")}
+
+    def ew(flow, d, n, keys, label, k=0):
+        x = torch.randn(n, d, generator=gen, device=device)
+        for key in keys:
+            ms, plain, _ = ew_kernel_times(EW, flow, x, key)
+            if key == "negll":
+                nbytes, flops = 4 * n * d, 3 * n * hh_flops(d, k)
+            else:
+                nbytes = 4 * n * ((2 if key == "fwd" else 3) * d + 1)
+                flops = n * hh_flops(d, k) * (1 if key == "fwd" else 2)
+            shapes[key][f"d={d} n={n} ({label})"] = {
+                **bound_of(nbytes, flops), "ms": ms, "plain_ms": plain}
+
+    t50 = et.default_flow_template(50, gen)
+    for n, ranks in ((1 << 17, "w1"), (1 << 16, "w2")):
+        ew(t50, 50, n, ("fwd", "bwd"), f"mesh vi elementwise {ranks}", 4)
+    for d, n, ranks in ((100, 16384, "w2"), (2, 65536, "w1")):
+        flow = default_template(torch.randn(n, d, generator=gen,
+                                            device=device))
+        ew(flow, d, n // 2, ("fwd", "bwd"), f"mesh smc fit {ranks}")
+        ew(flow, d, n, ("fwd",), f"mesh smc apply {ranks}")
+    d = MESH_EVENT["dim"] // 2
+    vec = lambda v: torch.full((d,), v, device=device)
+    event = et.compose(
+        et.Johnson(vec(0.0), vec(5.0), vec(0.0), vec(5.0)),
+        et.ScaleShift(torch.linspace(0.5, 2.0, d, device=device), vec(0.0)),
+        et.invert(et.CenterStretch(vec(0.5), vec(1.0), vec(0.0))))
+    ew(event, d, MESH_EVENT["n"], ("fwd",), "mesh event w2")
+    ew(flagship_flow(et, 2, gen, device), 2, 1 << 19, ("negll",),
+       "mesh whitening w2", 4)
+    flow = et.coupling_flow_template(
+        BASELINE["n_layers"], BASELINE["hidden"], kind="affine")(
+            BASELINE["dim"], gen)
+    t = coupling_kernel_times(C, flow, torch.randn(
+        1 << 17, BASELINE["dim"], generator=gen, device=device))
+    label = f"d={BASELINE['dim']} n={1 << 17} (mesh vi affine w1, w2)"
+    shapes["coupling_fwd"][label] = t["b4"]
+    shapes["coupling_bwd"][label] = t["b5"]
+    for key, times in shapes.items():
+        how = "CUDA events" if key.startswith("coupling") else \
+            "device time, queued"
+        print(f"[mesh shapes] {key} ({how}): "
+              + "; ".join(f"{s} {shape_text({'library_ms': None, **t})}"
+                          for s, t in times.items()) + f" [{card}]",
+              flush=True)
+    return shapes
 
 
 # ----------------------------------------------------------------------
@@ -6175,7 +6521,17 @@ def main():
         print(f"[time] chip_smoke.py --infer-probe "
               f"{time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
         raise SystemExit(0)
+    if sys.argv[1:2] == ["--examples"]:
+        examples_at_defaults(sys.argv[2:] or list(EXAMPLES),
+                             (TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES), smi)
+        print(f"[time] chip_smoke.py --examples "
+              f"{time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
+        raise SystemExit(0)
 
+    # The phases that only time (profiles, [householder auto], [hmc
+    # timing], [nuts timing], [chees timing], [infer timing]) gate nothing
+    # and run only with --timing, so that the default run fits its time.
+    timing = "--timing" in sys.argv[1:]
     gen = torch.Generator(device=device).manual_seed(0)
     b1 = phase_b1(et, EW, 2, 1 << 24, gen, device, smi)
     phase_b1(et, EW, 50, 1 << 17, gen, device, smi)
@@ -6189,6 +6545,7 @@ def main():
     phase_sweep(et, EW, gen, device)
     phase_corners(et, EW, device)
     phase_b3(et, EW, 50, 1 << 17, gen, device, smi)
+    b3_examples = phase_b3_examples(et, EW, device, smi)
 
     # The slice. Data and models are made before the counters are reset.
     f_true, model_2d = example_2d(et, gen, device)
@@ -6227,9 +6584,11 @@ def main():
               f"{fused_step:.3f}, plain "
               f"{min(t for t, _ in runs['plain']):.3f} [{smi}]", flush=True)
         check(rel <= SLICE_RTOL, f"{k}: fused vs plain history {rel:.3e}")
-        profile_whitening_steps(k, m, X, fused_step, smi)
-    phase_householder_auto(
-        et, torch.Generator(device=device).manual_seed(7), device, smi)
+        if timing:
+            profile_whitening_steps(k, m, X, fused_step, smi)
+    if timing:
+        phase_householder_auto(
+            et, torch.Generator(device=device).manual_seed(7), device, smi)
 
     # The coupling-flow path: B4 and B5 at the BASELINE config, the sweep,
     # then the slice, one main-path run per stack.
@@ -6249,7 +6608,8 @@ def main():
         print(f"[launches] coupling slice {k}: {coupling_launches[k]}",
               flush=True)
         coupling_slice_timing(k, initial_stacks[k], X64, hist, gen, smi)
-        profile_coupling_steps(k, initial_stacks[k], X64, smi)
+        if timing:
+            profile_coupling_steps(k, initial_stacks[k], X64, smi)
 
     # bf16: B1-B3, B6 and B4/B5's bf16 variants against their plain
     # versions, then the slices that run them, on generators of their own.
@@ -6282,12 +6642,11 @@ def main():
     b6["max_abs_err"] = max(b6["max_abs_err"], phase_b6_adapted(
         TL, target.whiten, res.draws[:, -1].contiguous(), res.stats.step_size,
         gen, device, smi))
-    _, hmc_example_launches = hmc_route(
-        et, TL, "examples/fused_pushforward_hmc.py", example_d8(
-            et, gen, device), 8, 256, 200, 250,
-        torch.Generator(device=device).manual_seed(4), smi)
-    hmc_t = hmc_timing(TL, target.whiten, res.stats.step_size, gen, device,
-                       smi)
+    hmc_example_launches = example_pushforward_hmc(
+        (TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES), smi)
+    if timing:
+        hmc_t = hmc_timing(TL, target.whiten, res.stats.step_size, gen,
+                           device, smi)
 
     # NUTS and ChEES through sample and infer, no kernel on their path; each
     # run with the launch counters set to 0 just before it and read just
@@ -6304,7 +6663,7 @@ def main():
     infer_pushforward_tree(et, target, d_lf, counters,
                            torch.Generator(device=device).manual_seed(46),
                            smi)
-    for alg in ("nuts", "chees"):
+    for alg in ("nuts", "chees") if timing else ():
         tree_timing(et, NU, alg, target, *tree[alg],
                     hmc_t["fused_ms_per_transition"], smi)
 
@@ -6317,7 +6676,12 @@ def main():
     # refine_rounds, the B4/B5 hold at the ladder's shapes and the timing.
     # Each phase draws from generators of its own.
     infer_runs, infer_times, infer_hold_err = infer_phases(
-        et, EW, C, counters, device, smi)
+        et, EW, C, counters, device, smi, timing)
+
+    # The example scripts, each module's main() as a user runs it (the
+    # one-call example ran with the infer phases, the d=8 HMC example with
+    # the HMC slice).
+    example_paths = example_phases(counters, smi)
 
     # The CLI (python -m enflows_tpu_torch.cli): train through B3 killed and
     # resumed, the ELBO and infer commands through B1/B2, sample; then the
@@ -6327,6 +6691,7 @@ def main():
     # The multi-device layer: a rank a child process, NCCL at one rank,
     # then two ranks sharing the card over gloo; the torchrun CLI.
     mesh_paths, _ = mesh_phases(et, device, smi)
+    mesh_times = phase_mesh_shapes(et, EW, C, device, smi)
 
     def mesh_launches(key):
         return {f"{path} (summed over ranks)": n[key]
@@ -6358,10 +6723,14 @@ def main():
                          for k in ("ms", "plain_ms", "bound_ms")})
             vals["max_abs_err"] = max(vals["max_abs_err"],
                                       held["max_abs_err"])
-    # The kernels' times at the infer phases' shapes.
+    # The kernels' times at the infer phases' and the mesh ranks' shapes.
     for key, vals in (("fwd", b1), ("bwd", b2), ("negll", b3)):
         vals["infer_shapes"] = infer_times[key]
+        vals["mesh_shapes"] = mesh_times[key]
     b3["cli_train"] = cli_times
+    b3["example_shapes"] = b3_examples
+    b3["max_abs_err"] = max(b3["max_abs_err"], *(
+        t["max_abs_err"] for t in b3_examples.values()))
     rows = [("B1 fused_forward_and_ladj", ew_paths["fwd"], src,
              f"{pallas}:442", b1),
             ("B2 fused forward backward", ew_paths["bwd"], src,
@@ -6369,6 +6738,8 @@ def main():
             ("B3 fused_negll_value_and_grad",
              {"whitening slice (d=2, n=2^20)": launches["negll"],
               **infer_paths("negll"), **cli_paths["negll"],
+              **{f"example {k}": n["negll"]
+                 for k, n in example_paths.items() if n["negll"]},
               **mesh_launches("negll")}, src,
              f"{pallas}:853", b3)]
     csrc = "enflows_tpu_torch/ops/csrc/coupling.cu"
@@ -6387,20 +6758,21 @@ def main():
         yard = {b: {f"{key}_vi_template": v[key] for key in
                     ("plain_ms", "library_ms", "bound_ms")}
                 for b, v in t["yardsticks"].items()}
-        infer = {} if k == "affine" else {
-            "infer_hold_max_abs_err": infer_hold_err}
+        # The affine rows carry the mesh ranks' shapes, the spline rows
+        # the infer phases'.
+        extra = lambda key: {"mesh_shapes": mesh_times[key]} \
+            if k == "affine" else {"infer_hold_max_abs_err": infer_hold_err,
+                                   "infer_shapes": infer_times[key]}
         rows += [(f"B4 fused_coupling_forward_and_ladj ({k} BASELINE)",
                   paths["coupling_fwd"], csrc, f"{cpallas}:678",
                   {**b4[k], "ms_vi_template": t["b4_ms_vi_template"],
                    "tile_vi_template": t["b4_tile_vi_template"],
-                   **yard["b4"], **infer, **({} if k == "affine" else {
-                       "infer_shapes": infer_times["coupling_fwd"]})}),
+                   **yard["b4"], **extra("coupling_fwd")}),
                  (f"B5 fused coupling backward ({k} BASELINE)",
                   paths["coupling_bwd"], csrc, f"{cpallas}:617",
                   {**b5[k], "ms_vi_template": t["ms_vi_template"],
                    "tile_vi_template": t["tile_vi_template"],
-                   **yard["b5"], **infer, **({} if k == "affine" else {
-                       "infer_shapes": infer_times["coupling_bwd"]})})]
+                   **yard["b5"], **extra("coupling_bwd")})]
     rows.append((f"B6 fused_leapfrog (BASELINE {LF['chains']} x {d_lf} x "
                  f"{LF['steps']})",
                  {"hmc slice (8192 x d=50 x L=64)": hmc_launches["leapfrog"],
@@ -6418,8 +6790,8 @@ def main():
             "plain_ms_d50", "bound_ms_d50", "ms_smc_fit", "plain_ms_smc_fit",
             "bound_ms_smc_fit", "ms_smc_apply", "plain_ms_smc_apply",
             "bound_ms_smc_apply", "infer_hold_max_abs_err", "infer_shapes",
-            "cli_train", "ms_f32_twin", "ms_f32_twin_d50",
-            "ms_bf16_storage")
+            "cli_train", "example_shapes", "mesh_shapes", "ms_f32_twin",
+            "ms_f32_twin_d50", "ms_bf16_storage")
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s, the "
           f"build included [{smi}]", flush=True)
     print(json.dumps({"kernels": [
