@@ -304,9 +304,8 @@ from generators of its own:
    elementwise rung's 500 B1 + B2), [2] ``data=`` (exactly 1,600 B3), [3]
    SMC at 16,384 particles (no kernel); launches exactly as the dispatch
    rule gives the fits, [1] and [2] finite, [2]'s mean within the same
-   bound, rhat printed (its NUTS through the fitted flows runs hundreds
-   of leaves a transition at ~1-3 ms a leaf: 485 s at the script's
-   400 + 500 on an NVIDIA H100);
+   bound, rhat printed (its NUTS through the fitted flows runs deep
+   trees, a few milliseconds of host work a leaf);
 31. ``[infer refine]``: test_infer.py:101's target and gates, one
    refinement round, NUTS at 8 chains x 150 + 100 a round;
 32. ``[infer B4/B5 hold]`` (ROADMAP C-3): B4 and B5 on every coupling flow
@@ -336,7 +335,7 @@ from generators of its own:
    code: nf_example_1d (exactly 1,000 B3 at d=1), nf_example_2d (10,000
    B3 at d=2), full_pipeline (2,000 B3, then NUTS raw and preconditioned
    at 10 + 10 and SMC, no kernel; its SMC gates held, its NUTS gates
-   printed: JAX's own adaptation runs 860 leaves a transition there),
+   printed: through the fitted flow its trees run deep),
    coupling_conditional_2d (30 epochs, NUTS 200 + 200) and
    spline_multimodal_2d (150 VI steps); no launch in the last two: d=2
    batches take the plain path by the row rule, ROADMAP C-3.
@@ -4323,11 +4322,10 @@ def infer_probe(et, C, device, card):
 # The depths each example runs at here: the JAX scripts' widths (dims, data
 # sizes, layers, bins, chains, particles) and, where the run fits the
 # script's time, their depths. one_call_infer's and full_pipeline's NUTS
-# run through flow densities whose adapted trees are hundreds of leaves
-# deep (JAX's own full_pipeline adapts to step 0.0021 and 860 leaves a
-# transition), at ~1-3 ms a leaf here: their full depths take 485 s and
-# more than 2,900 s on an NVIDIA H100, so they run at 10 + 10 and their NUTS
-# statistics are printed, not gated (PERF.md §4); [infer data 2d] keeps
+# run through flow densities whose adapted trees are deep, every leaf a
+# few milliseconds of host work: at their full depths they outlast this
+# script (PERF.md §6), so they run at 10 + 10 and their NUTS statistics
+# are printed, not gated (PERF.md §4); [infer data 2d] keeps
 # one_call_infer [2]'s gates at 100 + 50 on its own seed.
 EXAMPLES = {
     "one_call_infer": dict(vi_steps=500, warmup=10, samples=10,
