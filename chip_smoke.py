@@ -32,7 +32,7 @@ exception exits non-zero and prints no result:
    (|b x| >> 88; finite values and gradients); ``[B3 examples]``: B3 on the
    whitening examples' models at their batch shapes (d=1 n=1,000, d=2
    n=100 and n=250) against the plain version in float32 and float64,
-   timed. Each B1-B3 line gives the
+   timed by queued device time. Each B1-B3 line gives the
    launch (lanes per sample, elements per lane, blocks per SM, registers)
    and the flagship's special functions at the MUFU rate beside the byte
    bound;
@@ -202,7 +202,15 @@ clock), then ``torch.profiler`` over 4 fused steps.
 
 NUTS and ChEES run after 13. No kernel is on their path (the JAX tree
 samplers reach none either); each run sets the launch counters to 0 just
-before it, reads them just after and fails if any kernel launched:
+before it, reads them just after and fails if any kernel launched. The
+NUTS and HMC kernels replay the density and its backward as a CUDA graph
+(``mcmc.hmc.graphed_value_and_grad``); first
+
+``[nuts graph]``: on full_pipeline's preconditioned density at 64 chains,
+the graph's log densities and gradients against eager autograd's (equal
+to 1e-6 relative, the density captured once and never run eagerly), 3
+NUTS transitions each way from one state and seed (the draws' difference
+printed) and the host-clock ms a lockstep leaf each way;
 
 18. ``[nuts slice]`` / ``[chees slice]``: ``sample(target,
    algorithm='nuts'/'chees')`` on the HMC slice's BASELINE pushforward,
@@ -294,18 +302,13 @@ from generators of its own:
    SMC on the raw target, with exactly the rule's launches (5 B1 and 5
    B2; the spline rung and the whitening on the plain path), the
    unweighted share right of 0 printed, not gated (ROADMAP C-10);
-30. ``[infer data 2d]``: examples/one_call_infer.py's case [2] with
-   100,000 draws as ``data=``, whiten_batches=200, whiten_epochs=8, NUTS
-   at 8 chains x 100 + 50:
-   exactly 1,600 B3 launches, rhat < 1.05, the mean within
-   test_infer.py:92-94's bound; then ``[example one_call_infer]``: the
-   port's module's ``main()`` at ``EXAMPLES``' depth (NUTS 10 + 10), its
-   three cases: [1] the auto ladder (the
-   elementwise rung's 500 B1 + B2), [2] ``data=`` (exactly 1,600 B3), [3]
-   SMC at 16,384 particles (no kernel); launches exactly as the dispatch
-   rule gives the fits, [1] and [2] finite, [2]'s mean within the same
-   bound, rhat printed (its NUTS through the fitted flows runs deep
-   trees, a few milliseconds of host work a leaf);
+30. ``[example one_call_infer]``: the port's module's ``main()`` at
+   ``EXAMPLES``' depth (the JAX script's), its three cases: [1] the auto
+   ladder (the elementwise rung's 500 B1 + B2), [2] ``data=`` with
+   100,000 draws, whiten_batches=200, whiten_epochs=8 (exactly 1,600 B3),
+   [3] SMC at 16,384 particles (no kernel); launches exactly as the
+   dispatch rule gives the fits, [1] and [2] finite with rhat < 1.05,
+   [2]'s mean within test_infer.py:92-94's bound;
 31. ``[infer refine]``: test_infer.py:101's target and gates, one
    refinement round, NUTS at 8 chains x 150 + 100 a round;
 32. ``[infer B4/B5 hold]`` (ROADMAP C-3): B4 and B5 on every coupling flow
@@ -334,8 +337,7 @@ from generators of its own:
    before it and read just after, its own gates deciding its return
    code: nf_example_1d (exactly 1,000 B3 at d=1), nf_example_2d (10,000
    B3 at d=2), full_pipeline (2,000 B3, then NUTS raw and preconditioned
-   at 10 + 10 and SMC, no kernel; its SMC gates held, its NUTS gates
-   printed: through the fitted flow its trees run deep),
+   at 50 + 500, its leaves through CUDA graphs, and SMC, no kernel),
    coupling_conditional_2d (30 epochs, NUTS 200 + 200) and
    spline_multimodal_2d (150 VI steps); no launch in the last two: d=2
    batches take the plain path by the row rule, ROADMAP C-3.
@@ -3479,23 +3481,17 @@ INFER_50D = dict(dim=50, rho=0.9, chains=128, warmup=10, samples=10,
                  max_depth=4)
 INFER_ELEMENTWISE_50D = dict(chains=32, warmup=150, samples=300,
                              max_depth=10)
-# tests/test_infer.py:303 and :353; examples/one_call_infer.py case [2];
-# test_infer.py:101.
+# tests/test_infer.py:303 and :353; test_infer.py:101.
 INFER_BIMODAL = dict(vi_steps=200, vi_batch=256, whiten_batches=16,
                      whiten_epochs=8, num_chains=8, num_warmup=100,
                      num_samples=100)
 INFER_HARD = dict(vi_steps=5, vi_batch=128, whiten_batches=16,
                   whiten_epochs=8, num_chains=8, num_warmup=150,
                   num_samples=150)
-# The example's NUTS (8 chains x 400 + 500) cut to 100 + 100 (100 + 50 for
-# the mesh phases), the bimodal
-# test's (200 + 400) to 100 + 200, and to 100 + 100 for the mesh phases
-# (PERF.md §4).
-INFER_DATA = dict(n=100_000, whiten_batches=200, whiten_epochs=8,
-                  num_chains=8, num_warmup=100, num_samples=50)
+# The refinement test's NUTS (300 + 400) cut to 150 + 100 (PERF.md §4).
 INFER_REFINE = dict(num_chains=8, num_warmup=150, num_samples=100)
 INFER_SEEDS = dict(auto=50, spline=51, elementwise=57, bimodal=52, hard=53,
-                   data=55, refine=56)
+                   refine=56)
 _LOG_2PI = 1.8378770664093453
 
 
@@ -3766,49 +3762,6 @@ def infer_escalation(et, TI, counters, device, card):
           flush=True)
     out["hard"] = (launches, clock)
     return out
-
-
-def infer_data_2d(et, TI, counters, device, card):
-    """``[infer data 2d]``: examples/one_call_infer.py's case [2] (the
-    bimodal CenterStretch pushforward, 100,000 draws as data) through
-    ``infer(data=X, whiten_batches=200, whiten_epochs=8)``: exactly 1,600 B3
-    launches (the inverted elementwise template's whitening steps) and no
-    other kernel; rhat < 1.05 and the mean within test_infer.py:92-94's
-    bound of the data's."""
-    cfg = INFER_DATA
-    v = lambda *a: torch.tensor(a, device=device)
-    f2 = et.compose(et.ScaleShift(v(1.3, 0.4), v(2.5, -1.2)),
-                    et.Householder(v(1.0, 0.3)[None]),
-                    et.CenterStretch(v(4.0, 4.1), v(2.0, 2.1), v(3.0, 3.1)))
-    t2 = et.FlowDistribution(f2).requires_grad_(False)
-    gen = torch.Generator(device=device).manual_seed(INFER_SEEDS["data"])
-    with torch.no_grad():
-        X = t2.sample(gen, (cfg["n"],), dim=2)
-    res, launches, wall, clock = infer_call(
-        et, TI, counters, t2.logpdf, dim=2, key=gen, data=X,
-        whiten_batches=cfg["whiten_batches"],
-        whiten_epochs=cfg["whiten_epochs"], num_chains=cfg["num_chains"],
-        num_warmup=cfg["num_warmup"], num_samples=cfg["num_samples"])
-    steps = cfg["whiten_batches"] * cfg["whiten_epochs"]
-    check({k: v for k, v in launches.items() if v} == {"negll": steps},
-          f"[infer data 2d]: launches {launches}, want {steps} B3")
-    dg = res.diagnostics
-    true_mean, true_sd = X.double().mean(0), X.double().std(0)
-    bound = 5 * float(true_sd.max()) / math.sqrt(dg["min_bulk_ess"]) + 0.05
-    mean_err = float((torch.as_tensor(dg["mean"]) - true_mean.cpu())
-                     .abs().max())
-    rhat = float(dg["rhat"].max())
-    check(rhat < 1.05 and mean_err < bound,
-          f"[infer data 2d]: rhat {rhat:.4f}, mean err {mean_err:.4f} "
-          f"(bound {bound:.4f})")
-    print(f"[infer data 2d] one_call_infer.py [2], {cfg['n']} draws, "
-          f"whiten_batches={cfg['whiten_batches']}, whiten_epochs="
-          f"{cfg['whiten_epochs']}: launches {launch_text(launches)}; max "
-          f"rhat {rhat:.4f}, mean err {mean_err:.4f} (bound {bound:.4f}), "
-          f"min bulk ESS {dg['min_bulk_ess']:.0f}, divergences "
-          f"{dg['divergences']}; wall {clock.text(wall)} [{card}]",
-          flush=True)
-    return launches, clock, X
 
 
 def infer_refine(et, TI, counters, device, card):
@@ -4125,10 +4078,11 @@ def infer_timing(et, EW, C, VI, TI, fits, data_x, device, card):
         flops = 1024 * hh_flops(50, 4) * (1 if key == "fwd" else 2)
         shapes[key]["d=50 n=1024 (infer auto 50d)"] = {
             **bound_of(nbytes, flops), "ms": ms, "plain_ms": plain}
-    white = by[("infer data 2d", "whitening")]
-    x = data_x[:data_x.shape[0] // INFER_DATA["whiten_batches"]]
+    white = by[("example one_call_infer", "whitening")]
+    x = data_x[:data_x.shape[0]
+               // EXAMPLES["one_call_infer"]["whiten_batches"]]
     ms, plain, _ = ew_kernel_times(EW, white, x, "negll")
-    shapes["negll"][f"d=2 n={x.shape[0]} (infer data 2d)"] = {
+    shapes["negll"][f"d=2 n={x.shape[0]} (example one_call_infer)"] = {
         **bound_of(4 * x.numel(), 3 * x.shape[0] * hh_flops(2, 2)),
         "ms": ms, "plain_ms": plain}
     seen = set()
@@ -4280,10 +4234,9 @@ def infer_phases(et, EW, C, counters, device, card, timing=True):
     for name, (launches, clock) in infer_escalation(
             et, TI, counters, device, card).items():
         keep(f"infer escalation 2d {name}", shapes[name], launches, clock)
-    launches, clock, data_x = infer_data_2d(et, TI, counters, device, card)
-    keep("infer data 2d", "d=2, whitening n=500", launches, clock)
-    runs["example one_call_infer (d=2, vi n=1024, whitening n=500)"] = \
-        example_one_call_infer(TI, C, counters, card)
+    launches, clock, data_x = example_one_call_infer(TI, C, counters, card)
+    keep("example one_call_infer", "d=2, vi n=1024, whitening n=500",
+         launches, clock)
     launches, clock = infer_refine(et, TI, counters, device, card)
     keep("infer refine", "d=2, whitening n=32", launches, clock)
 
@@ -4321,19 +4274,19 @@ def infer_probe(et, C, device, card):
 
 # The depths each example runs at here: the JAX scripts' widths (dims, data
 # sizes, layers, bins, chains, particles) and, where the run fits the
-# script's time, their depths. one_call_infer's and full_pipeline's NUTS
-# run through flow densities whose adapted trees are deep, every leaf a
-# few milliseconds of host work: at their full depths they outlast this
-# script (PERF.md §6), so they run at 10 + 10 and their NUTS statistics
-# are printed, not gated (PERF.md §4); [infer data 2d] keeps
-# one_call_infer [2]'s gates at 100 + 50 on its own seed.
+# script's time, their depths. NUTS through a fitted flow adapts a small
+# step and deep trees (the JAX package's too, PERF.md §6); its leaves
+# replay the density as a CUDA graph (mcmc.hmc.graphed_value_and_grad).
+# full_pipeline's warmup is cut to 50: the shorter adaptation keeps a
+# larger step, and its 500 samples keep the preconditioned ESS its median
+# gate needs (PERF.md §4 gives the gates' values on five seeds).
 EXAMPLES = {
-    "one_call_infer": dict(vi_steps=500, warmup=10, samples=10,
+    "one_call_infer": dict(vi_steps=500, warmup=400, samples=500,
                            whiten_batches=200, whiten_epochs=8),
     "fused_pushforward_hmc": dict(warmup=200, samples=500),
     "nf_example_1d": dict(batches=100, epochs=10),
     "nf_example_2d": dict(batches=1000, epochs=10),
-    "full_pipeline": dict(batches=200, epochs=10, warmup=10, samples=10),
+    "full_pipeline": dict(batches=200, epochs=10, warmup=50, samples=500),
     "coupling_conditional_2d": dict(epochs=30, warmup=200, samples=200),
     "spline_multimodal_2d": dict(vi_steps=150),
 }
@@ -4345,50 +4298,47 @@ def example_argv(name):
             for a in (f"--{k.replace('_', '-')}", str(v))]
 
 
-def example_run(name, counters, gated=True):
-    """``enflows_tpu_torch.examples.<name>.main`` on the card at
-    ``EXAMPLES[name]``'s depths, the launch counters set to 0 just before
-    and read just after; with ``gated``, fails the run on a non-zero
-    return. Returns (the report main filled, launches, seconds, the
-    return code)."""
+def example_run(name, counters, argv=None):
+    """``enflows_tpu_torch.examples.<name>.main(argv)`` on the card
+    (``argv``: ``EXAMPLES[name]``'s depths by default, [] for the JAX
+    script's defaults), the launch counters and ``mcmc.hmc.GRAPHS`` set to
+    0 just before and read just after; fails the run on a non-zero return.
+    Returns (the report main filled, launches, seconds, the graphs)."""
     import importlib
+    from enflows_tpu_torch.mcmc import hmc
     ex = importlib.import_module(f"enflows_tpu_torch.examples.{name}")
-    argv = example_argv(name)
+    argv = example_argv(name) if argv is None else argv
     print(f"[example {name}] main({argv}):", flush=True)
     report = {}
-    reset_launches(*counters)
+    reset_launches(*counters, hmc.GRAPHS)
     t0 = time.perf_counter()
     rc = ex.main(argv, report=report)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches(counters)
-    check(rc == 0 or not gated, f"[example {name}]: main returned {rc}")
-    return report, launches, wall, rc
+    check(rc == 0, f"[example {name}]: main returned {rc}")
+    return report, launches, wall, dict(hmc.GRAPHS)
 
 
 def examples_at_defaults(names, counters, card):
     """``--examples [name ...]``: each named example's ``main([])`` at the
-    JAX script's defaults, the launch counters set to 0 just before and read
-    just after; prints its seconds, launches and the numbers it reported,
-    and fails the run on a non-zero return."""
-    import importlib
+    JAX script's defaults (``example_run``); prints its seconds, launches,
+    graphs and the numbers it reported."""
     for name in names:
-        ex = importlib.import_module(f"enflows_tpu_torch.examples.{name}")
-        print(f"[example {name}] main([]), the JAX script's defaults:",
-              flush=True)
-        report = {}
-        reset_launches(*counters)
-        t0 = time.perf_counter()
-        rc = ex.main([], report=report)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        report, launches, wall, graphs = example_run(name, counters, [])
         numbers = {k: v for k, v in report.items()
                    if isinstance(v, (int, float, np.ndarray))
                    or (type(v) is tuple and all(
                        isinstance(u, (int, float)) for u in v))}
-        example_line(name, kernel_launches(counters), f"{wall:.1f} s",
-                     f"return {rc}; {numbers}", card)
-        check(rc == 0, f"[example {name}]: main returned {rc}")
+        example_line(name, launches, f"{wall:.1f} s",
+                     f"the JAX script's defaults; {graph_text(graphs)}; "
+                     f"{numbers}", card)
+
+
+def graph_text(graphs):
+    return (f"sampler densities {graphs['captured']} captured as CUDA "
+            f"graphs ({graphs['replays']} replays), {graphs['eager']} run "
+            f"eagerly")
 
 
 def example_line(name, launches, seconds, detail, card):
@@ -4408,22 +4358,28 @@ def example_one_call_infer(TI, C, counters, card):
     """``[example one_call_infer]``: [1] the auto ladder (its elementwise
     rung B1 + B2 a VI step), [2] ``data=`` (B3 a whitening step: 1,600 at
     200 x 8), [3] SMC (no kernel); launches exactly as the dispatch rule
-    gives the fits ``infer`` made, [1] and [2]'s draws finite and [2]'s
-    mean within test_infer.py:92-94's bound of the data's. The JAX script
-    only prints; at ``EXAMPLES``' NUTS depth rhat is printed, not gated
-    ([infer data 2d] holds [2]'s rhat). Returns the launches."""
+    gives the fits ``infer`` made, [1] and [2]'s draws finite with rhat <
+    1.05, and [2]'s mean within test_infer.py:92-94's bound of the data's.
+    The JAX script only prints; these are the gates test_infer.py holds
+    such runs to. Returns (launches, the clock, the data)."""
     cfg = EXAMPLES["one_call_infer"]
     with infer_clock(TI) as clock:
-        rep, launches, wall, _ = example_run("one_call_infer", counters)
+        rep, launches, wall, graphs = example_run("one_call_infer", counters)
     steps = {"vi": cfg["vi_steps"],
              "whitening": cfg["whiten_batches"] * cfg["whiten_epochs"]}
     want = expected_launches(C, clock, steps)
     check(launches == want and launches["negll"] == steps["whitening"],
           f"[example one_call_infer]: launches {launch_text(launches)}, "
           f"want {launch_text(want)} with {steps['whitening']} B3")
+    check(graphs["captured"] > 0,
+          f"[example one_call_infer]: {graph_text(graphs)}")
+    rhat = {}
     for case in ("r1", "r2"):
-        check(bool(torch.isfinite(rep[case].draws).all()),
-              f"[example one_call_infer] {case}: draws not finite")
+        rhat[case] = float(rep[case].diagnostics["rhat"].max())
+        check(bool(torch.isfinite(rep[case].draws).all())
+              and rhat[case] < 1.05,
+              f"[example one_call_infer] {case}: rhat {rhat[case]:.4f}, "
+              f"draws finite {bool(torch.isfinite(rep[case].draws).all())}")
     dg, X = rep["r2"].diagnostics, rep["X"]
     bound = 5 * float(X.double().std(0).max()) / math.sqrt(
         dg["min_bulk_ess"]) + 0.05
@@ -4434,12 +4390,13 @@ def example_one_call_infer(TI, C, counters, card):
     d1, d3 = rep["r1"].diagnostics, rep["r3"].diagnostics
     example_line("one_call_infer", launches, clock.text(wall),
                  f"[1] family {d1.get('precondition_family')}, rhat "
-                 f"{float(d1['rhat'].max()):.4f} (not gated); [2] rhat "
-                 f"{float(dg['rhat'].max()):.4f} (not gated), mean err "
-                 f"{mean_err:.4f} (bound {bound:.4f}); [3] log Z "
-                 f"{d3['log_z']:.4f}, {len(rep['r3'].stats)} temperatures",
-                 card)
-    return launches
+                 f"{rhat['r1']:.4f}; [2] rhat {rhat['r2']:.4f}, mean err "
+                 f"{mean_err:.4f} (bound {bound:.4f}), min bulk ESS "
+                 f"{dg['min_bulk_ess']:.0f}; rhat gated < 1.05 on [1] and "
+                 f"[2]; [3] log Z {d3['log_z']:.4f}, "
+                 f"{len(rep['r3'].stats)} temperatures; "
+                 f"{graph_text(graphs)}", card)
+    return launches, clock, X
 
 
 def example_pushforward_hmc(counters, card):
@@ -4472,7 +4429,9 @@ def example_pushforward_hmc(counters, card):
 def example_phases(counters, card):
     """The whitening examples (B3 a step), full_pipeline (B3, then NUTS and
     SMC with no kernel) and the two coupling examples (no kernel: d=2
-    batches take the plain path by the row rule, C-3). Returns {path:
+    batches take the plain path by the row rule, C-3), each failing the run
+    if its own gates fail; full_pipeline's and coupling_conditional_2d's
+    NUTS must have replayed CUDA graphs of their densities. Returns {path:
     launches}."""
     paths = {}
     for name, want, detail in (
@@ -4485,11 +4444,15 @@ def example_phases(counters, card):
             ("full_pipeline", "negll", lambda r: (
                 f"medians NUTS {np.round(r['nuts_med'], 3)} SMC "
                 f"{np.round(r['smc_med'], 3)} data "
-                f"{np.round(r['data_med'], 3)}, log Z {r['logz']:.4f} "
-                f"({r['temperatures']} temperatures), min ESS raw "
-                f"{r['ess_raw']:.0f} / preconditioned {r['ess_pre']:.0f} "
-                f"(raw {r['t_raw']:.1f} s, preconditioned "
-                f"{r['t_pre']:.1f} s)")),
+                f"{np.round(r['data_med'], 3)} (max errors "
+                f"{np.abs(r['nuts_med'] - r['data_med']).max():.4f} / "
+                f"{np.abs(r['smc_med'] - r['data_med']).max():.4f} < 0.15),"
+                f" log Z {r['logz']:.4f} ({r['temperatures']} "
+                f"temperatures), min ESS raw {r['ess_raw']:.0f} / "
+                f"preconditioned {r['ess_pre']:.0f} (ratio "
+                f"{r['ess_pre'] / r['ess_raw']:.1f} > 10; raw "
+                f"{r['t_raw']:.1f} s, preconditioned {r['t_pre']:.1f} s, "
+                f"{r['div_pre']} divergences)")),
             ("coupling_conditional_2d", None, lambda r: (
                 f"cov - I {np.abs(r['cov'] - np.eye(2)).max():.4f}, rhat "
                 f"{r['rhat']:.4f}, x1 mean/sd {r['x1'][0]:+.3f} / "
@@ -4499,25 +4462,79 @@ def example_phases(counters, card):
                 f"negll spline {r['n_spl']:.4f} affine {r['n_aff']:.4f} "
                 f"bound {r['bound']:.4f}, balance {r['balance']:.3f}, gap "
                 f"{r['gap']:.4f}, VI balance {r['balance_vi']:.3f}"))):
-        pipeline = name == "full_pipeline"
-        rep, launches, wall, rc = example_run(name, counters,
-                                              gated=not pipeline)
+        rep, launches, wall, graphs = example_run(name, counters)
         cfg = EXAMPLES[name]
         example_gate_launches(name, launches, {} if want is None else {
             want: cfg["batches"] * cfg["epochs"]})
-        if pipeline:
-            # Its SMC cross-check is gated as the script gates it; its NUTS
-            # agreement and ESS ratio (the return code) are printed at
-            # this depth (see EXAMPLES).
-            smc_err = float(np.abs(rep["smc_med"] - rep["data_med"]).max())
-            check(abs(rep["logz"]) < 0.2 and smc_err < 0.15,
-                  f"[example full_pipeline]: SMC log Z {rep['logz']:.4f}, "
-                  f"median err {smc_err:.4f}")
-        example_line(name, launches, f"{wall:.1f} s", detail(rep)
-                     + (f"; return {rc} (NUTS gates not held at this "
-                        f"depth)" if pipeline else ""), card)
+        if name in ("full_pipeline", "coupling_conditional_2d"):
+            # Their NUTS leaves replayed CUDA graphs of the density.
+            check(graphs["captured"] > 0,
+                  f"[example {name}]: {graph_text(graphs)}")
+        example_line(name, launches, f"{wall:.1f} s",
+                     f"{detail(rep)}; {graph_text(graphs)}", card)
         paths[name] = launches
     return paths
+
+
+def phase_nuts_graph(et, device, card, transitions=3, step=0.05):
+    """``[nuts graph]``: NUTS's leaves through a CUDA graph of the density
+    and its backward (``mcmc.hmc.graphed_value_and_grad``) against eager
+    autograd, on full_pipeline's preconditioned density (its whitening
+    model after 20 steps) at its 64 chains: the graph's log densities and
+    gradients equal eager's on the same points (gated), then
+    ``transitions`` NUTS transitions each way from the same state and
+    generator seed (the draws' difference printed) and the host-clock
+    milliseconds a lockstep leaf each way. Returns the leaf times."""
+    from enflows_tpu_torch.examples import full_pipeline as FP
+    from enflows_tpu_torch.examples.nf_example_2d import ground_truth
+    from enflows_tpu_torch.mcmc import flow_preconditioned, hmc, nuts
+    gen = torch.Generator(device=device).manual_seed(80)
+    target = et.FlowDistribution(ground_truth(device)).requires_grad_(False)
+    with torch.no_grad():
+        X = target.sample(gen, (50_000,), dim=2)
+    fit = FP.fit(X, FP.model(torch.randn(2, generator=gen, device=device)),
+                 20, 1)
+    pre = flow_preconditioned(target.logpdf, et.invert(fit.result))
+    q = torch.randn(64, 2, generator=gen, device=device)
+    eager = lambda x: hmc.value_and_grad(pre.logdensity_fn, x)
+    graphed = hmc.graphed_value_and_grad(pre.logdensity_fn)
+    hmc.GRAPHS.update(captured=0, replays=0, eager=0)
+    worst = 0.0
+    for x in (q, 2.0 * q, q + 1.0):
+        (l0, g0), (l1, g1) = eager(x), graphed(x)
+        worst = max(worst, *(float((b - a).abs().max()
+                                   / (1.0 + a.abs().max()))
+                             for a, b in ((l0, l1), (g0, g1))))
+    check(hmc.GRAPHS["captured"] == 1 and hmc.GRAPHS["eager"] == 0
+          and worst <= 1e-6,
+          f"[nuts graph]: graphs {hmc.GRAPHS}, max |graph - eager| / (1 + "
+          f"max |eager|) {worst:.3e}")
+    inv_mass = torch.ones(2, device=device)
+    runs = {}
+    for label, fn in (("eager", eager), ("graph", graphed),
+                      ("graph", graphed), ("eager", eager)):
+        kernel = nuts.nuts_kernel(pre.logdensity_fn, value_and_grad_fn=fn)
+        state = hmc.init_state(pre.logdensity_fn, q)
+        g = torch.Generator(device=device).manual_seed(81)
+        leaves = nuts.LOCKSTEP["leaves"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(transitions):
+            state, _ = kernel(g, state, step, inv_mass)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = nuts.LOCKSTEP["leaves"] - leaves
+        runs.setdefault(label, []).append((ms / max(n, 1), state.q, n))
+    diff = float((runs["graph"][0][1] - runs["eager"][0][1]).abs().max())
+    leaf = {k: min(ms for ms, _, _ in v) for k, v in runs.items()}
+    print(f"[nuts graph] full_pipeline's preconditioned density, 64 chains: "
+          f"value and gradient max |graph - eager| / (1 + max |eager|) "
+          f"{worst:.3e} (limit 1e-6); "
+          f"{transitions} NUTS transitions at step {step} "
+          f"({runs['graph'][0][2]} lockstep leaves), draws max |graph - "
+          f"eager| {diff:.3e}; host-clock ms a leaf: eager {leaf['eager']:.3f}"
+          f", graph {leaf['graph']:.3f} [{card}]", flush=True)
+    return leaf
 
 
 def phase_b3_examples(et, EW, device, card):
@@ -4525,9 +4542,10 @@ def phase_b3_examples(et, EW, device, card):
     batch shapes (nf_example_1d d=1 n=1,000, nf_example_2d d=2 n=100,
     full_pipeline d=2 n=250), on data from their ground truths: the negll
     and every gradient against the plain version in float32 and float64
-    (``close_to_f64``), then the kernel's time against the plain version's
-    (CUDA events: at these sizes the host's launch rate paces both), with
-    the byte bound. Returns {shape: times}."""
+    (``close_to_f64``), then the kernel's device time against the plain
+    version's (``queued_ms``: at these sizes the host's launch rate would
+    pace calls timed one by one), with the byte bound. Returns {shape:
+    times}."""
     from enflows_tpu_torch.examples import full_pipeline as FP
     from enflows_tpu_torch.examples import nf_example_1d as E1
     from enflows_tpu_torch.examples import nf_example_2d as E2
@@ -4557,8 +4575,8 @@ def phase_b3_examples(et, EW, device, card):
         bufs = tuple(b.detach() for b in bufs)
         kernel = lambda: EW._launch("negll", plan, x, bufs)
         plain = lambda: EW.negll_value_and_grad_plain(model, x)
-        p1, k1, k2, p2 = (cuda_ms(f, iters=20) for f in (plain, kernel,
-                                                         kernel, plain))
+        p1, k1, k2, p2 = (queued_ms(f, iters=10) for f in (plain, kernel,
+                                                           kernel, plain))
         ms, plain_ms = min(k1, k2), min(p1, p2)
         k = 1 if d == 2 else 0
         t = {**bound_of(4 * n * d, 3 * n * hh_flops(d, k)), "ms": ms,
@@ -4566,8 +4584,7 @@ def phase_b3_examples(et, EW, device, card):
         out[f"d={d} n={n} ({label})"] = t
         print(f"{what}: negll {float(v):.7f} vs plain {float(v0):.7f}, "
               f"worst |kernel - f64| {max(errs):.3e}; kernel "
-              f"{shape_text(t)} (CUDA events over 20 calls, paced by the "
-              f"host at these sizes); "
+              f"{shape_text(t)} (device time, queued); "
               f"{chain_geometry_text(EW, plan, n, 'negll')} [{card}]",
               flush=True)
     return out
@@ -6520,6 +6537,7 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
         raise SystemExit(0)
     if sys.argv[1:2] == ["--examples"]:
+        phase_nuts_graph(et, device, smi)
         examples_at_defaults(sys.argv[2:] or list(EXAMPLES),
                              (TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES), smi)
         print(f"[time] chip_smoke.py --examples "
@@ -6651,6 +6669,7 @@ def main():
     # after. Each phase draws from generators of its own.
     from enflows_tpu_torch.mcmc import nuts as NU
     counters = (TL.LAUNCHES, EW.LAUNCHES, C.LAUNCHES)
+    phase_nuts_graph(et, device, smi)
     tree = {alg: tree_slice(et, NU, alg, target, d_lf, counters,
                             torch.Generator(device=device).manual_seed(seed),
                             smi)

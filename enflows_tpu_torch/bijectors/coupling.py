@@ -148,7 +148,12 @@ class Permute(Bijector):
         self.perm = tuple(int(i) for i in perm)
 
     def forward(self, x):
-        return x[..., list(self.perm)]
+        # Built from views of x, not by indexing with the permutation: an
+        # index tensor would be copied from the host on every call, which
+        # a CUDA graph cannot capture.
+        if self.perm == tuple(range(len(self.perm) - 1, -1, -1)):
+            return x.flip(-1)
+        return torch.stack([x[..., i] for i in self.perm], dim=-1)
 
     def forward_and_ladj(self, x):
         y = self.forward(x)

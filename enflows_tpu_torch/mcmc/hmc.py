@@ -81,6 +81,69 @@ def value_and_grad(logdensity_fn: Callable, q: torch.Tensor):
     return logp.detach(), grad
 
 
+# Densities captured by ``graphed_value_and_grad``, their replays, and the
+# densities it ran eagerly because they synchronize with the host.
+GRAPHS = {"captured": 0, "replays": 0, "eager": 0}
+
+
+def graphed_value_and_grad(logdensity_fn: Callable) -> Callable:
+    """``value_and_grad`` of ``logdensity_fn`` for a sampler's leaves: on a
+    CUDA tensor, the density and its backward are captured once per batch
+    shape and dtype as a CUDA graph and replayed, one launch where eager
+    autograd launches every op of both from Python (a 2-D flow density is
+    a few hundred). On a CPU tensor it is ``value_and_grad``.
+
+    A density that synchronizes with the host (reads a tensor's value,
+    copies from host memory) cannot be captured: its warm-up, run with
+    CUDA's synchronization check set to raise, finds that, and it runs
+    eagerly (``GRAPHS["eager"]``). A captured density must not change
+    between calls: its tensors are read in place, and a Python number it
+    closes over keeps its value at capture. The samplers build one per
+    kernel, around a density fixed for the run."""
+    graphs = {}
+
+    def capture(q):
+        static_q = q.detach().clone()
+        device = q.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        mode = torch.cuda.get_sync_debug_mode()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            # Warm up on a side stream (autograd's buffers, lazy inits).
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    value_and_grad(logdensity_fn, static_q)
+        except RuntimeError:
+            GRAPHS["eager"] += 1
+            return None
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = value_and_grad(logdensity_fn, static_q)
+        GRAPHS["captured"] += 1
+        return graph, static_q, out
+
+    def fn(q):
+        if q.device.type != "cuda":
+            return value_and_grad(logdensity_fn, q)
+        key = (tuple(q.shape), q.dtype, q.device)
+        if key not in graphs:
+            graphs[key] = capture(q)
+        if graphs[key] is None:
+            return value_and_grad(logdensity_fn, q)
+        graph, static_q, (logp, grad) = graphs[key]
+        static_q.copy_(q)
+        graph.replay()
+        GRAPHS["replays"] += 1
+        # The graph's outputs are overwritten by its next replay.
+        return logp.clone(), grad.clone()
+
+    return fn
+
+
 def init_state(logdensity_fn: Callable, q: torch.Tensor) -> HMCState:
     logp, grad = value_and_grad(logdensity_fn, q)
     return HMCState(q=q, logp=logp, grad=grad)
@@ -172,7 +235,7 @@ def hmc_kernel(logdensity_fn: Callable, num_steps: int = 32,
     """Build a one-transition HMC kernel over all chains:
     (generator, state, step_size, inv_mass_diag) -> (state, info).
     ``logdensity_fn``: (n, dim) -> (n,)."""
-    value_grad_fn = lambda q: value_and_grad(logdensity_fn, q)
+    value_grad_fn = graphed_value_and_grad(logdensity_fn)
 
     def kernel(generator, state: HMCState, step_size, inv_mass_diag):
         q = state.q

@@ -77,13 +77,19 @@ class FlowPushforwardTarget:
     def fused_kernel_available(self, dim: int, dtype=torch.float32) -> bool:
         return is_fusible_leapfrog(self.whiten, dim, dtype)
 
+    @staticmethod
+    def _base(value, default, z):
+        # A number is filled on z's device, not copied from the host, so
+        # the density stays capturable in a CUDA graph.
+        if isinstance(value, torch.Tensor):
+            return value.to(dtype=z.dtype, device=z.device)
+        return z.new_full((), default if value is None else value)
+
     def __call__(self, x):
         z, ladj = self.whiten.forward_and_ladj(x)
-        like = dict(dtype=z.dtype, device=z.device)
-        mu = torch.as_tensor(0.0 if self.base_mean is None
-                             else self.base_mean, **like)
-        var = torch.as_tensor(1.0 if self.base_var is None
-                              else self.base_var, **like)
+        mu, var = (self._base(v, default, z)
+                   for v, default in ((self.base_mean, 0.0),
+                                      (self.base_var, 1.0)))
         d = z - mu
         lp = -0.5 * (d * d / var + torch.log(2 * math.pi * var)
                      * torch.ones_like(z)).sum(-1)

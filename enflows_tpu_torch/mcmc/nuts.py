@@ -45,7 +45,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..utils.profiling import annotate
-from .hmc import HMCState, kinetic_energy, rand, randn, value_and_grad
+from .hmc import (HMCState, graphed_value_and_grad, kinetic_energy, rand,
+                  randn)
 
 # Lockstep cost of the transitions run so far: doublings, leaves (each one
 # gradient evaluation of every chain) and host reads of a stop flag.
@@ -331,8 +332,8 @@ def nuts_kernel(logdensity_fn: Callable, max_depth: int = 10,
     ``logdensity_fn``. ``axis`` (a ``parallel`` mesh axis, with a
     ``hmc.Rows`` generator): the chains are this rank's block, and each
     transition ends with ``_catch_up``."""
-    value_grad_fn = value_and_grad_fn or (
-        lambda q: value_and_grad(logdensity_fn, q))
+    value_grad_fn = value_and_grad_fn or graphed_value_and_grad(
+        logdensity_fn)
 
     def kernel(generator, state: HMCState, step_size, inv_mass_diag):
         q = state.q

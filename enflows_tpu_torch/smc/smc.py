@@ -51,8 +51,8 @@ import torch
 
 from ..bijectors.base import Bijector
 from ..distributions.base import std_normal_logpdf_sum
-from ..mcmc.hmc import (Rows, hmc_transition, init_state, rand, randn,
-                        value_and_grad)
+from ..mcmc.hmc import (Rows, graphed_value_and_grad, hmc_transition,
+                        init_state, rand, randn)
 from ..train.vi import _route
 from ..utils.profiling import annotate
 
@@ -433,7 +433,9 @@ def make_reweight_resample_mutate(
                                   log_weights.device)
 
         logp_fn = tempered(beta_new)
-        value_grad_fn = lambda q: value_and_grad(logp_fn, q)
+        # The mutations' leapfrog steps replay the tempered density as a
+        # CUDA graph on the card, one captured a temperature.
+        value_grad_fn = graphed_value_and_grad(logp_fn)
         states = init_state(logp_fn, particles)
 
         # Particle-ensemble mass matrix: the weighted population variance

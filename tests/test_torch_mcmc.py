@@ -176,6 +176,32 @@ def test_pushforward_target_matches_jax(base):
                                rtol=1e-12, atol=1e-12)
 
 
+def test_pushforward_target_takes_numbers_for_its_base():
+    # Python numbers for the base's mean and variance: filled on the
+    # density's device, the same density as JAX's.
+    d = 4
+    jt = JM.FlowPushforwardTarget(_jax_transport(d), base_mean=0.3,
+                                  base_var=1.2)
+    tt = TM.FlowPushforwardTarget(from_jax(_jax_transport(d), device="cpu"),
+                                  0.3, 1.2)
+    x = 2.0 * np.random.default_rng(3).normal(size=(9, d))
+    np.testing.assert_allclose(_np(tt(_t(x))),
+                               np.asarray(jax.vmap(jt)(jnp.asarray(x))),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_graphed_value_and_grad_is_autograd_on_the_cpu():
+    # The CUDA graph is for card tensors; on the CPU the samplers' leaves
+    # run eager autograd, and nothing is captured.
+    from enflows_tpu_torch.mcmc import hmc
+    before = dict(hmc.GRAPHS)
+    q = _t(np.random.default_rng(6).normal(size=(8, 3)))
+    fn = hmc.graphed_value_and_grad(_tgauss)
+    for got, want in zip(fn(q), hmc.value_and_grad(_tgauss, q)):
+        assert torch.equal(got, want)
+    assert hmc.GRAPHS == before
+
+
 def test_flow_preconditioned_and_per_sample_match_jax():
     d = 3
     jflow = _jax_transport(d)

@@ -11,6 +11,8 @@ leaf counts exactly, with chains stopping at different depths and some
 diverging. Random streams cannot match between the frameworks, so the
 samplers are held to the statistical gates of tests/test_mcmc.py.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,19 +68,19 @@ def _tgauss_nan(q):
     return torch.where(q[:, 0] > NAN_EDGE, torch.nan, _tgauss(q))
 
 
-def _jax_kernel(extra, logp=_jgauss):
-    """The vmap-ed JAX kernel, compiled once per flag and target with the
-    step size traced."""
-    if (extra, logp) not in _JAX_KERNELS:
-        kern = JM.nuts_kernel(logp, max_depth=MAX_DEPTH,
+def _jax_kernel(extra, logp=_jgauss, max_depth=MAX_DEPTH):
+    """The vmap-ed JAX kernel, compiled once per flag, target and depth
+    with the step size traced."""
+    if (extra, logp, max_depth) not in _JAX_KERNELS:
+        kern = JM.nuts_kernel(logp, max_depth=max_depth,
                               extra_uturn_checks=extra)
-        _JAX_KERNELS[extra, logp] = jax.jit(
+        _JAX_KERNELS[extra, logp, max_depth] = jax.jit(
             jax.vmap(kern, in_axes=(0, 0, None, None)))
-    return _JAX_KERNELS[extra, logp]
+    return _JAX_KERNELS[extra, logp, max_depth]
 
 
-@jax.jit
-def _jax_draws(keys):
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_draws(keys, max_depth=MAX_DEPTH):
     """Every draw the JAX kernel can make, per chain, from its key: the
     momentum normals, then per doubling the direction bit, the merge uniform
     and the leaf-selection uniforms (padded to the deepest doubling)."""
@@ -87,16 +89,18 @@ def _jax_draws(keys):
         key_mom, key = jax.random.split(key)
         noise = jax.random.normal(key_mom, (D,), DT)
         dirs, merges, leaves = [], [], []
-        for depth in range(MAX_DEPTH):
+        for depth in range(max_depth):
             key, k_dir, k_sub, k_merge = jax.random.split(key, 4)
             dirs.append(jax.random.bernoulli(k_dir))
             merges.append(jax.random.uniform(k_merge, (), DT))
-            u = []
-            for _ in range(1 << depth):
-                k_sub, k_sel = jax.random.split(k_sub)
-                u.append(jax.random.uniform(k_sel, (), DT))
-            u += [jnp.ones((), DT)] * ((1 << (MAX_DEPTH - 1)) - len(u))
-            leaves.append(jnp.stack(u))
+
+            def leaf(k, _):
+                k, k_sel = jax.random.split(k)
+                return k, jax.random.uniform(k_sel, (), DT)
+
+            _, u = jax.lax.scan(leaf, k_sub, None, length=1 << depth)
+            pad = jnp.ones(((1 << (max_depth - 1)) - (1 << depth),), DT)
+            leaves.append(jnp.concatenate([u, pad]))
         return noise, jnp.stack(dirs), jnp.stack(merges), jnp.stack(leaves)
 
     return jax.vmap(one)(keys)
@@ -178,6 +182,36 @@ def test_nuts_transition_matches_jax_where_the_density_is_nan():
                                       err_msg=f)
     n_div = int(info_t.divergent.sum())
     assert 0 < n_div < N and bool(torch.isfinite(new_t.logp).all())
+
+
+@pytest.mark.parametrize("extra", [True, False])
+def test_nuts_transition_matches_jax_in_deep_trees(extra):
+    """Small steps at max_depth=10, the default: trees of up to 1,023
+    leaves, where the checkpoint slots run up to the clamped top and a
+    sub-subtree check spans up to nine (full_pipeline's preconditioned
+    NUTS adapts into such trees)."""
+    depth, n = 10, 32
+    q0 = 1.5 * np.random.default_rng(4).normal(size=(n, D))
+    keys = jax.random.split(jax.random.PRNGKey(7), n)
+    states = jax.vmap(lambda q: JM.init_state(_jgauss, q))(jnp.asarray(q0))
+    new_j, info_j = _jax_kernel(extra, max_depth=depth)(
+        keys, states, jnp.asarray(0.01, DT), jnp.asarray(IM))
+    noise, dirs, merges, leaves = _jax_draws(keys, depth)
+    st = TM.init_state(_tgauss, _t(q0))
+    new_t, info_t = TM.nuts_transition(
+        lambda q: TM.value_and_grad(_tgauss, q), st,
+        torch.tensor(0.01, dtype=T64), _t(IM), _t(noise),
+        _doubling_draws(dirs, merges, leaves), max_depth=depth,
+        extra_uturn_checks=extra)
+    for a, b in zip(list(new_t) + [info_t.accept_prob, info_t.energy],
+                    list(new_j) + [info_j.accept_prob, info_j.energy]):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-10,
+                                   atol=1e-12)
+    for f in ("divergent", "depth", "num_steps"):
+        np.testing.assert_array_equal(_np(getattr(info_t, f)),
+                                      np.asarray(getattr(info_j, f)),
+                                      err_msg=f)
+    assert int(info_t.depth.max()) == depth and int(info_t.depth.min()) < 8
 
 
 def test_subtree_slots_take_the_clamped_indices():
