@@ -59,6 +59,10 @@ exception exits non-zero and prints no result:
    in training) beside the plain version's, the TF32 and f32 FLOP bounds,
    the reckoned L2 weight reads and, as yardsticks, the same conditioner
    products alone in ``torch.matmul`` in TF32 (``library_ms``) and f32;
+   and what the wgmma redesign is judged by (``[B4] ... redesign``, also
+   for B5 and the bf16 variants): the achieved TFLOP/s against 495 TF32 /
+   989 bf16, the factor against that yardstick, the tile rows, the shared
+   memory a block, the ring slots, and ptxas's registers and spills;
 7. B5 (its backward) against plain autograd at the same config: loss
    sum(sin y) + sum(ladj^2), gx and every weight and bias gradient against
    a float64 plain run under the TF32 gate, on the rows that pass no spline
@@ -146,7 +150,7 @@ TFLOP/s dense bf16) and its plain version:
    139-185's gates;
 13b. ``[bf16 B6]``: 8192 x d=50 x L=64 on bf16 q and p, held the same way;
 13c. ``[bf16 B4/B5]``: the BASELINE affine and K=8 spline stacks with bf16
-   conditioners (bf16 mma.sync), with f32 storage and with bf16 storage,
+   conditioners (bf16 wgmma), with f32 storage and with bf16 storage,
    against a float64 plain run of the same weights with f32 conditioners
    within 2x the error of the plain version with bf16-rounded operands
    and f32 products, or 8e-3 (y, ladj) / 1.6e-3 (gradients) x (max + 1)
@@ -189,7 +193,7 @@ just before it and read just after:
    d=64 with adam(1e-3), 12 steps of 2^17 rows (the affine one also with
    STL): exactly 12 (24) B4 and 12 (24) B5 launches, the history held to
    the plain path run with TF32 products by the noise rule; then B4's and
-   B5's row tiles and times (CUDA events, on B4's stored rows) on the
+   B5's row tile and times (CUDA events, on B4's stored rows) on the
    template beside the bare BASELINE stack (``[vi B5 tile]``);
 17. ``[vi example]``: enflows_tpu_torch/examples/nf_variational_1d.py,
    800 steps at d=1, exactly 800 B1 and 800 B2 launches, under the JAX
@@ -1323,11 +1327,41 @@ def matmul_only_ms(st, n, device, backward, tf32=False,
         return cuda_ms(run, iters=5)
 
 
+def coupling_kernel_note(C, st, backward, ms, flops, rate, library_ms):
+    """What a B4 / B5 time is judged by: the achieved rate against the
+    tensor cores' (``rate``: TF32 or bf16), the factor against one
+    torch.matmul of the same products, and the kernel's geometry: tile rows,
+    cluster, shared memory a block, ring slots, and ptxas's registers and
+    spills for it (from the build report)."""
+    from enflows_tpu_torch.ops._build import build
+
+    tm = C._pick_tile(st)
+    names = (("coupling_bwd_kernel", "coupling_dw_kernel") if backward
+             else ("coupling_fwd_kernel",))
+    if tm != 64:
+        names = tuple(k + "_wide" for k in names)
+    ents = [e for e in ptxas_entries(build()[2], "coupling")
+            if any(k in e[0] and (tm != 64 or "_wide" not in e[0])
+                   for k in names)]
+    regs = ", ".join(f"{next(k for k in names if k in e[0])} {e[1]} "
+                     f"registers, spills {e[2]}/{e[3]} B" for e in ents)
+    geo = (f"{tm}-row tiles, "
+           f"{C._smem_bytes(st, tm, backward, False)} B shared memory a "
+           f"block, {C._ring_slots(st, backward, False)} ring slots of "
+           f"{C._padded(st).slot} B" if tm == 64 else
+           f"{tm}-row tiles, {C._smem_bytes(st, tm, backward)} B shared "
+           f"memory a block")
+    tflops = flops / ms / 1e9
+    return (f"{tflops:.2f} TFLOP/s = {100 * tflops * 1e12 / rate:.1f}% of "
+            f"{rate / 1e12:.0f}; {ms / library_ms:.2f}x the torch.matmul "
+            f"yardstick; {geo}; ptxas: {regs}")
+
+
 def l2_weight_bytes(C, st, n):
     """The weight bytes B4 reads from L2: every tile of rows reads every
     layer's packed W and bias once."""
     pp = C._padded(st)
-    tm = C._pick_tile(st, backward=False)
+    tm = C._pick_tile(st)
     return -(-n // tm) * 4 * sum((Kp + 1) * Np for Kp, Np in pp.kn)
 
 
@@ -1410,6 +1444,9 @@ def phase_b4(et, C, kind, n, gen, device, card):
     print(f"[B4] {kind} yardstick: the same conditioner products alone in "
           f"torch.matmul, TF32 {tf32_ms:.3f} ms, f32 {mm_ms:.3f} ms "
           f"[{card}]", flush=True)
+    print(f"[B4] {kind} redesign: "
+          f"{coupling_kernel_note(C, st, False, ms, flops, TF32_FLOP_PER_S, tf32_ms)}"
+          f" [{card}]", flush=True)
     return dict(max_abs_err=max(max_abs(y, y0), max_abs(ladj, l0)), ms=ms,
                 plain_ms=plain_ms, **{**bound, "library_ms": tf32_ms},
                 ms_without_b5_rows=bare_ms)
@@ -1585,6 +1622,9 @@ def phase_b5(et, C, kind, n, gen, device, card):
     print(f"[B5] {kind} yardstick: the dh and dW products alone in "
           f"torch.matmul, TF32 {tf32_ms:.3f} ms, f32 {mm_ms:.3f} ms "
           f"[{card}]", flush=True)
+    print(f"[B5] {kind} redesign: "
+          f"{coupling_kernel_note(C, st, True, ms, flops, TF32_FLOP_PER_S, tf32_ms)}"
+          f" [{card}]", flush=True)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 **{**bound, "library_ms": tf32_ms},
                 ms_recomputing=recompute_ms)
@@ -1649,8 +1689,9 @@ def _sweep_unpadded(et, gen, dev):
 
 def _sweep_vi_template(kind):
     """coupling_flow_template's tails (ScaleShift, JohnsonInv, ScaleShift)
-    around 2 x (512, 512) couplings at d=64: B5's shared memory puts it in
-    16-row tiles, as at the VI slice's 4 couplings."""
+    around 2 x (512, 512) couplings at d=64: B5 reads their inputs back from
+    device memory and runs in 64-row tiles, as at the VI slice's 4
+    couplings."""
     return lambda et, gen, dev: et.coupling_flow_template(
         2, (512, 512), kind=kind)(64, gen)
 
@@ -1679,12 +1720,12 @@ COUPLING_SWEEP = [
     ("spline d=40 K=8: a last slab of 4 of 8 half-lanes", 2001,
      _sweep_slabs),
 ]
-# The VI templates' tails at widths that put B5 in 16-row tiles; swept with
+# The VI templates' tails at the BASELINE widths, B5 in 64-row tiles; swept with
 # a generator of their own, after the VI slice.
 VI_TEMPLATE_SWEEP = [
-    ("template tails, affine 2x(512, 512), B5 in 16-row tiles", 3001,
+    ("template tails, affine 2x(512, 512), B5 in 64-row tiles", 3001,
      _sweep_vi_template("affine")),
-    ("template tails, spline 2x(512, 512), B5 in 16-row tiles", 2001,
+    ("template tails, spline 2x(512, 512), B5 in 64-row tiles", 2001,
      _sweep_vi_template("spline")),
 ]
 
@@ -1716,12 +1757,12 @@ def stopped_gx_equal(C, chain, forward, x, gy, gl, gx, what):
 
 
 def phase_coupling_sweep(et, C, gen, device, sweep=COUPLING_SWEEP,
-                         tag="coupling sweep", b5_tile=None):
+                         tag="coupling sweep", tile=None):
     """B4 and B5 (on B4's stored rows and recomputing) against the plain
     version in float64 on small chains at a few thousand rows, with random
     cotangents, under the TF32 gate; and B5 with the parameters stopped
-    giving the same gx, both ways. ``b5_tile``: the B5 tile every chain
-    must take."""
+    giving the same gx, both ways. ``tile``: the rows of the B4/B5 tile
+    every chain must take."""
     nearest = None   # (Held, label) of the reading nearest its limit
     for name, n, build_chain in sweep:
         chain = build_chain(et, gen, device)
@@ -1731,10 +1772,9 @@ def phase_coupling_sweep(et, C, gen, device, sweep=COUPLING_SWEEP,
                                           device=device))
         d = next(s for s in chain.stages if hasattr(s, "split")).split * 2
         check(C.is_fusible_coupling_stack(chain, d), f"sweep {name} fusible")
-        if b5_tile is not None:
-            tile = C._pick_tile(C._stack_structure(chain, d), backward=True)
-            check(tile == b5_tile, f"sweep {name}: B5 tile {tile}, not "
-                  f"{b5_tile}")
+        if tile is not None:
+            got = C._pick_tile(C._stack_structure(chain, d))
+            check(got == tile, f"sweep {name}: tile {got}, not {tile}")
         chain64 = copy.deepcopy(chain).double()
         x, _ = drop_near_knot_rows(
             et, chain, 1.5 * torch.randn(n, d, generator=gen, device=device))
@@ -2127,7 +2167,7 @@ def phase_vi_elementwise(et, EW, C, VI, device, card):
 
 
 def b5_stored_at(C, flow, x):
-    """(B4 ms writing B5's rows, B5 ms on them, B4's tile, B5's tile) of a
+    """(B4 ms writing B5's rows, B5 ms on them, the rows of their tile) of a
     fusible stack on ``x``, by CUDA events."""
     st = C._stack_structure(flow, x.shape[1])
     with torch.no_grad():
@@ -2135,7 +2175,7 @@ def b5_stored_at(C, flow, x):
         y, ladj, _ = C._launch_fwd(st, x, wbuf, pbuf)
     b4 = cuda_ms(lambda: C._launch_fwd(st, x, wbuf, pbuf, True), iters=3)
     b5 = stored_b5_ms(C, st, x, wbuf, pbuf, torch.cos(y), 2.0 * ladj)
-    return b4, b5, C._pick_tile(st, False), C._pick_tile(st, True)
+    return b4, b5, C._pick_tile(st)
 
 
 def template_yardsticks(C, flow, x):
@@ -2214,7 +2254,7 @@ def hold_vi_template(et, C, kind, flow, gen, device, card):
     st = C._stack_structure(flow, d)
     print(f"[vi B5 hold] {kind} template, the trained flow, n={x.shape[0]} "
           f"({dropped} rows within {KNOT_EPS} of a spline knot dropped), B4 "
-          f"tile {C._pick_tile(st, False)}, B5 tile {C._pick_tile(st, True)}:"
+          f"and B5 tile {C._pick_tile(st)}:"
           f" {' and '.join(c[0] for c in cases)}: y, ladj, gx and every "
           f"parameter gradient within the TF32 gate of the float64 plain "
           f"version; nearest its limit: {nearest[1]}, |kernel - f64| "
@@ -2275,20 +2315,18 @@ def phase_vi_coupling(et, EW, C, VI, device, card):
         hold_vi_template(et, C, kind, fitted, torch.Generator(
             device=device).manual_seed(34), device, card)
         x = torch.randn(2 * VI_BATCH, d, generator=gen, device=device)
-        b4_t, b5_t, t4, t5 = b5_stored_at(C, flow, x)
-        b4_0, b5_0, s4, s5 = b5_stored_at(
+        b4_t, b5_t, t = b5_stored_at(C, flow, x)
+        b4_0, b5_0, s = b5_stored_at(
             C, baseline_stack(et, kind, gen, device), x)
         yard = template_yardsticks(C, flow, x)
-        tiles[kind] = dict(ms_vi_template=b5_t, tile_vi_template=t5,
-                           b4_ms_vi_template=b4_t, b4_tile_vi_template=t4,
-                           yardsticks=yard)
+        tiles[kind] = dict(ms_vi_template=b5_t, b4_ms_vi_template=b4_t,
+                           tile_vi_template=t, yardsticks=yard)
         print(f"[vi B5 tile] {kind} template (ScaleShift, JohnsonInv, "
-              f"4x{BASELINE['hidden']}, ScaleShift) n={x.shape[0]}: B4 tile "
-              f"{t4} rows, B5 tile {t5} rows; B5 on B4's stored rows "
-              f"{b5_t:.3f} ms at the template's {t5}-row tile against "
-              f"{b5_0:.3f} ms for the bare BASELINE stack at its {s5}-row "
-              f"tile; B4 writing B5's rows {b4_t:.3f} ms ({t4}-row tile) "
-              f"against {b4_0:.3f} ms ({s4}-row tile); on the template, "
+              f"4x{BASELINE['hidden']}, ScaleShift) n={x.shape[0]}: B4 and "
+              f"B5 in {t}-row tiles; B5 on B4's stored rows {b5_t:.3f} ms "
+              f"against {b5_0:.3f} ms for the bare BASELINE stack ({s}-row "
+              f"tiles); B4 writing B5's rows {b4_t:.3f} ms against "
+              f"{b4_0:.3f} ms; on the template, "
               + "; ".join(f"{k.upper()} plain {v['plain_ms']:.3f} ms, the "
                           f"products alone in TF32 torch.matmul "
                           f"{v['library_ms']:.3f} ms, TF32 bound "
@@ -3864,8 +3902,8 @@ def hold_coupling_flow(et, C, label, flow, d, n, gen, device, card,
                f"read against the TF32 gate, not held: {over} of "
                f"{len(helds)} readings over it")
     print(f"[infer B4/B5 hold] {label}: d={d}, n={m} ({dropped} rows within "
-          f"{KNOT_EPS} of a knot dropped), B4 tile "
-          f"{C._pick_tile(st, False)}, B5 tile {C._pick_tile(st, True)}: y, "
+          f"{KNOT_EPS} of a knot dropped), B4 and B5 tile "
+          f"{C._pick_tile(st)}: y, "
           f"ladj, gx and {len(ref64[3])} parameter gradients {verdict}; "
           f"nearest its limit: {nearest[1]}, {nearest[0]} "
           f"({100 * nearest[0].share:.0f}%); {emu_text}; "
@@ -4320,6 +4358,60 @@ def example_run(name, counters, argv=None):
     return report, launches, wall, dict(hmc.GRAPHS)
 
 
+# full_pipeline's main() in a process of its own: its launches, graphs,
+# seconds and report, torch.save'd to the file named by argv[3].
+EXAMPLE_CHILD = """
+import importlib, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from enflows_tpu_torch.mcmc import hmc
+from enflows_tpu_torch.ops import coupling as C
+from enflows_tpu_torch.ops import elementwise as EW
+from enflows_tpu_torch.ops import leapfrog as TL
+name, out = sys.argv[2], sys.argv[3]
+ex = importlib.import_module("enflows_tpu_torch.examples." + name)
+report = {}
+t0 = time.perf_counter()
+rc = ex.main(sys.argv[4:], report=report)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+torch.save(dict(rc=rc, report=report, wall=wall, graphs=dict(hmc.GRAPHS),
+                launches=cs.kernel_launches((TL.LAUNCHES, EW.LAUNCHES,
+                                             C.LAUNCHES))), out)
+"""
+
+
+def example_run_fresh(name, counters):
+    """``example_run`` in a process of its own, as a user runs the script:
+    for full_pipeline, whose SMC ladder is not reproducible on the card
+    (ROADMAP C-14) and took other ladders in this process after the
+    phases before it (51 and 55 temperatures, its median gate missed)
+    than in a fresh one (89, held). The child's launch counters and
+    ``mcmc.hmc.GRAPHS`` start at 0; fails the run on a non-zero return.
+    Returns (the report main filled, launches, seconds, the graphs)."""
+    import subprocess
+    import tempfile
+    argv = example_argv(name)
+    print(f"[example {name}] main({argv}), in a process of its own:",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        out = os.path.join(tmp, "result.pt")
+        proc = subprocess.run([sys.executable, "-c", EXAMPLE_CHILD, HERE,
+                               name, out, *argv], cwd=HERE)
+        check(proc.returncode == 0 and os.path.exists(out),
+              f"[example {name}]: its process exited {proc.returncode}")
+        res = torch.load(out, weights_only=False)
+    check(set(res["launches"]) == set(kernel_launches(counters)),
+          f"[example {name}]: counters {sorted(res['launches'])}")
+    check(res["rc"] == 0, f"[example {name}]: main returned {res['rc']}")
+    return res["report"], res["launches"], res["wall"], res["graphs"]
+
+
 def examples_at_defaults(names, counters, card):
     """``--examples [name ...]``: each named example's ``main([])`` at the
     JAX script's defaults (``example_run``); prints its seconds, launches,
@@ -4462,7 +4554,8 @@ def example_phases(counters, card):
                 f"negll spline {r['n_spl']:.4f} affine {r['n_aff']:.4f} "
                 f"bound {r['bound']:.4f}, balance {r['balance']:.3f}, gap "
                 f"{r['gap']:.4f}, VI balance {r['balance_vi']:.3f}"))):
-        rep, launches, wall, graphs = example_run(name, counters)
+        run = example_run_fresh if name == "full_pipeline" else example_run
+        rep, launches, wall, graphs = run(name, counters)
         cfg = EXAMPLES[name]
         example_gate_launches(name, launches, {} if want is None else {
             want: cfg["batches"] * cfg["epochs"]})
@@ -5225,7 +5318,7 @@ def cli_phases(et, EW, counters, device, card):
 
 # ----------------------------------------------------------------------
 # bf16: the kernels' bf16-storage variants (B1-B3, B6, B4/B5) and bf16
-# conditioners (B4/B5's bf16 mma.sync), each held to its plain version with
+# conditioners (B4/B5's bf16 wgmma), each held to its plain version with
 # the same arithmetic and to float64, then the slices that run them.
 
 BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
@@ -5592,6 +5685,12 @@ def phase_bf16_coupling(et, C, kind, n, gen, device, card):
           f"autograd backward {plain5:.3f} ms, bf16 FLOP bound "
           f"{b5b['bound_ms']:.3f} ms, dh and dW alone in bf16 torch.matmul "
           f"{lib5:.3f} ms [{card}]", flush=True)
+    print(f"[bf16 B4] {kind} redesign: "
+          f"{coupling_kernel_note(C, st, False, t16, flops, BF16_FLOP_PER_S, lib4)}"
+          f" [{card}]", flush=True)
+    print(f"[bf16 B5] {kind} redesign: "
+          f"{coupling_kernel_note(C, st, True, b5_16, 2 * flops, BF16_FLOP_PER_S, lib5)}"
+          f" [{card}]", flush=True)
     return (dict(max_abs_err=err4, ms=t16, ms_f32_twin=t32,
                  ms_bf16_storage=t16_io, plain_ms=plain4,
                  **{**b4b, "library_ms": lib4}),
@@ -5624,7 +5723,7 @@ class _MatmulBF16TensorCores(torch.autograd.Function):
     """``ops.coupling._MatmulBF16`` with its products on the tensor cores
     (``torch.mm`` of the bf16 operands with a float32 output: cuBLAS, f32
     accumulation): the plain route's operands, summed by the hardware that
-    B4/B5's ``mma.sync`` sums on. Read only, to tell that hardware's
+    B4/B5's ``wgmma`` sums on. Read only, to tell that hardware's
     accumulation from the kernels' own arithmetic."""
 
     @staticmethod
@@ -6641,7 +6740,7 @@ def main():
     vi_ew = phase_vi_elementwise(et, EW, C, VI, device, smi)
     vi_c, vi_tiles = phase_vi_coupling(et, EW, C, VI, device, smi)
     phase_coupling_sweep(et, C, torch.Generator(device=device).manual_seed(33),
-                         device, VI_TEMPLATE_SWEEP, "vi template sweep", 16)
+                         device, VI_TEMPLATE_SWEEP, "vi template sweep", 64)
     vi_ex = phase_vi_example(EW, C, device, smi)
 
     # Flow-preconditioned HMC: B6 at the BASELINE leapfrog config, the B6
@@ -6783,7 +6882,7 @@ def main():
         rows += [(f"B4 fused_coupling_forward_and_ladj ({k} BASELINE)",
                   paths["coupling_fwd"], csrc, f"{cpallas}:678",
                   {**b4[k], "ms_vi_template": t["b4_ms_vi_template"],
-                   "tile_vi_template": t["b4_tile_vi_template"],
+                   "tile_vi_template": t["tile_vi_template"],
                    **yard["b4"], **extra("coupling_fwd")}),
                  (f"B5 fused coupling backward ({k} BASELINE)",
                   paths["coupling_bwd"], csrc, f"{cpallas}:617",

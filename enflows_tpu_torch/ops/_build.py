@@ -40,17 +40,31 @@ _SIGNATURES = {
     # mode, bf16, E, block, smem, blocks_per_sm, regs, local_bytes
     "enf_chain_occupancy": [_I] * 5 + [_P] * 3,
     # bf16io, x, y, ladj, Wk, P, items, item floats, n_items, layers,
-    # n_layers, n, d, ldh, tm, scratch, stage inputs, smem, grid, shift,
-    # stream
-    "enf_coupling_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL, _I,
-                         _I, _I, _P, _P, _I, _I, _F, _P],
+    # n_layers, n, rows, d, lda, ldo, ring slots, slot bytes, scratch, stage
+    # inputs, smem, grid, shift, stream
+    "enf_coupling_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
+                         _LL, _I, _I, _I, _I, _I, _P, _P, _I, _I, _F, _P],
+    # bf16io, x, gy, gl, gx, Wk, P, items, item floats, n_items, layers,
+    # n_layers, n, rows, d, lda, ldo, ring slots, slot bytes, smem, grid,
+    # n_pslots, scratch, stage inputs, recompute, p_part, shift, stream
+    "enf_coupling_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
+                         _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+                         _F, _P],
+    # scratch, layers, n_layers, rows, nsplit, w_part, w_len, smem, stream
+    "enf_coupling_dw": [_P, _P, _I, _LL, _I, _P, _LL, _I, _P],
+    # The wide path (16-row tiles): bf16io, x, y, ladj, Wk, P, items, item
+    # floats, n_items, layers, n_layers, n, d, ldh, tm, scratch, stage
+    # inputs, smem, grid, shift, stream
+    "enf_coupling_fwd_wide": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                              _LL, _I, _I, _I, _P, _P, _I, _I, _F, _P],
     # bf16io, x, gy, gl, gx, Wk, P, items, item floats, n_items, layers,
     # n_layers, rows, d, ldh, tm, smem, grid, n_pslots, scratch, stage
     # inputs, p_part, shift, stream
-    "enf_coupling_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _LL,
-                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P],
+    "enf_coupling_bwd_wide": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                              _I, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                              _F, _P],
     # scratch, layers, n_layers, rows, nsplit, w_part, w_len, smem, stream
-    "enf_coupling_dw": [_P, _P, _I, _LL, _I, _P, _LL, _I, _P],
+    "enf_coupling_dw_wide": [_P, _P, _I, _LL, _I, _P, _LL, _I, _P],
     # bf16, q0, p0, qo, po, lp0, lpL, eps, im, mu, iv, P, rows, Q, Qt,
     # words, n_stages, n, d, G, E, nreg, n_rows, num_steps, grid, block,
     # smem, stream

@@ -42,19 +42,27 @@ last layer's W and b columns into that layout once per call
 layout is [scales, shifts], as before, and no gather is made.
 
 **The kernels' padded plan** (``_padded``): every layer's K and N padded
-to multiples of 8 (the TF32 ``mma.sync`` m16n8k8 shape) with zero rows and
-columns, each slab of the last layer to a multiple of 8 columns; W and W^T
-packed in the B-operand fragment order of that instruction (``_pack``)
-and rounded to TF32, the biases beside them. A coupling with
-``compute_dtype="bfloat16"`` takes the bf16 path (``_MatmulBF16``'s
-arithmetic): its K and hidden widths padded to multiples of 16 (m16n8k16),
-W and W^T packed for that instruction (``_pack_bf16``) and rounded to
-bf16, two to a word, its last layer's W^T slab by slab at the depth B5's
-dh reads a slab (``_slab_depth``). It is a gather of the plan
-above, so the Parameters are never padded, and the weight gradients come
-back through the inverse gather. ``coupling_forward_plain(padded=True)``
-runs the plain version on the padded plan; the CPU tests hold it to the
-unpadded one in float64.
+to multiples of 8 (a TF32 k-step) with zero rows and columns, each slab of
+the last layer to a multiple of 8 columns; W and W^T packed for the
+kernels' path and rounded to TF32, the biases beside them. A coupling with
+``compute_dtype="bfloat16"`` takes bf16 products (``_MatmulBF16``'s
+arithmetic): its K and hidden widths padded to multiples of 16 (a bf16
+k-step), W and W^T rounded to bf16, two to a word, its last layer's W^T
+slab by slab at the depth B5's dh reads a slab (``_slab_depth``). It is a
+gather of the plan above, so the Parameters are never padded, and the
+weight gradients come back through the inverse gather.
+``coupling_forward_plain(padded=True)`` runs the plain version on the
+padded plan; the CPU tests hold it to the unpadded one in float64.
+
+**Two paths** (``_pick_tile``, the same for B4 and B5). The Hopper path
+(64-row tiles; wgmma fed by bulk copies into an mbarrier ring) takes every
+stack whose padded widths and slabs are at most 512 and whose shared
+memory leaves its ring two slots: W goes pass by pass (the last layer
+slab by slab), W^T over its whole width, each k-step of a pass one
+contiguous stage in wgmma's K-major layout (``_pack_wg``); B5's scratch and
+stage inputs hold whole tiles (``_rows``). The wide path (16-row tiles,
+``mma.sync``) takes the wider stacks, its W and W^T in that instruction's
+B-fragment order (``_pack``, ``_pack_bf16``).
 """
 from __future__ import annotations
 
@@ -88,16 +96,28 @@ _KIND_CODE = {"affine": 0, "spline": 1, "elem": 2}
 
 MAX_STAGES = 24      # ENF_CMAX_STAGES in csrc/coupling.cu
 MAX_LAYERS = 48      # ENF_CMAX_LAYERS
-_RING = 3            # ENF_RING: weight ring stages of one 8-row k-step
-_SLAB_COLS = 184     # widest last-layer slab (fits the 64-row ring)
-# Row tiles of B4/B5: rows per block -> output columns per register pass
-# (16 warps; ENF_NF = 8 n8-tiles per warp per pass).
-_PASS_COLS = {64: 512, 16: 1024}
+_SLAB_COLS = 184     # widest last-layer slab
 _SMEM_MAX = 232448   # the card's opt-in shared memory per block
 _SMEM_PER_SM = 233472
-_DW_TILE = 128       # ENF_DW_TILE: dW output tile (rows and columns)
-_DW_SMEM = 4 * 3 * 2 * 32 * 136   # its ring: 3 stages of two 32 x 136 tiles
 _BWD_CHUNK_ROWS = 1 << 16   # rows per B5 launch (bounds the scratch)
+# The Hopper path (64-row tiles, wgmma): a pass of at most two warpgroups'
+# 4 n-blocks of 64 columns; the weight ring's barriers (ENF_BARS bytes) and
+# at most ENF_MAX_RING slots, each as wide as one k-step of the widest pass
+# (2048 bytes an n-block); dW tiles of 128 x 256 over stages of 32 rows, 4
+# deep.
+_WG_PASS = 512
+_WG_BARS = 512
+_WG_MAX_RING = 16
+_DW_M, _DW_N = 128, 256
+_DW_SMEM = _WG_BARS + 4 * (4 * 32 * (_DW_M + _DW_N))
+# The wide path (16-row tiles, mma.sync), for stacks the Hopper path does
+# not take: ENF_RING weight ring stages of one 8-row k-step of a
+# 1024-column pass (16 warps of 8 n8-tiles), dW tiles of 128 x 128 over a
+# ring of 3 stages of two 32 x 136 tiles.
+_RING = 3
+_WIDE_PASS = 1024
+_WIDE_DW_TILE = 128
+_WIDE_DW_SMEM = 4 * 3 * 2 * 32 * 136
 
 
 # ------------------------------------------------------------------
@@ -324,6 +344,28 @@ def _pack_bf16(M):
     return out
 
 
+def _pack_wg(M, pw: int, bf16: bool, fill):
+    """The entries of an (R, C) matrix (R a multiple of the k-step, 8 rows
+    TF32 or 16 bf16; C a multiple of ``pw``) in the order the Hopper
+    kernels stream them: pass by pass (``pw`` columns, padded with ``fill``
+    to a multiple of 64), k-step by k-step, so that each k-step of a pass
+    is one contiguous stage, in wgmma's K-major layout without swizzle:
+    per 8-column group, two core matrices of 8 columns x 16 bytes of K (4
+    TF32 or 8 bf16 values), column after column."""
+    R, C = M.shape
+    ks = 16 if bf16 else 8
+    e = ks // 2
+    pw64 = -(-pw // 64) * 64
+    k = np.arange(R)[:, None]
+    n = np.arange(C)[None, :]
+    p, nn = n // pw, n % pw
+    pos = ((p * (R // ks) + k // ks) * pw64 * ks + (nn // 8) * (8 * ks)
+           + ((k % ks) // e) * (8 * e) + (nn % 8) * e + k % e)
+    out = np.full((C // pw) * (R // ks) * pw64 * ks, fill, M.dtype)
+    out[pos.reshape(-1)] = M.reshape(-1)
+    return out
+
+
 def _pack(M):
     """The entries of an (R, C) matrix (R, C multiples of 8) in the order
     the B operand of ``mma.sync.m16n8k8.tf32`` is read: per 8-row k-step,
@@ -338,6 +380,55 @@ def _pack(M):
     out = np.empty(R * C, M.dtype)
     out[pos.reshape(-1)] = M.reshape(-1)
     return out
+
+
+class _Geometry(NamedTuple):
+    """The padded shapes of a plan and the kernels' buffers they imply."""
+    kn: tuple          # (Kp, Np) per layer
+    slabs: tuple       # per item (G, slab width, n slabs); zeros for elem
+    last_of: tuple     # per layer: (G, P, slab width) of a last layer, or None
+    widest: int        # widest padded layer input or hidden layer output
+    ldh: int           # wide path: row stride of the activation buffer
+    lda: int           # Hopper path: values of K a row of H holds
+    ldo: int           # Hopper path: row stride of a slab (the widest slab)
+    slot: int          # Hopper path: bytes of a ring slot (the widest pass)
+    sk: int            # the widest depth at which B5's dh reads a slab
+
+
+@functools.lru_cache(maxsize=64)
+def _geometry(st: _Structure) -> _Geometry:
+    da = st.dim // 2
+    kn = list(st.layers)
+    slabs, last_of = [], [None] * len(kn)
+    for it in st.items:
+        if it.kind == "elem":
+            slabs.append((0, 0, 0))
+            continue
+        # A bf16 layer's K (and so the hidden widths) padded to the k-step
+        # of its bf16 products, 16. The slab stays a multiple of 8; B5's dh
+        # reads each slab as a depth padded to 16 (``_slab_depth``).
+        ceil = _ceil16 if it.bf16 else _ceil8
+        P, G = _n_params(it), it.lanes
+        sw, ns = _ceil8(G * P), -(-da // G)
+        slabs.append((G, sw, ns))
+        for li in range(it.n_layers):
+            K, N = st.layers[it.layer0 + li]
+            kn[it.layer0 + li] = (ceil(K), ceil(N))
+        last = it.layer0 + it.n_layers - 1
+        kn[last] = (kn[last][0], ns * sw)
+        last_of[last] = (G, P, sw)
+    widest = max([Kp for Kp, _ in kn]
+                 + [Np for l, (_, Np) in enumerate(kn) if last_of[l] is None])
+    depths = [_slab_depth(it, sl[1]) for it, sl in zip(st.items, slabs)
+              if it.kind != "elem"]
+    ldo = max(sl[1] for sl in slabs)
+    # The wide path's activation buffer also holds B5's slabs (a bf16 slab
+    # at its depth padded to 16); a row stride of 4 mod 8 floats makes the
+    # A-fragment reads of mma.sync conflict-free.
+    return _Geometry(tuple(kn), tuple(slabs), tuple(last_of), widest,
+                     max([widest] + depths) + 4,
+                     _ceil16(max([widest] + depths)), ldo,
+                     2048 * -(-max(widest, ldo) // 64), max(depths))
 
 
 class _Padded(NamedTuple):
@@ -355,39 +446,25 @@ class _Padded(NamedTuple):
     scr_cols: tuple    # per layer: scratch column base of h_in, g_pre
     cols: int          # scratch floats per row
     widest: int        # widest padded layer input or hidden layer output
-    ldh: int           # row stride of the kernels' activation buffer
-
+    ldh: int           # wide path: row stride of the activation buffer
+    tm: int            # rows per tile: 64 (Hopper path) or 16 (wide path)
+    lda: int           # Hopper path: values of K a row of H holds
+    ldo: int           # Hopper path: row stride of a slab
+    slot: int          # Hopper path: bytes of a ring slot
 
 
 @functools.lru_cache(maxsize=64)
 def _padded(st: _Structure) -> _Padded:
     da = st.dim // 2
-    kn = list(st.layers)
-    slabs, last_of = [], {}
-    for it in st.items:
-        if it.kind == "elem":
-            slabs.append((0, 0, 0))
-            continue
-        # A bf16 layer's K (and so the hidden widths) padded to the k16 of
-        # m16n8k16. The slab stays a multiple of 8 (the ring holds it in
-        # B4); B5's dh reads each slab as a depth padded to 16
-        # (``_slab_depth``).
-        ceil = _ceil16 if it.bf16 else _ceil8
-        P, G = _n_params(it), it.lanes
-        sw, ns = _ceil8(G * P), -(-da // G)
-        slabs.append((G, sw, ns))
-        for li in range(it.n_layers):
-            K, N = st.layers[it.layer0 + li]
-            kn[it.layer0 + li] = (ceil(K), ceil(N))
-        last = it.layer0 + it.n_layers - 1
-        kn[last] = (kn[last][0], ns * sw)
-        last_of[last] = (G, P, sw)
+    geo = _geometry(st)
+    kn, last_of = geo.kn, geo.last_of
+    tm = _pick_tile(st)
     zero = st.w_len
     nat_idx, nat_offs, off = [], [], 0
     grad_idx = np.empty(st.w_len, np.int64)
     for l, ((K, N), (Kp, Np)) in enumerate(zip(st.layers, kn)):
         col = np.full(Np, -1, np.int64)   # padded column -> plan column
-        if l in last_of:
+        if last_of[l] is not None:
             G, P, sw = last_of[l]
             for j in range(da):
                 s, jj = divmod(j, G)
@@ -409,13 +486,16 @@ def _padded(st: _Structure) -> _Padded:
     nat_idx = np.concatenate(nat_idx)
     # The kernel buffer, in 32-bit words: the TF32 layers' packed W, then
     # their W^T (a float a value); the bf16 layers' packed W, then their W^T
-    # (two values a word); the biases (f32).
+    # (two values a word); the biases (f32). The Hopper path streams each
+    # W pass by pass (the last layer's slab by slab) and each W^T over its
+    # whole width (``_pack_wg``); the wide path reads mma.sync fragments
+    # (``_pack``, ``_pack_bf16``).
     flags = st.layer_bf16
     packs, packs_t = {}, {}
     for l, (Kp, Np) in enumerate(kn):
         M = nat_idx[nat_offs[l]:nat_offs[l] + Kp * Np].reshape(Kp, Np)
         MT = M.T
-        if flags[l] and l in last_of:
+        if flags[l] and last_of[l] is not None:
             # B5's dh reads each slab as a depth padded to 16: W^T's rows
             # slab by slab, zero rows between.
             sw = last_of[l][2]
@@ -423,8 +503,13 @@ def _padded(st: _Structure) -> _Padded:
             MT = np.full((Np // sw * sk, Kp), zero, np.int64)
             for s in range(Np // sw):
                 MT[s * sk:s * sk + sw] = M.T[s * sw:(s + 1) * sw]
-        pack = _pack_bf16 if flags[l] else _pack
-        packs[l], packs_t[l] = pack(M), pack(MT)
+        if tm == 64:
+            pw = Np if last_of[l] is None else last_of[l][2]
+            packs[l] = _pack_wg(M, pw, flags[l], zero)
+            packs_t[l] = _pack_wg(MT, Kp, flags[l], zero)
+        else:
+            pack = _pack_bf16 if flags[l] else _pack
+            packs[l], packs_t[l] = pack(M), pack(MT)
     order = [l for l in range(len(kn)) if not flags[l]]
     order16 = [l for l in range(len(kn)) if flags[l]]
     n_32 = sum(packs[l].size + packs_t[l].size for l in order)
@@ -449,16 +534,10 @@ def _padded(st: _Structure) -> _Padded:
     for Kp, Np in kn:
         scr.append(c)
         c += Kp + Np
-    widest = max([Kp for Kp, _ in kn]
-                 + [Np for l, (_, Np) in enumerate(kn) if l not in last_of])
-    # The activation buffer also holds B5's slabs (a bf16 slab at its
-    # depth padded to 16); a row stride of 4 mod 8 floats makes the
-    # A-fragment reads of mma.sync conflict-free.
-    ldh = max([widest] + [_slab_depth(it, s[1]) for it, s in
-                          zip(st.items, slabs)]) + 4
-    return _Padded(tuple(kn), tuple(slabs), tuple(nat_offs), off, nat_idx,
+    return _Padded(kn, geo.slabs, tuple(nat_offs), off, nat_idx,
                    tuple(k_offs), np.concatenate(packs + biases), n_32,
-                   n_16, grad_idx, tuple(scr), c, widest, ldh)
+                   n_16, grad_idx, tuple(scr), c, geo.widest, geo.ldh, tm,
+                   geo.lda, geo.ldo, geo.slot)
 
 
 def _slab_depth(it, sw: int) -> int:
@@ -505,53 +584,98 @@ def _slab_cols(st: _Structure, item: int, padded: bool, device):
     d/2 <= 92, unpadded)."""
     it = st.items[item]
     da, P, G = st.dim // 2, _n_params(it), it.lanes
-    sw = _padded(st).slabs[item][1]
+    sw = _geometry(st).slabs[item][1]
     col = (lambda j, p: (j // G) * sw + p * G + j % G) if padded else \
         (lambda j, p: _grouped_col(j, p, da, P, G))
     cols = [col(j, p) for p in range(P) for j in range(da)]
     last = it.layer0 + it.n_layers - 1
-    width = (_padded(st).kn if padded else st.layers)[last][1]
+    width = (_geometry(st).kn if padded else st.layers)[last][1]
     if cols == list(range(width)):
         return None
     return torch.tensor(cols, dtype=torch.long, device=device)
 
 
-def _smem_bytes(st: _Structure, tm: int, backward: bool) -> int:
+def _ring_slots(st: _Structure, backward: bool,
+                recompute: bool = True) -> int:
+    """Weight-ring slots of the Hopper path's B4 / B5: as many one-pass
+    k-step slots as the shared memory left by everything else holds, at
+    most ``_WG_MAX_RING``; fewer than 2 means the stack does not fit."""
+    geo = _geometry(st)
+    rest = _smem_bytes(st, 64, backward, recompute, ring=0)
+    return min(_WG_MAX_RING, (_SMEM_MAX - rest) // geo.slot)
+
+
+def _hr_bytes(st: _Structure) -> int:
+    """Bytes of the Hopper path's activation buffer (``plan_hr`` in
+    csrc/coupling.cu): H, 64 x lda values of 4 bytes; with a bf16
+    coupling, the larger of that and H in bf16 followed by the f32 area
+    its epilogues stage one warpgroup's columns in (64 rows of 64 x
+    ceil(n-blocks / 2) + 4)."""
+    lda = _geometry(st).lda
+    f32 = 4 * 64 * lda
+    if not st.any_bf16:
+        return f32
+    return max(f32, 2 * 64 * lda
+               + 4 * 64 * (64 * ((-(-lda // 64) + 1) // 2) + 4))
+
+
+def _smem_bytes(st: _Structure, tm: int, backward: bool,
+                recompute: bool = True, ring: int = None) -> int:
     """Shared memory of B4 / B5 for a row tile of ``tm`` rows, following
-    csrc/coupling.cu: the weight ring (3 stages of 8 rows x the pass width;
-    in B4 it also holds each last-layer slab between passes), the
+    csrc/coupling.cu.
+
+    Hopper path (64 rows): the ring's barriers and ``ring`` slots (by
+    default ``_ring_slots``) of one k-step of the widest pass; H
+    (``_hr_bytes``); B4 the state (64 x d), the widest slab (64 x ldo) and
+    the ladj sums (64); B5 H, or a slab (64 x ldo) and its rounded
+    cotangent (64 x the widest slab depth), the state and then the running
+    cotangent (64 x d), the ladj cotangents (64), the elementwise-parameter
+    sums (n_pslots x d) and, when it ``recompute``s the forward, a slab
+    (64 x ldo).
+
+    Wide path (16 rows): the weight ring (3 stages of 8 rows x the pass
+    width; in B4 it also holds each last-layer slab between passes), the
     activation buffer (tm x ldh); B4 the state and the per-element ladj
     terms (tm x d each); B5 what its reverse sweep needs of each stage's
     input (an elementwise stage's whole input, tm x d; a coupling's target
     half, tm x d/2), the state and then the running cotangent (tm x d), the
-    ladj cotangents (tm) and the elementwise-parameter sums (n_pslots x d)."""
-    d, ldh = st.dim, _padded(st).ldh
-    ring = _RING * 8 * _PASS_COLS[tm]
+    ladj cotangents (tm) and the elementwise-parameter sums (n_pslots x
+    d)."""
+    d, geo = st.dim, _geometry(st)
+    if tm == 64:
+        if ring is None:
+            ring = _ring_slots(st, backward, recompute)
+        head = _WG_BARS + ring * geo.slot
+        if backward:
+            return (head + max(_hr_bytes(st), 4 * 64 * (geo.ldo + geo.sk))
+                    + 4 * (64 * (d + 1 + (geo.ldo if recompute else 0))
+                           + st.n_pslots * d))
+        return head + _hr_bytes(st) + 4 * 64 * (d + geo.ldo + 1)
+    ring = _RING * 8 * _WIDE_PASS
     if backward:
         saved = sum(d if it.kind == "elem" else d // 2 for it in st.items)
-        floats = ring + tm * (saved + d + 1 + ldh) + st.n_pslots * d
+        floats = ring + tm * (saved + d + 1 + geo.ldh) + st.n_pslots * d
     else:
-        floats = ring + tm * (2 * d + ldh)
+        floats = ring + tm * (2 * d + geo.ldh)
     return 4 * floats
 
 
-def _tile_fits(st: _Structure, tm: int, backward: bool) -> bool:
-    """Whether the row tile ``tm`` takes the stack: every padded layer
-    input and hidden output within one register pass, every slab (with its
-    4-float pad) within the ring, and the shared memory within 227 KB."""
-    pp = _padded(st)
-    slab = max(s[1] for s in pp.slabs)
-    return (pp.widest <= _PASS_COLS[tm]
-            and tm * (slab + 4) <= _RING * 8 * _PASS_COLS[tm]
-            and _smem_bytes(st, tm, backward) <= _SMEM_MAX)
-
-
-def _pick_tile(st: _Structure, backward: bool) -> int:
-    """Rows per block of B4 / B5: 64 where that fits, else 16; 0 when
-    neither does."""
-    for tm in _PASS_COLS:
-        if _tile_fits(st, tm, backward):
-            return tm
+def _pick_tile(st: _Structure) -> int:
+    """Rows per block of B4 and B5, the same for both, since B4 writes the
+    rows B5 reads in its path's layout: 64, the Hopper path, where every
+    padded layer input and hidden output, and every slab, is at most 512
+    wide and B4 and B5 (recomputing) leave room for 2 ring slots; else 16,
+    the wide path, where every width is at most 1024 and every slab fits
+    its ring and B4 and B5 fit 227 KB; 0 when neither does."""
+    geo = _geometry(st)
+    if max(geo.widest, geo.ldo) <= _WG_PASS and \
+            _ring_slots(st, False) >= 2 and _ring_slots(st, True) >= 2:
+        return 64
+    if geo.widest <= _WIDE_PASS \
+            and 16 * (geo.ldo + 4) <= _RING * 8 * _WIDE_PASS \
+            and _smem_bytes(st, 16, False) <= _SMEM_MAX \
+            and _smem_bytes(st, 16, True) <= _SMEM_MAX:
+        return 16
     return 0
 
 
@@ -567,26 +691,27 @@ def is_fusible_coupling_stack(chain, dim: int, dtype=torch.float32) -> bool:
     stages are of the five elementwise kinds. In place of the TPU's tile
     pickers and VMEM budgets, the port's own limits: at most 24 stages
     (Permutes not counted) and 48 conditioner layers, and one of the two
-    row tiles of B4 and B5 must take the stack (``_tile_fits``). A tile of
-    64 rows holds a layer's whole output in registers, 512 columns, so it
-    takes d/2 and hidden widths up to 512 (padded to multiples of 8) while
-    its shared memory fits 227 KB: about 4 B * (12288 + 64 * (d *
-    (couplings / 2 + elementwise stages + 1) + widest layer + 4)) for B5.
-    A tile of 16 rows takes widths up to 1024. The spline's last layer is
-    computed in slabs of G = 184 // (3K - 1) half-lanes, so K <= 61. The
-    BASELINE (512, 512) affine and spline stacks run in 64-row tiles, the
+    row tiles of B4 and B5 must take the stack (``_pick_tile``). The
+    64-row tile (the Hopper path) holds a pass of 512 columns in two
+    warpgroups' registers, so it takes d/2 and hidden widths up to 512
+    (padded to multiples of 8) while its shared memory leaves room for two
+    ring slots: B4 takes about 512 B + 2 slots of 32 B x the widest pass +
+    256 B x (widest layer + d + widest slab + 1). The 16-row tile (the wide
+    path) takes widths up to 1024, and the wider states it fits. The
+    spline's last layer is computed in slabs of G = 184 // (3K - 1)
+    half-lanes, so K <= 61. The BASELINE (512, 512) affine and spline
+    stacks and the VI templates at those widths run in 64-row tiles, the
     (1024, 1024) stack in 16-row tiles; (4096,) is refused. A bf16 layer's
-    widths are padded to multiples of 16; its weights stream through the
-    same ring (a 16-deep bf16 k-step is the bytes of an 8-deep TF32 one),
-    so the shared memory is the same."""
+    widths are padded to multiples of 16; a 16-deep bf16 k-step is the
+    bytes of an 8-deep TF32 one, so the ring and the shared memory are the
+    same."""
     if dtype not in STORAGE_DTYPES:
         return False
     st = _stack_structure(chain, dim)
     if st is None or len(st.items) > MAX_STAGES \
             or len(st.layers) > MAX_LAYERS or st.w_len >= 2 ** 31:
         return False
-    return _pick_tile(st, backward=True) > 0 \
-        and _pick_tile(st, backward=False) > 0
+    return _pick_tile(st) > 0
 
 
 # The trainers' dispatch sends a coupling stack's batch to B4/B5 only at the
@@ -1013,6 +1138,13 @@ def _is_bf16(st: _Structure, x) -> bool:
     return x.dtype == torch.bfloat16 or st.any_bf16
 
 
+def _rows(st: _Structure, n: int) -> int:
+    """Rows of B5's scratch and stage inputs for a batch of n: n padded to
+    whole 64-row tiles on the Hopper path, whose kernels write and reduce
+    every row of every tile (the padding rows' cotangents are zero)."""
+    return -(-n // 64) * 64 if _padded(st).tm == 64 else n
+
+
 def _launch_fwd(st: _Structure, x, wbuf, pbuf, save: bool = False):
     """B4: (y, ladj, saved). With ``save``, B4 also writes what B5 needs
     (every layer's input and pre-activation, every stage's input) for the
@@ -1026,28 +1158,38 @@ def _launch_fwd(st: _Structure, x, wbuf, pbuf, save: bool = False):
     n, d = x.shape
     if x.dtype not in STORAGE_DTYPES:
         raise ValueError(f"B4 takes float32 or bfloat16, got {x.dtype}")
-    tm = _pick_tile(st, backward=False)
+    pp = _padded(st)
+    tm = pp.tm
     smem = _smem_bytes(st, tm, backward=False)
     y = torch.empty_like(x)
     ladj = torch.empty(n, dtype=x.dtype, device=x.device)
     wk = _kernel_weights(st, wbuf)
+    rows = _rows(st, n)
     saved = None
     if save:
-        saved = (torch.empty(n * _padded(st).cols, dtype=torch.float32,
+        saved = (torch.empty(rows * pp.cols, dtype=torch.float32,
                              device=x.device),
-                 torch.empty(n * _sv_row(st), dtype=torch.float32,
+                 torch.empty(rows * _sv_row(st), dtype=torch.float32,
                              device=x.device), wk)
+    scratch, svs = (None, None) if saved is None else \
+        (saved[0].data_ptr(), saved[1].data_ptr())
     si, sf, li = _plan_arrays(st)
+    bf = int(x.dtype == torch.bfloat16)
+    grid = _grid(-(-n // tm), smem, x.device)
     with torch.cuda.device(x.device), \
             annotate("enflows.cuda.fused_coupling_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.enf_coupling_fwd(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), y.data_ptr(),
-            ladj.data_ptr(), wk.data_ptr(),
-            pbuf.data_ptr(), si, sf, len(st.items), li, len(st.layers), n,
-            d, _padded(st).ldh, tm, saved[0].data_ptr() if save else None,
-            saved[1].data_ptr() if save else None, smem,
-            _grid(-(-n // tm), smem, x.device), _DERIV_SHIFT, stream)
+        head = (bf, x.data_ptr(), y.data_ptr(), ladj.data_ptr(),
+                wk.data_ptr(), pbuf.data_ptr(), si, sf, len(st.items), li,
+                len(st.layers), n)
+        if tm == 64:
+            err = lib.enf_coupling_fwd(
+                *head, rows, d, pp.lda, pp.ldo, _ring_slots(st, False),
+                pp.slot, scratch, svs, smem, grid, _DERIV_SHIFT, stream)
+        else:
+            err = lib.enf_coupling_fwd_wide(
+                *head, d, pp.ldh, tm, scratch, svs, smem, grid,
+                _DERIV_SHIFT, stream)
     _raise_on(lib, err, "B4 (fused coupling forward)")
     if _is_bf16(st, x):
         LAUNCHES_BF16["coupling_fwd"] += 1
@@ -1057,7 +1199,11 @@ def _launch_fwd(st: _Structure, x, wbuf, pbuf, save: bool = False):
 
 
 def _dw_tiles(pp: _Padded) -> int:
-    return sum(-(-Kp // _DW_TILE) * -(-Np // _DW_TILE) for Kp, Np in pp.kn)
+    """Output tiles of the weight-gradient reduction, over every layer."""
+    if pp.tm == 64:
+        return sum(-(-Kp // _DW_M) * -(-Np // _DW_N) for Kp, Np in pp.kn)
+    return sum(-(-Kp // _WIDE_DW_TILE) * -(-Np // _WIDE_DW_TILE)
+               for Kp, Np in pp.kn)
 
 
 def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
@@ -1084,17 +1230,23 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
                          f"bfloat16, got {x.dtype}, {gy.dtype}, {gl.dtype}")
     dev = x.device
     pp = _padded(st)
-    tm = _pick_tile(st, backward=True)
-    smem = _smem_bytes(st, tm, backward=True)
+    tm = pp.tm
     si, sf, li = _plan_arrays(st)
-    if saved is None:
+    recompute = saved is None
+    if recompute:
+        # The Hopper path's recompute writes the stage inputs to device
+        # memory as B4 does; the wide path keeps them in shared memory.
         wk = _kernel_weights(st, wbuf)
         chunk = min(n, _BWD_CHUNK_ROWS)
-        scratch = torch.empty(chunk * pp.cols, dtype=torch.float32,
-                              device=dev)
+        scratch = torch.empty(_rows(st, chunk) * pp.cols,
+                              dtype=torch.float32, device=dev)
+        svs = torch.empty(_rows(st, chunk) * _sv_row(st),
+                          dtype=torch.float32, device=dev) \
+            if tm == 64 else None
     else:
         scratch, svs, wk = saved
         chunk = n
+    smem = _smem_bytes(st, tm, True, recompute)
     sms = _sm_count(dev.index)
     nsplit = max(1, min(64, -(-4 * sms // _dw_tiles(pp))))
     gx = torch.empty_like(x)
@@ -1110,20 +1262,35 @@ def _launch_bwd(st: _Structure, x, wbuf, pbuf, gy, gl, saved=None,
             grid = _grid(-(-rows // tm), smem, dev)
             p_part = torch.empty(grid, st.n_pslots * d, dtype=torch.float32,
                                  device=dev)
-            err = lib.enf_coupling_bwd(
-                int(x.dtype == torch.bfloat16), x[r0:].data_ptr(),
-                gy[r0:].data_ptr(), gl[r0:].data_ptr(),
-                gx[r0:].data_ptr(), wk.data_ptr(), pbuf.data_ptr(), si, sf,
-                len(st.items), li, len(st.layers), rows, d, pp.ldh, tm, smem,
-                grid, st.n_pslots, scratch.data_ptr(),
-                None if saved is None else svs.data_ptr(), p_part.data_ptr(),
-                _DERIV_SHIFT, stream)
+            head = (int(x.dtype == torch.bfloat16), x[r0:].data_ptr(),
+                    gy[r0:].data_ptr(), gl[r0:].data_ptr(),
+                    gx[r0:].data_ptr(), wk.data_ptr(), pbuf.data_ptr(), si,
+                    sf, len(st.items), li, len(st.layers), rows)
+            if tm == 64:
+                err = lib.enf_coupling_bwd(
+                    *head, _rows(st, rows), d, pp.lda, pp.ldo,
+                    _ring_slots(st, True, recompute), pp.slot, smem, grid,
+                    st.n_pslots, scratch.data_ptr(), svs.data_ptr(),
+                    int(recompute), p_part.data_ptr(), _DERIV_SHIFT, stream)
+            else:
+                err = lib.enf_coupling_bwd_wide(
+                    *head, d, pp.ldh, tm, smem, grid, st.n_pslots,
+                    scratch.data_ptr(),
+                    None if recompute else svs.data_ptr(),
+                    p_part.data_ptr(), _DERIV_SHIFT, stream)
             _raise_on(lib, err, "B5 (fused coupling backward sweep)")
             if not weights:
                 continue
-            err = lib.enf_coupling_dw(
-                scratch.data_ptr(), li, len(st.layers), rows, nsplit,
-                w_part[c * nsplit:].data_ptr(), pp.nat_len, _DW_SMEM, stream)
+            if tm == 64:
+                err = lib.enf_coupling_dw(
+                    scratch.data_ptr(), li, len(st.layers), _rows(st, rows),
+                    nsplit, w_part[c * nsplit:].data_ptr(), pp.nat_len,
+                    _DW_SMEM, stream)
+            else:
+                err = lib.enf_coupling_dw_wide(
+                    scratch.data_ptr(), li, len(st.layers), rows, nsplit,
+                    w_part[c * nsplit:].data_ptr(), pp.nat_len,
+                    _WIDE_DW_SMEM, stream)
             _raise_on(lib, err, "B5 (coupling weight-gradient reduction)")
             p_parts.append(p_part.sum(0))
     if _is_bf16(st, x):
@@ -1142,7 +1309,7 @@ def _rows_fit(st: _Structure, x) -> bool:
     plus what PyTorch's allocator holds unused). The other half is a
     margin for the rest of the step (the gradients, the optimizer, the
     caller's tensors), not a measured optimum."""
-    need = 4 * x.shape[0] * (_padded(st).cols + _sv_row(st))
+    need = 4 * _rows(st, x.shape[0]) * (_padded(st).cols + _sv_row(st))
     free, _ = torch.cuda.mem_get_info(x.device)
     unused = torch.cuda.memory_reserved(x.device) \
         - torch.cuda.memory_allocated(x.device)

@@ -13,123 +13,111 @@
 // (``_padded``, ``_plan_arrays``): per stage its kind (affine, spline or
 // elementwise), the physical half that conditions, the flags, the
 // activation, its conditioner layers and its last-layer slabs; per layer
-// (Kp, Np), K and N padded to multiples of 8 with zeros, and the offsets of
-// its W and W^T (packed in the B-fragment order of mma.sync, rounded to
-// TF32) and its bias in one kernel buffer, Permutes already absorbed. The
-// state of a sample stays in physical lane order as two halves [0, d/2) and
-// [d/2, d). The last layer is lane-grouped: slab s (width SW, a multiple of
-// 8) holds parameter p of its half-lane jj at column s * SW + p * G + jj.
-// Elementwise stages take per-lane parameter vectors, slot q at
-// P[q*d .. q*d+d), and run the stage bodies of stages.cuh that B1-B3 use.
+// (Kp, Np), K and N padded to multiples of 8 (16 for bf16 products) with
+// zeros, and the offsets of its packed W and W^T (rounded to TF32, or to
+// bf16 two to a word) and its bias in one kernel buffer, Permutes already
+// absorbed. The state of a sample stays in physical lane order as two
+// halves [0, d/2) and [d/2, d). The last layer is lane-grouped: slab s
+// (width SW, a multiple of 8) holds parameter p of its half-lane jj at
+// column s * SW + p * G + jj. Elementwise stages take per-lane parameter
+// vectors, slot q at P[q*d .. q*d+d), and run the stage bodies of
+// stages.cuh that B1-B3 use.
 //
-// Precision. Every conditioner product runs on the tensor cores in TF32
-// with f32 accumulation: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
-// That is the counterpart of the reference's DEFAULT-precision matmuls, one
-// bf16 pass of the MXU (TF32 keeps 10 mantissa bits to bf16's 7). Weights
-// are rounded to TF32 once by the wrapper and activations once where they
-// are written, so B4's inner loop converts nothing; B5 keeps each
-// pre-activation cotangent in f32 in its scratch, so that db is an f32 sum
-// as in the plain version, and rounds it where a product reads it. Biases,
-// activations, epilogues, adjoints and ladj stay in f32. wgmma would reach
-// further toward the 495 TFLOP/s roof, but its TF32 form wants both
-// operands K-major in shared memory in its own swizzled layouts and a
-// warpgroup-wide asynchronous protocol; mma.sync takes A from any
-// shared-memory layout the block already keeps and B as packed fragments,
-// which is what a first tensor-core design of a kernel this long (every
-// stage kind, slabs, interleaved elementwise stages) can hold right. wgmma
-// is the next step.
+// Precision. Every conditioner product runs on the tensor cores with f32
+// accumulation: TF32 operands, the counterpart of the reference's
+// DEFAULT-precision matmuls (one bf16 pass of the MXU; TF32 keeps 10
+// mantissa bits to bf16's 7), or, for a coupling with compute_dtype
+// "bfloat16", bf16 operands as the reference's _mm_bf16 (:419-446). Weights
+// are rounded once by the wrapper, activations where they are written
+// (TF32 to nearest, ties away from zero; bf16 to nearest even), so the
+// products convert nothing. B5 keeps each pre-activation cotangent in f32
+// in its scratch, so that db is an f32 sum as in the plain version, and
+// rounds it where a product reads it (dh in the sweep, dW in
+// coupling_dw_kernel), as _mm_bf16's backward rounds g. Biases,
+// activations, epilogues, adjoints and ladj stay f32. bf16 storage (a flag
+// per launch): x and gy are widened to f32 as they are read, y, ladj and
+// gx rounded to nearest even as they are written; the saved rows and
+// everything between stay f32.
 //
-// What bounds them on an H100 (BASELINE: d=64, 4 couplings, (512, 512)
-// gelu conditioners, n=2^17):
-//   * the TF32 product rate: B4 does 326 / 687 GFLOP (affine / spline, K=8),
-//     0.66 / 1.39 ms at 495 TFLOP/s; B5 twice that for dh and dW plus the
-//     recompute. Design: mma.sync on tiles of 64 rows x 512 columns per
-//     pass, 16 warps each owning 32 x 64 (a 2 x 8 grid of m16n8 tiles, 64
-//     accumulators in registers), so each A fragment read from shared
-//     memory feeds 8 products and each B fragment 2; 16 warps rather than
-//     8 of 32 x 128 hide more of the shared-memory and L2 latency and stay
-//     under 128 registers.
-//   * the L2 weight reads: the weights (5.0 / 10.5 MB) fit the 50 MB L2 but
-//     not a block's shared memory, so every row tile streams them once.
-//     Design: 64-row tiles (2^17/64 x 5.0 MB = 10.2 GB affine, 21.5 GB
-//     spline; a 32-row tile would read twice that), weights packed so one
-//     k-step of a pass is one contiguous run, copied by 16-byte cp.async
-//     into a ring of 3 stages with one barrier per 8-deep k-step.
+// Two paths. The Hopper path (64-row tiles; below) takes every stack whose
+// padded layer inputs, hidden outputs and slabs are at most 512 wide and
+// whose state fits beside them in shared memory: the BASELINE stacks, the
+// VI templates, every stack of the examples and the samplers. The wide
+// path keeps the 16-row mma.sync kernels of the first tensor-core design
+// (the *_wide kernels) for exactly the stacks the Hopper path cannot hold:
+// wgmma takes 64 rows, and a 64-row tile's activation buffer at a width
+// of 1024 (the (1024, 1024) stack the reference accepts) is 256 KB in f32,
+// more than a block's 227 KB; so is its state at d = 256 with hidden 512
+// (64 rows x (d state + 512 activations + 184 slab) x 4 B). Every stack
+// the 64-row wgmma tile does not take runs there, as before.
+//
+// What bounds the Hopper path on an H100 (BASELINE: d=64, 4 couplings,
+// (512, 512) gelu conditioners, n=2^17):
+//   * the weight stream: the weights (5.0 / 10.5 MB affine / spline) fit
+//     the 50 MB L2 but not a block's shared memory, so every 64-row tile
+//     streams them once (10.2 / 21.5 GB from L2 a B4 at BASELINE, at some
+//     4 TB/s 2.5 / 5.4 ms). Design: each k-step of each pass of W is one
+//     contiguous run, packed in wgmma's shared-memory layout, that one
+//     cp.async.bulk moves into a ring of mbarrier-tracked slots; one
+//     producer thread keeps the ring full across products, couplings and
+//     tiles. The stream still bounds B4: a 64-row tile's activations fill
+//     half of shared memory, so no larger tile fits beside the ring, and a
+//     2-CTA cluster sharing each stage by .multicast::cluster was slower
+//     (its cross-CTA releases on every k-step cost more than the halved
+//     L2 reads saved).
+//   * the TF32 product rate (B4 326 / 687 GFLOP, 0.66 / 1.39 ms at 495
+//     TFLOP/s; B5 twice that plus the recompute). Design: wgmma.mma_async
+//     m64n64k8 TF32 / m64n64k16 bf16 from shared memory, two consumer
+//     warpgroups each taking every other 64-column n-block of a pass of up
+//     to 512 columns (128 f32 accumulators a thread, setmaxnreg giving the
+//     consumers 240 registers and the producer warpgroup 24), issued
+//     without branches so the tensor cores take a k-step's products back
+//     to back.
+//   * the epilogues (bias and activation of 64 x 512 values a hidden
+//     layer; B5 the activation's adjoint against the stored pre-activation
+//     from device memory): staged through shared memory and run in rolled
+//     loops that take 8 rows of a column at a time and issue all their
+//     loads first.
 //   * the scratch bytes of B5: each layer's input and pre-activation
 //     cotangent per row (34.3 / 45.1 KB per row) go to device memory for
-//     the dW reduction. Design: the scratch is layer-major, each layer's
-//     h_in (rows x Kp) and g_pre (rows x Np) contiguous; the dW kernel's
-//     blocks are ordered so that the output tiles of one layer and one row
-//     split are launched together and walk the same rows in step, so that
-//     a row read from device memory by one tile can still be in L2 when
-//     its neighbours read it. The row splits are not sized to L2 (at
-//     BASELINE a split of one 512-wide layer is ~90 MB), and how often
-//     device memory is really read is not measured: every tile reading
-//     its own columns is 2.6x the scratch at BASELINE, once is 1x.
+//     the dW reduction, in the layout coupling_dw_kernel's products read
+//     (the batch as K): its blocks, layer by layer and split by split, copy
+//     32 rows of a 128 x 256 tile's operands as two contiguous runs.
 //
-// B4. A block owns a tile of TM rows (64; 16 where a layer is wider than
-// 512 or shared memory does not fit) and keeps in shared memory the state
-// S (TM x d), the per-element ladj terms (TM x d), one activation buffer H
-// (TM x ldh) and the weight ring. A coupling copies its src half into H
-// (zero-padded to Kp, rounded to TF32); each hidden layer accumulates its
-// whole output in registers, then bias and activation are written back
-// into H in place after a barrier; the last layer runs slab by slab into
-// the ring (free between passes) and the slab's epilogue updates the target
-// half of S at once. Persistent grid-stride loop over tiles; the ragged
-// last tile computes on zero rows and stores nothing for them.
+// B4. A block owns a tile of 64 rows and keeps in shared memory the state
+// S (64 x d), the per-row ladj sums, the activation buffer H (the
+// products' A, K-major) and O, one slab of the last layer. A coupling
+// copies its src half into H (zero-padded to Kp, rounded); each hidden
+// layer accumulates its whole output in the two warpgroups' registers,
+// then bias and activation are written back into H in place; the last
+// layer runs slab by slab into O and the slab's epilogue updates the
+// target half of S at once, its ladj terms summed per row. Elementwise
+// stages run four threads a row. Persistent grid-stride loop over tiles;
+// the ragged last tile computes on zero rows, writes B5's rows for them
+// (the arrays hold whole tiles) and stores nothing else.
 //
-// B5 (a) recomputes each tile's forward the same way, keeping in shared
-// memory what the reverse sweep needs of each stage's input (a coupling's
-// target half, an elementwise stage's whole input) and writing every
-// layer's input h_in and pre-activation to the scratch. In training B4
-// writes those rows itself (given a scratch and a stage-input buffer for
-// the whole batch), and the sweep reads the stage inputs back instead of
-// recomputing: a fraction of a millisecond more in B4 for a third of B5
-// at BASELINE, for 34 / 45 KB per row held until the backward. The reverse
-// sweep
+// B5 (a) reads the stage inputs (a coupling's target half, an elementwise
+// stage's whole input) from device memory: B4 wrote them in training, or
+// B5 recomputes each tile's forward and writes them itself, with every
+// layer's input and pre-activation into the scratch. The reverse sweep
 // reads each slab of the conditioner output back, runs the hand-derived
-// adjoint in place, writes g_pre, then accumulates dh = g_pre W^T over the
-// slabs in registers (the same tile product on the packed W^T), applies the
-// activation's adjoint against the stored pre-activation and walks down the
-// layers. (b) coupling_dw_kernel forms dW = h_in^T g_pre on the tensor
-// cores in 128 x 128 output tiles (8 warps of 64 x 32) over fixed row
-// splits, and db = sum g_pre as column sums in the blocks of the first row
-// of tiles. The splits and the wrapper's chunks are summed by the caller in
-// a fixed order. No atomics anywhere: results are deterministic for a given
-// grid. The elementwise-parameter cotangents are per-block sums (each lane
-// owned by one thread), summed by the caller.
+// adjoint in place, writes g_pre, accumulates dh = g_pre W^T over the
+// slabs (the same product on the packed W^T), applies the activation's
+// adjoint against the stored pre-activation and walks down the layers.
+// (b) coupling_dw_kernel forms dW = h_in^T g_pre and db = sum g_pre over
+// fixed row splits. The splits and the wrapper's chunks are summed by the
+// caller in a fixed order. No atomics anywhere: results are deterministic
+// for a given grid. The elementwise-parameter cotangents are per-block
+// sums (each lane owned by one thread), summed by the caller.
 //
 // The adjoints follow the torch functions _adjoint_activation,
 // _adjoint_affine and _adjoint_spline of enflows_tpu_torch/ops/coupling.py
 // line by line; the CPU tests hold those against autograd.
-//
-// bf16 conditioners (compute_dtype "bfloat16", a flag per layer): the
-// reference's _mm_bf16 (ops/pallas/coupling.py:419-446), bf16 operands
-// with f32 accumulation, forward and backward, on
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. Such a layer's
-// weights are packed by the wrapper in that instruction's B-fragment order
-// and rounded to bf16 (nearest even), two to a 32-bit word, so that a
-// 16-deep k-step is the 256 bytes an 8-deep TF32 one is: the ring, its
-// cp.async pieces and its barriers are those of the TF32 path, with half
-// the k-steps. The activations stay f32 in shared memory and in the
-// scratch, rounded to bf16 (nearest even) where they are written, as the
-// TF32 path rounds them to TF32; A fragments are packed from them by
-// cvt.rn.bf16x2.f32, which is then exact. B5 rounds the pre-activation
-// cotangent to bf16 where a product reads it (dh in the sweep, dW in
-// coupling_dw_kernel), as _mm_bf16's backward rounds g, and keeps it f32 in
-// the scratch for db. Biases, activations, epilogues and ladj stay f32.
-// Layers with f32 conditioners keep the TF32 path unchanged. A bf16
-// layer's K and hidden widths are padded to multiples of 16; its last
-// layer's slabs stay multiples of 8 (the ring holds a slab in B4), and B5's
-// dh reads each slab at a depth padded to 16 with zero columns, against
-// W^T packed slab by slab at that depth.
-//
-// bf16 storage (a flag per launch): x and gy are widened to f32 as they
-// are read, y, ladj and gx rounded to nearest even as they are written;
-// the saved rows and everything between stay f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "stages.cuh"
 
@@ -208,7 +196,9 @@ __device__ __forceinline__ float act_bwd(int a, float pre, float g) {
 }
 
 // ------------------------------------------------------------------
-// The TF32 tile product.
+// Operand rounding (both paths), and the wide path's 16-row tile products
+// on mma.sync (TF32 m16n8k8, bf16 m16n8k16), its weights packed in their
+// B-fragment order by the wrapper (``_pack``, ``_pack_bf16``).
 
 // Round to TF32, to nearest with ties away from zero (the wrapper rounds
 // the weights the same way).
@@ -227,9 +217,6 @@ __device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
         "r"(__float_as_uint(b1)));
 }
-
-// ------------------------------------------------------------------
-// The bf16 tile product.
 
 // Round to bf16, to nearest even, kept in f32.
 __device__ __forceinline__ float bf16r(float v) {
@@ -767,7 +754,7 @@ struct ScrRows {
 // rows, every layer's input and pre-activation go to the scratch for the
 // valid rows; `epi` false skips the epilogue (B5's last stage).
 template <int MF, int WM>
-__device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
+__device__ void coupling_fwd_tile_wide(const CPlan& plan, const int* it,
                                   const float* itf, float* S, float* Lel,
                                   int d, float* H, int ldh, float* ring,
                                   const float* __restrict__ Wk,
@@ -863,7 +850,7 @@ __device__ void coupling_fwd_tile(const CPlan& plan, const int* it,
 // loop over tiles of TM rows. x, y and ladj in bf16 where `bfio`, else f32.
 template <int MF, int WM>
 __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
-    coupling_fwd_kernel(const void* __restrict__ x, void* __restrict__ y,
+    coupling_fwd_kernel_wide(const void* __restrict__ x, void* __restrict__ y,
                         void* __restrict__ ladj,
                         const float* __restrict__ Wk,
                         const float* __restrict__ P,
@@ -909,7 +896,7 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
         }
         __syncthreads();
       } else {
-        coupling_fwd_tile<MF, WM>(plan, it, plan.itemf[i], S, Lel, d, H, ldh,
+        coupling_fwd_tile_wide<MF, WM>(plan, it, plan.itemf[i], S, Lel, d, H, ldh,
                                   ring, Wk, scr, true, shift);
       }
     }
@@ -937,7 +924,7 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
 // PACC (n_pslots x d). x, gy, gl and gx in bf16 where `bfio`, else f32.
 template <int MF, int WM>
 __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
-    coupling_bwd_kernel(const void* __restrict__ x,
+    coupling_bwd_kernel_wide(const void* __restrict__ x,
                         const void* __restrict__ gy,
                         const void* __restrict__ gl,
                         void* __restrict__ gx, const float* __restrict__ Wk,
@@ -1004,7 +991,7 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
           const int r = e / da, j = e - r * da;
           sv[e] = SC[r * d + tgt * da + j];
         }
-        coupling_fwd_tile<MF, WM>(plan, it, plan.itemf[i], SC, nullptr, d, H,
+        coupling_fwd_tile_wide<MF, WM>(plan, it, plan.itemf[i], SC, nullptr, d, H,
                                   ldh, ring, Wk, scr, i + 1 < ni, shift);
         off += TM * da;
       }
@@ -1157,7 +1144,7 @@ __global__ void __launch_bounds__(32 * ENF_WARPS, 1)
 // blockIdx.x runs over the tiles of every layer, so the blocks resident
 // together are the tiles of one split, which stream the same rows.
 __global__ void __launch_bounds__(256)
-    coupling_dw_kernel(const float* __restrict__ scratch,
+    coupling_dw_kernel_wide(const float* __restrict__ scratch,
                        const __grid_constant__ CPlan plan, long long rows,
                        int nsplit, float* __restrict__ w_part,
                        long long w_len) {
@@ -1287,6 +1274,1145 @@ __global__ void __launch_bounds__(256)
 }
 
 // ------------------------------------------------------------------
+// The Hopper path: 64-row tiles, wgmma fed by bulk copies into an
+// mbarrier ring.
+//
+// A block is two consumer warpgroups (threads 0-255) and one producer
+// warpgroup (256-383), which gives its registers to the consumers
+// (setmaxnreg: 240 a consumer thread, 24 a producer thread). The consumers
+// run every product, epilogue and elementwise pass and meet at named
+// barrier 1 (256 threads); the producer never joins it. One producer
+// thread walks the plan in the consumers' order and
+// keeps the weight stages in flight: for each k-step of each product it
+// waits until its ring slot is empty, arms the slot's full barrier with the
+// stage's bytes and issues one cp.async.bulk of the stage, whose completion
+// the barrier counts. The walk does not depend on the data, so the producer
+// runs ahead across products, couplings and tiles as far as the ring lets
+// it: the next product's and the next tile's first stages arrive while the
+// consumers run an epilogue.
+//
+// Shared-memory operands are in wgmma's K-major canonical layout without
+// swizzle: core matrices of 8 rows x 16 bytes (4 TF32 or 8 bf16 values of
+// K), each 128 contiguous bytes, K-adjacent ones 128 bytes apart (the
+// descriptor's leading byte offset), 8-row groups a stride apart (its
+// stride byte offset). A core matrix is read as one 128-byte row of the
+// banks, so no swizzle is needed to avoid conflicts. A k-step is 32 bytes
+// of K: wgmma m64n64k8 TF32 or m64n64k16 bf16.
+
+#define ENF_TM 64           // rows per tile of B4 / B5
+#define ENF_CONS 256        // consumer threads: two warpgroups
+#define ENF_THREADS 384     // and the producer warpgroup
+#define ENF_NBW 4           // 64-column n-blocks per warpgroup: a pass <= 512
+#define ENF_BARS 512        // bytes for the ring's barriers
+#define ENF_MAX_RING 16
+#define ENF_DWM 128         // dW output tile: rows (h_in columns)
+#define ENF_DWN 256         // and columns (g_pre columns)
+#define ENF_DWR 32          // batch rows per dW stage
+#define ENF_DW_RING 4
+#define ENF_DW_STAGE (4 * ENF_DWR * (ENF_DWM + ENF_DWN))   // 49152 bytes
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(u64* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(u64* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(saddr(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(u64* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(b))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed. A
+// wait of more than 2^35 clocks (some 20 s) is a fault of the ring's
+// protocol, and traps rather than hangs the card.
+__device__ __forceinline__ void mbar_wait(u64* b, unsigned parity) {
+  const unsigned a = saddr(b);
+  long long t0 = -1;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 < 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1LL << 35))
+      __trap();
+  }
+}
+
+// `bytes` (a multiple of 16) from device memory to shared memory, counted
+// by the barrier's transaction count when they land.
+__device__ __forceinline__ void bulk_g2s(unsigned dst, const void* src,
+                                         unsigned bytes, u64* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(saddr(bar))
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The consumers' barrier (the producer warp never arrives at it).
+__device__ __forceinline__ void csync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// The matrix descriptor of a K-major operand without swizzle.
+__device__ __forceinline__ u64 gdesc(unsigned addr, unsigned lbo,
+                                     unsigned sbo) {
+  return (u64)((addr & 0x3FFFF) >> 4) | ((u64)((lbo >> 4) & 0x3FFF) << 16) |
+         ((u64)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+#define ENF_D32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define ENF_ACC32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64 x 64, f32) += A (64 x 8, TF32) B (8 x 64, TF32).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], u64 a, u64 b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " ENF_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : ENF_ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16) B (16 x 64, bf16).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], u64 a, u64 b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ENF_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ENF_ACC32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A warpgroup's accumulators: ENF_NBW n-blocks of 64 x 64. Thread t of the
+// warpgroup holds, of n-block j, rows 16 (t / 32) + (t % 32) / 4 (+ 8) and
+// columns 8 i + 2 (t % 4) (+ 1), i < 8: v[j][4 i + 2 h + e] is row + 8 h,
+// column + e.
+struct WAcc {
+  float v[ENF_NBW][32];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < ENF_NBW; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) v[j][i] = 0.f;
+  }
+  // Keeps the compiler from moving reads or writes of the accumulators
+  // across the asynchronous products.
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int j = 0; j < ENF_NBW; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(v[j][i])::"memory");
+  }
+};
+
+__host__ __device__ __forceinline__ int nb64(int n) { return (n + 63) >> 6; }
+
+// The weight ring: n slots of `bytes` from shared address `base`, each with
+// a full barrier (the producer's arrival and the stage's bytes) and an
+// empty one (one arrival per consumer warp).
+struct Ring {
+  u64* full;
+  u64* empty;
+  unsigned base;
+  int n, bytes;
+};
+
+struct Pipe {
+  int slot;
+  unsigned phase;
+  __device__ __forceinline__ void next(int n) {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// The ring at the start of dynamic shared memory; thread 0 initializes its
+// barriers (the caller synchronizes the block).
+__device__ __forceinline__ Ring ring_at(unsigned char* smem, int n,
+                                        int bytes) {
+  u64* bars = reinterpret_cast<u64*>(smem);
+  const Ring rg{bars, bars + ENF_MAX_RING, saddr(smem + ENF_BARS), n, bytes};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n; ++i) {
+      mbar_init(&rg.full[i], 1);
+      mbar_init(&rg.empty[i], ENF_CONS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  return rg;
+}
+
+// A slot takes as many k-steps of a pass as fit (one of the widest pass,
+// several of a narrow one such as a spline slab), so that a narrow pass
+// keeps as many bytes in flight as a wide one.
+__device__ __forceinline__ int ksteps_a_slot(int slot_bytes, int bytes) {
+  return slot_bytes / bytes;
+}
+
+struct Producer {
+  Ring rg;
+  Pipe p;
+  // `ksteps` k-steps of `bytes` each, contiguous from `src`.
+  __device__ void load(const float* src, int ksteps, int bytes) {
+    const int per = ksteps_a_slot(rg.bytes, bytes);
+    for (int kk = 0; kk < ksteps; kk += per) {
+      const int b = min(per, ksteps - kk) * bytes;
+      mbar_wait(&rg.empty[p.slot], p.phase ^ 1u);
+      mbar_expect_tx(&rg.full[p.slot], b);
+      bulk_g2s(rg.base + p.slot * rg.bytes, src + (size_t)kk * (bytes >> 2),
+               b, &rg.full[p.slot]);
+      p.next(rg.n);
+    }
+  }
+};
+
+// acc += A times the next `ksteps` k-steps from the ring (ksteps_a_slot of
+// them a slot). A: 64 rows in shared memory at a_addr, K-major, 8-row
+// groups a_sbo bytes apart, k-step kk at a_addr + 256 kk. A k-step of the
+// pass: `bytes` / 2048 n-blocks of 64 columns, 8-column groups 256 bytes
+// apart. Warpgroup w takes n-blocks w, w + 2, ... into
+// acc.v[0], acc.v[1], ..., NW of them: with an odd count of n-blocks the
+// second warpgroup's last one reads past the stage, and its columns are
+// never read. The issue is free of branches, so that the products of a
+// k-step go to the tensor cores back to back. A slot is released as soon
+// as its last k-step has retired: the weights arrive from L2 slower than
+// the tensor cores use them, so the producer gets every slot back at once
+// rather than keeping a k-step queued on the tensor cores. The caller
+// synchronizes the consumers before overwriting A.
+template <int NW, bool BF>
+__device__ void prod_loop(WAcc& acc, const Ring& rg, Pipe& pp,
+                          unsigned a_addr, unsigned a_sbo, int ksteps,
+                          int bytes) {
+  const unsigned boff = (threadIdx.x >> 7) * 2048;
+  const bool lead = (threadIdx.x & 31) == 0;
+  const int per = ksteps_a_slot(rg.bytes, bytes);
+  for (int kk = 0, in = 0; kk < ksteps; ++kk) {
+    if (in == 0) mbar_wait(&rg.full[pp.slot], pp.phase);
+    const unsigned b = rg.base + pp.slot * rg.bytes + in * bytes + boff;
+    const u64 da = gdesc(a_addr + kk * 256, 128, a_sbo);
+    acc.fence();
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if constexpr (BF)
+        wgmma_bf16(acc.v[j], da, gdesc(b + j * 4096, 128, 256));
+      else
+        wgmma_tf32(acc.v[j], da, gdesc(b + j * 4096, 128, 256));
+    }
+    wg_commit();
+    wg_wait<0>();
+    acc.fence();
+    if (++in == per || kk + 1 == ksteps) {
+      if (lead) mbar_arrive(&rg.empty[pp.slot]);
+      pp.next(rg.n);
+      in = 0;
+    }
+  }
+}
+
+// prod_loop for a pass of nb n-blocks on the layer's operands.
+__device__ void wg_product(WAcc& acc, const Ring& rg, Pipe& pp,
+                           unsigned a_addr, unsigned a_sbo, int ksteps,
+                           int nb, bool bf) {
+  const int nw = (nb + 1) >> 1, bytes = nb * 2048;
+  if (bf) {
+    if (nw == 1)
+      prod_loop<1, true>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+    else if (nw == 2)
+      prod_loop<2, true>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+    else if (nw == 3)
+      prod_loop<3, true>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+    else
+      prod_loop<4, true>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+  } else {
+    if (nw == 1)
+      prod_loop<1, false>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+    else if (nw == 2)
+      prod_loop<2, false>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+    else if (nw == 3)
+      prod_loop<3, false>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+    else
+      prod_loop<4, false>(acc, rg, pp, a_addr, a_sbo, ksteps, bytes);
+  }
+}
+
+// The thread's index, read anew where it is used: the 128 addresses
+// for_acc derives from it would otherwise be hoisted out of the tile loops
+// and spilled to local memory, to be reloaded at every epilogue.
+__device__ __forceinline__ int tid_here() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// f(r, c, v) for every accumulator of this warpgroup's n-blocks (as
+// wg_product assigns them) in the first ncols (a multiple of 8) columns.
+template <class F>
+__device__ __forceinline__ void for_acc(WAcc& acc, int ncols, F f) {
+  const int t = tid_here();
+  const int wg = t >> 7, w = (t >> 5) & 3;
+  const int g = (t & 31) >> 2, q = t & 3;
+  const int r = 16 * w + g;
+#pragma unroll
+  for (int j = 0; j < ENF_NBW; ++j) {
+    const int cb = (2 * j + wg) * 64;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = cb + 8 * i + 2 * q;
+      if (c < ncols) {
+        f(r, c, acc.v[j][4 * i]);
+        f(r, c + 1, acc.v[j][4 * i + 1]);
+        f(r + 8, c, acc.v[j][4 * i + 2]);
+        f(r + 8, c + 1, acc.v[j][4 * i + 3]);
+      }
+    }
+  }
+}
+
+// The activation buffer H as a product's A: element (r, k) of the K-major
+// layout with 8-row groups `lda` values of K apart; f32 (TF32 values) for
+// a TF32 coupling, bf16 for a bf16 one (its stride byte offset 32 lda or
+// 16 lda bytes).
+__device__ __forceinline__ int hidx(int r, int k, int lda, bool bf) {
+  return bf ? (r >> 3) * 8 * lda + (k >> 3) * 64 + (r & 7) * 8 + (k & 7)
+            : (r >> 3) * 8 * lda + (k >> 2) * 32 + (r & 7) * 4 + (k & 3);
+}
+
+__device__ __forceinline__ void hset(unsigned char* H, int i, float v,
+                                     bool bf) {
+  if (bf)
+    reinterpret_cast<__nv_bfloat16*>(H)[i] = __float2bfloat16_rn(v);
+  else
+    reinterpret_cast<float*>(H)[i] = v;
+}
+
+// The e-th element of a 64 x K fill of H in the layout's own order, so
+// that neighbouring threads write neighbouring banks (K a multiple of 8).
+__device__ __forceinline__ void fill_rc(int e, int K, bool bf, int& r,
+                                        int& k) {
+  const int cw = bf ? 8 : 4, cs = bf ? 3 : 2;  // values of K a core row
+  const int kc = e & (cw - 1), r8 = (e >> cs) & 7, rest = e >> (cs + 3);
+  const int ncore = K >> cs;
+  r = (rest / ncore) * 8 + r8;
+  k = (rest % ncore) * cw + kc;
+}
+
+// Row stride of the f32 staging area of a bf16 coupling's epilogues: one
+// warpgroup's n-blocks of a pass as wide as lda allows, plus 4.
+__host__ __device__ __forceinline__ int st_ld(int lda) {
+  return 64 * ((nb64(lda) + 1) / 2) + 4;
+}
+
+// Bytes of HR, the activation buffer: H (64 x lda values, f32) or, for a
+// bf16 coupling, H in bf16 and the f32 staging area behind it.
+__host__ __device__ __forceinline__ long long hr_bytes(int lda, bool bf) {
+  const long long f = 4LL * ENF_TM * lda;
+  const long long b = 2LL * ENF_TM * lda + 4LL * ENF_TM * st_ld(lda);
+  return bf && b > f ? b : f;
+}
+
+// HR's bytes for a plan: with the staging area when a layer is bf16.
+__host__ __device__ __forceinline__ long long plan_hr(const CPlan& p,
+                                                     int lda) {
+  bool bf = false;
+  for (int l = 0; l < p.n_layers; ++l) bf = bf || p.layer[l][7] != 0;
+  return hr_bytes(lda, bf);
+}
+
+// B5's HR bytes: H, or in the sweep a slab in rows of ldo and its rounded
+// cotangent beside it (64 x the widest slab depth, 4 bytes a value).
+__host__ __device__ __forceinline__ long long plan_hr_bwd(const CPlan& p,
+                                                         int lda, int ldo) {
+  int sk = 0;
+  for (int i = 0; i < p.n_items; ++i)
+    if (p.item[i][0] != K_ELEM) {
+      const int sw = p.item[i][10];
+      const int d = p.layer[p.item[i][5]][7] ? (sw + 15) / 16 * 16 : sw;
+      sk = d > sk ? d : sk;
+    }
+  const long long h = plan_hr(p, lda), o = 4LL * ENF_TM * (ldo + sk);
+  return h > o ? h : o;
+}
+
+// The epilogue of a product whose output goes back into H, as its next A.
+// The accumulators are staged in shared memory first: a TF32 coupling's
+// in H itself (f32), a bf16 one's, a warpgroup at a time, in the f32 area
+// behind its bf16 H. Then each thread takes one column c and 8 rows r[i]
+// at a time and f(c, r, v) turns their 8 staged values v into what H
+// holds there, in a rolled loop (so that f's code is there once) whose
+// every step can issue all its loads (a bias, 8 pre-activations) before it
+// computes. Starts with every warpgroup's product retired and the
+// consumers synchronized; ends with H written and fenced for wgmma, the
+// consumers synchronized.
+template <class F>
+__device__ void epi_to_h(WAcc& acc, int ncols, unsigned char* HR, int lda,
+                         bool bf, F f) {
+  int r[8];
+  float v[8];
+  if (!bf) {
+    float* H = reinterpret_cast<float*>(HR);
+    for_acc(acc, ncols, [&](int rr, int c, float x) {
+      H[hidx(rr, c, lda, false)] = x;
+    });
+    csync();
+    // Warp w takes core matrices w, w + 8, ... along K, a lane the same
+    // element of each of the 8 row groups: a warp reads and writes 128
+    // contiguous bytes at a time.
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[i] = i * 8 + (lane >> 2);
+    for (int core = warp; core < (ncols >> 2); core += ENF_CONS / 32) {
+      float* h = H + core * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = h[i * 8 * lda];
+      f(core * 4 + (lane & 3), r, v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i * 8 * lda] = v[i];
+    }
+  } else {
+    float* ST = reinterpret_cast<float*>(HR + 2LL * ENF_TM * lda);
+    const int ld = st_ld(lda), nb = nb64(ncols);
+    for (int half = 0; half < 2; ++half) {
+      if ((int)(threadIdx.x >> 7) == half)
+        for_acc(acc, ncols, [&](int rr, int c, float x) {
+          ST[rr * ld + ((c >> 7) << 6) + (c & 63)] = x;
+        });
+      csync();
+      // A thread takes one column and rows q, q + 4, ... (q = tid / 64),
+      // 8 of them at a time.
+      const int w = 64 * ((nb - half + 1) >> 1);  // this half's columns
+      for (int cc = threadIdx.x & 63; cc < w; cc += 64) {
+        const int c = (((cc >> 6) << 1) + half) * 64 + (cc & 63);
+        if (c >= ncols) continue;
+        for (int r0 = threadIdx.x >> 6; r0 < ENF_TM; r0 += 32) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            r[i] = r0 + 4 * i;
+            v[i] = ST[r[i] * ld + cc];
+          }
+          f(c, r, v);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) hset(HR, hidx(r[i], c, lda, true), v[i], true);
+        }
+      }
+      csync();
+    }
+  }
+  fence_proxy_async();
+  csync();
+}
+
+// B5's scratch: per layer its inputs h_in (rows x Kp) and pre-activations,
+// then their cotangents, g_pre (rows x Np), each an array of `rows` (a
+// multiple of 64) rows at a column base, in the K-major layout coupling_dw
+// reads with the batch as K: per 32 rows, per 8 columns, 8 core matrices
+// of 8 columns x 4 rows. (R, k) of a W-wide array is at sidx(R, k, W).
+__device__ __forceinline__ long long sidx(long long R, int k, int W) {
+  return (((R >> 5) * (W >> 3) + (k >> 3)) << 8) + (((R & 31) >> 2) << 5) +
+         ((k & 7) << 2) + (R & 3);
+}
+
+struct Scr {
+  float* base;        // null: B4 without B5's rows
+  long long rows, r0;  // the arrays' rows; the tile's first row
+  __device__ __forceinline__ float* arr(int cb) const {
+    return base + rows * cb;
+  }
+};
+
+// The weight stages of one coupling's forward, in the consumers' order:
+// each hidden layer's W over its whole width, then the last layer's W slab
+// by slab (the wrapper packs W pass by pass, k-step by k-step, each
+// k-step's block 2048 bytes per n-block).
+__device__ void fwd_stages(const CPlan& plan, const int* it,
+                           const float* Wk, Producer& pr) {
+  const int nl = it[4], l0 = it[5], KS = plan.layer[l0][7] ? 16 : 8;
+  for (int l = 0; l + 1 < nl; ++l) {
+    const int* L = plan.layer[l0 + l];
+    pr.load(Wk + L[2], L[0] / KS, nb64(L[1]) * 2048);
+  }
+  const int* L = plan.layer[l0 + nl - 1];
+  const int ks = L[0] / KS, bytes = nb64(it[10]) * 2048;
+  for (int s = 0; s < it[11]; ++s)
+    pr.load(Wk + L[2] + (size_t)s * ks * (bytes >> 2), ks, bytes);
+}
+
+// The weight stages of one coupling's reverse sweep: the last layer's W^T
+// slab by slab (a bf16 slab at its depth padded to 16), then each lower
+// layer's W^T.
+__device__ void bwd_stages(const CPlan& plan, const int* it,
+                           const float* Wk, Producer& pr) {
+  const int nl = it[4], l0 = it[5];
+  const bool bf = plan.layer[l0][7] != 0;
+  const int KS = bf ? 16 : 8;
+  const int* LL = plan.layer[l0 + nl - 1];
+  const int SK = bf ? (it[10] + 15) / 16 * 16 : it[10];
+  const int ks = SK / KS, bytes = nb64(LL[0]) * 2048;
+  for (int s = 0; s < it[11]; ++s)
+    pr.load(Wk + LL[3] + (size_t)s * ks * (bytes >> 2), ks, bytes);
+  for (int l = nl - 1; l >= 1; --l) {
+    const int* Lp = plan.layer[l0 + l - 1];
+    pr.load(Wk + Lp[3], Lp[1] / KS, nb64(Lp[0]) * 2048);
+  }
+}
+
+// One elementwise stage's forward on the tile S, four threads a row, its
+// ladj terms summed per row in a fixed order into Lr (when given).
+__device__ __forceinline__ void elem_rows(int code, int slot, float* S,
+                                          float* Lr, const float* P, int d) {
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;  // 4 ENF_TM threads
+  float sum = 0.f;
+  for (int k = q; k < d; k += 4) {
+    float el;
+    S[r * d + k] = stage_fwd(code, S[r * d + k], P, slot, d, k, &el);
+    sum += el;
+  }
+  sum += __shfl_down_sync(0xffffffffu, sum, 2);
+  sum += __shfl_down_sync(0xffffffffu, sum, 1);
+  if (Lr && q == 0) Lr[r] += sum;
+}
+
+// One coupling on the tile, shared by B4 and B5's recompute: the
+// conditioner from the src half of S through H, then the last layer slab
+// by slab into O (row stride ldo) with each slab's epilogue on the target
+// half of S, its ladj terms summed per row into Lr (when given). With
+// scratch rows, every layer's input and pre-activation go to the scratch.
+// `epi` false skips the epilogue (B5's last stage). Starts and ends with
+// the consumers synchronized.
+__device__ void coupling_tile(const CPlan& plan, const int* it,
+                              const float* itf, float* S, float* Lr, int d,
+                              unsigned char* HR, int lda, float* O, int ldo,
+                              const Ring& rg, Pipe& pipe,
+                              const float* __restrict__ Wk, const Scr& scr,
+                              bool epi, float shift) {
+  const int da = d / 2, src = it[1], act = it[3], nl = it[4], l0 = it[5];
+  const bool save = scr.base != nullptr;
+  const bool bf = plan.layer[l0][7] != 0;  // the coupling's products
+  const int KS = bf ? 16 : 8;
+  const unsigned ha = saddr(HR), sbo = (bf ? 16u : 32u) * lda;
+  const long long r0 = scr.r0;
+  WAcc acc;
+  {
+    const int Kp = plan.layer[l0][0];
+    float* hin = save ? scr.arr(plan.layer[l0][5]) : nullptr;
+    for (int e = threadIdx.x; e < ENF_TM * Kp; e += ENF_CONS) {
+      int r, k;
+      fill_rc(e, Kp, bf, r, k);
+      const float v = k < da ? oprnd(S[r * d + src * da + k], bf) : 0.f;
+      hset(HR, hidx(r, k, lda, bf), v, bf);
+      if (save) hin[sidx(r0 + r, k, Kp)] = v;
+    }
+  }
+  fence_proxy_async();
+  csync();
+  for (int l = 0; l + 1 < nl; ++l) {  // hidden layers, in place in H
+    const int* L = plan.layer[l0 + l];
+    const int Kp = L[0], Np = L[1];
+    const float* b = Wk + L[4];
+    acc.zero();
+    wg_product(acc, rg, pipe, ha, sbo, Kp / KS, nb64(Np), bf);
+    csync();  // both warpgroups have read H
+    // Bias and activation; B5's rows (the pre-activation and the activated
+    // value) to the scratch.
+    float* pre = save ? scr.arr(L[5] + Kp) : nullptr;
+    float* post = save ? scr.arr(plan.layer[l0 + l + 1][5]) : nullptr;
+    epi_to_h(acc, Np, HR, lda, bf, [&](int c, const int* r, float* v) {
+      const float bc = __ldg(b + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float p = v[i] + bc;
+        v[i] = oprnd(act_fwd(act, p), bf);
+        if (save) {
+          const long long q = sidx(r0 + r[i], c, Np);
+          pre[q] = p;
+          post[q] = v[i];
+        }
+      }
+    });
+  }
+  const int* L = plan.layer[l0 + nl - 1];
+  const int Kp = L[0], Np = L[1], G = it[9], SW = it[10], nslab = it[11];
+  const int tgt = 1 - src, K = it[8];
+  const bool inv = it[2] != 0, spline = it[0] == K_SPLINE;
+  const float* b = Wk + L[4];
+  float* pre = save ? scr.arr(L[5] + Kp) : nullptr;
+  for (int s = 0; s < nslab; ++s) {
+    acc.zero();
+    wg_product(acc, rg, pipe, ha, sbo, Kp / KS, nb64(SW), bf);
+    csync();  // O is free: the last slab's row sums are read
+    for_acc(acc, SW, [&](int r, int c, float v) {
+      const float p = v + __ldg(b + s * SW + c);
+      O[r * ldo + c] = p;
+      if (save) pre[sidx(r0 + r, s * SW + c, Np)] = p;
+    });
+    csync();
+    if (!epi) continue;
+    const int j0 = s * G, gs = min(G, da - j0);
+    for (int e = threadIdx.x; e < ENF_TM * gs; e += ENF_CONS) {
+      const int r = e / gs, jj = e - r * gs;
+      const int idx = r * d + tgt * da + j0 + jj;
+      float* h = O + r * ldo;
+      float el;
+      S[idx] = spline ? spline_fwd(S[idx], h, G, jj, K, itf[1], inv, shift,
+                                   &el)
+                      : affine_fwd(S[idx], h, G, jj, itf[0], inv, &el);
+      h[jj] = el;  // after this lane's last read of its columns p G + jj
+    }
+    csync();
+    if (Lr)
+      for (int r = threadIdx.x; r < ENF_TM; r += ENF_CONS) {
+        float sum = 0.f;
+        for (int jj = 0; jj < gs; ++jj) sum += O[r * ldo + jj];
+        Lr[r] += sum;
+      }
+  }
+  csync();
+}
+
+// B4: replaces _fused_coupling_impl (ops/pallas/coupling.py:677-716).
+// Shared memory: the ring's barriers (ENF_BARS bytes), the ring (nring x
+// slot_bytes), HR (H, plan_hr bytes), S (64 x d) the state, O (64 x ldo)
+// a slab of the last layer, Lr (64) the ladj sums. Persistent
+// grid-stride loop over tiles of 64 rows. x, y and ladj in bf16 where
+// `bfio`, else f32. With `scratch` and `svs` (arrays of `rows` rows, a
+// multiple of 64), B5's rows for every row of every tile.
+__global__ void __launch_bounds__(ENF_THREADS, 1)
+    coupling_fwd_kernel(const void* __restrict__ x, void* __restrict__ y,
+                        void* __restrict__ ladj,
+                        const float* __restrict__ Wk,
+                        const float* __restrict__ P,
+                        const __grid_constant__ CPlan plan, long long n,
+                        long long rows, int d, int lda, int ldo, int nring,
+                        int slot_bytes, float* scratch, float* svs,
+                        float shift, int bfio) {
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  const Ring rg = ring_at(smem, nring, slot_bytes);
+  unsigned char* HR = smem + ENF_BARS + (size_t)nring * slot_bytes;
+  float* S = reinterpret_cast<float*>(HR + plan_hr(plan, lda));
+  float* O = S + ENF_TM * d;
+  float* Lr = O + ENF_TM * ldo;
+  const int da = d / 2;
+  const long long ntiles = (n + ENF_TM - 1) / ENF_TM;
+  __syncthreads();
+  if (threadIdx.x >= ENF_CONS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == ENF_CONS) {
+      Producer pr{rg, {0, 0u}};
+      for (long long ti = blockIdx.x; ti < ntiles; ti += gridDim.x)
+        for (int i = 0; i < plan.n_items; ++i)
+          if (plan.item[i][0] != K_ELEM) fwd_stages(plan, plan.item[i], Wk, pr);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  Pipe pipe{0, 0u};
+  for (long long ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
+    const long long r0 = ti * ENF_TM;
+    const int ns = (int)min((long long)ENF_TM, n - r0);
+    const Scr scr{scratch, rows, r0};
+    for (int e = threadIdx.x; e < ENF_TM * d; e += ENF_CONS)
+      S[e] = e < ns * d ? ld_io(x, r0 * d + e, bfio) : 0.f;
+    for (int r = threadIdx.x; r < ENF_TM; r += ENF_CONS) Lr[r] = 0.f;
+    csync();
+    for (int i = 0, coff = 0; i < plan.n_items; ++i) {
+      const int* it = plan.item[i];
+      if (svs) {  // the stage's input as B5's sweep reads it
+        const int w = it[0] == K_ELEM ? d : da;
+        const int c0 = it[0] == K_ELEM ? 0 : (1 - it[1]) * da;
+        float* dst = svs + rows * coff + r0 * w;
+        for (int e = threadIdx.x; e < ENF_TM * w; e += ENF_CONS) {
+          const int r = e / w;
+          dst[e] = S[r * d + c0 + e - r * w];
+        }
+        coff += w;
+        csync();
+      }
+      if (it[0] == K_ELEM) {
+        elem_rows(it[6], it[7], S, Lr, P, d);
+        csync();
+      } else {
+        coupling_tile(plan, it, plan.itemf[i], S, Lr, d, HR, lda, O, ldo, rg,
+                      pipe, Wk, scr, true, shift);
+      }
+    }
+    for (int e = threadIdx.x; e < ns * d; e += ENF_CONS)
+      st_io(y, r0 * d + e, S[e], bfio);
+    for (int r = threadIdx.x; r < ns; r += ENF_CONS)
+      st_io(ladj, r0 + r, Lr[r], bfio);
+    csync();
+  }
+}
+
+// Columns [c0, c0 + w) (w a multiple of 8) of the 64 scratch rows from r0
+// of a W-wide array a, to (`in`) or from O (rows of ldo), a warp moving 32
+// consecutive floats of the scratch layout at a time (4 rows x 8 columns,
+// conflict-free in O when ldo is a multiple of 8), each thread 8 of them
+// in flight.
+__device__ __forceinline__ void slab_copy(float* O, int ldo, float* a,
+                                          long long r0, int c0, int w, int W,
+                                          bool in) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ng = w >> 3, units = 2 * ng * 8;  // 32-row halves x groups x cores
+  const int rr = lane & 3, cc = lane >> 2;
+  for (int u0 = warp; u0 < units; u0 += 8 * (ENF_CONS / 32)) {
+    float v[8];
+    long long gpos[8];
+    int opos[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int u = min(u0 + i * (ENF_CONS / 32), units - 1);
+      const int h = u / (8 * ng), rem = u - h * 8 * ng, gi = rem >> 3,
+                q = rem & 7;
+      gpos[i] = ((((r0 >> 5) + h) * (W >> 3) + ((c0 >> 3) + gi)) << 8) +
+                (q << 5) + lane;
+      opos[i] = (h * 32 + q * 4 + rr) * ldo + gi * 8 + cc;
+      if (in) v[i] = __ldcg(a + gpos[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (u0 + i * (ENF_CONS / 32) < units) {
+        if (in)
+          O[opos[i]] = v[i];
+        else
+          a[gpos[i]] = O[opos[i]];
+      }
+  }
+}
+
+// B5 (a): replaces the recompute + in-tile vjp of _fused_coupling_bwd_impl
+// (ops/pallas/coupling.py:616-674). For the n rows of one chunk: gx from
+// gy (physical lane order) and gl; every conditioner layer's input h_in and
+// pre-activation cotangent g_pre into the scratch; per block sums of the
+// elementwise-parameter cotangents into p_part (grid, n_pslots * d). The
+// stage inputs the reverse sweep reads are in svs (rows x d for an
+// elementwise stage, rows x d/2 for a coupling's target half, stage after
+// stage): B4's, or with `recompute` written here by a forward recompute of
+// each tile. Shared memory: the ring's barriers and the ring, HR (64 x
+// HR (H as the products' A, or in the sweep a slab of the last layer in
+// rows of ldo and its rounded cotangent; plan_hr_bwd), SC (64 x d) the state during the
+// recompute and then the running cotangent, GL (64) the ladj cotangents,
+// PACC (n_pslots x d) and, with `recompute`, the recompute's slab buffer
+// (64 x ldo; its last layer reads H while a slab is written). x, gy, gl
+// and gx in bf16 where `bfio`, else f32.
+__global__ void __launch_bounds__(ENF_THREADS, 1)
+    coupling_bwd_kernel(const void* __restrict__ x,
+                        const void* __restrict__ gy,
+                        const void* __restrict__ gl,
+                        void* __restrict__ gx, const float* __restrict__ Wk,
+                        const float* __restrict__ P,
+                        const __grid_constant__ CPlan plan, long long n,
+                        long long rows, int d, int lda, int ldo, int nring,
+                        int slot_bytes, int n_pslots, float* scratch,
+                        float* svs, int recompute, float* __restrict__ p_part,
+                        float shift, int bfio) {
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  const Ring rg = ring_at(smem, nring, slot_bytes);
+  unsigned char* HR = smem + ENF_BARS + (size_t)nring * slot_bytes;
+  float* SC = reinterpret_cast<float*>(HR + plan_hr_bwd(plan, lda, ldo));
+  float* GL = SC + ENF_TM * d;
+  float* PACC = GL + ENF_TM;
+  float* OR = PACC + n_pslots * d;
+  const int da = d / 2, ni = plan.n_items;
+  int sv_row = 0;
+  for (int i = 0; i < ni; ++i) sv_row += plan.item[i][0] == K_ELEM ? d : da;
+  const long long ntiles = (n + ENF_TM - 1) / ENF_TM;
+  __syncthreads();
+  if (threadIdx.x >= ENF_CONS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == ENF_CONS) {
+      Producer pr{rg, {0, 0u}};
+      for (long long ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
+        for (int i = 0; recompute && i < ni; ++i)
+          if (plan.item[i][0] != K_ELEM) fwd_stages(plan, plan.item[i], Wk, pr);
+        for (int i = ni - 1; i >= 0; --i)
+          if (plan.item[i][0] != K_ELEM) bwd_stages(plan, plan.item[i], Wk, pr);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  for (int q = threadIdx.x; q < n_pslots * d; q += ENF_CONS) PACC[q] = 0.f;
+  Pipe pipe{0, 0u};
+  for (long long ti = blockIdx.x; ti < ntiles; ti += gridDim.x) {
+    const long long r0 = ti * ENF_TM;
+    const int ns = (int)min((long long)ENF_TM, n - r0);
+    const Scr scr{scratch, rows, r0};
+    for (int e = threadIdx.x; e < ENF_TM * d; e += ENF_CONS)
+      SC[e] = e < ns * d ? ld_io(x, r0 * d + e, bfio) : 0.f;
+    for (int r = threadIdx.x; r < ENF_TM; r += ENF_CONS)
+      GL[r] = r < ns ? ld_io(gl, r0 + r, bfio) : 0.f;
+    csync();
+
+    // The forward, when B4 did not store its rows: each stage's input to
+    // svs, the conditioners' rows to the scratch.
+    for (int i = 0, coff = 0; recompute && i < ni; ++i) {
+      const int* it = plan.item[i];
+      const int w = it[0] == K_ELEM ? d : da;
+      const int c0 = it[0] == K_ELEM ? 0 : (1 - it[1]) * da;
+      float* dst = svs + rows * coff + r0 * w;
+      for (int e = threadIdx.x; e < ENF_TM * w; e += ENF_CONS) {
+        const int r = e / w;
+        dst[e] = SC[r * d + c0 + e - r * w];
+      }
+      coff += w;
+      csync();
+      if (it[0] == K_ELEM) {
+        elem_rows(it[6], it[7], SC, nullptr, P, d);
+        csync();
+      } else {
+        coupling_tile(plan, it, plan.itemf[i], SC, nullptr, d, HR, lda, OR,
+                      ldo, rg, pipe, Wk, scr, i + 1 < ni, shift);
+      }
+    }
+
+    float* CY = SC;
+    for (int e = threadIdx.x; e < ENF_TM * d; e += ENF_CONS)
+      CY[e] = e < ns * d ? ld_io(gy, r0 * d + e, bfio) : 0.f;
+    csync();
+
+    // Reverse sweep of the hand-derived adjoints.
+    for (int i = ni - 1, coff = sv_row; i >= 0; --i) {
+      const int* it = plan.item[i];
+      const int w = it[0] == K_ELEM ? d : da;
+      coff -= w;
+      const float* cur = svs + rows * coff + r0 * w;
+      if (it[0] == K_ELEM) {
+        // One thread per lane, rows in order: each PACC entry has one owner.
+        const int code = it[6], slot = it[7], np = n_params(code);
+        for (int k = threadIdx.x; k < d; k += ENF_CONS) {
+          float a4[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int rb = 0; rb < ns; rb += 8) {
+            float t[8];  // 8 rows' inputs in flight
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              t[u] = rb + u < ns ? cur[(rb + u) * d + k] : 0.f;
+            for (int u = 0; u < 8 && rb + u < ns; ++u) {
+              const int r = rb + u;
+              float g[4];
+              CY[r * d + k] = stage_bwd(code, t[u], P, slot, d, k,
+                                        CY[r * d + k], GL[r], g);
+              for (int q = 0; q < np; ++q) a4[q] += g[q];
+            }
+          }
+          for (int q = 0; q < np; ++q) PACC[(slot + q) * d + k] += a4[q];
+        }
+        csync();
+        continue;
+      }
+      const int src = it[1], tgt = 1 - src, act = it[3], nl = it[4],
+                l0 = it[5], K = it[8], G = it[9], SW = it[10],
+                nslab = it[11];
+      const bool inv = it[2] != 0, spline = it[0] == K_SPLINE;
+      const bool bf = plan.layer[l0][7] != 0;  // the coupling's products
+      const int KS = bf ? 16 : 8;
+      const unsigned ha = saddr(HR), sbo = (bf ? 16u : 32u) * lda;
+      const int* LL = plan.layer[l0 + nl - 1];
+      const int KpL = LL[0], NpL = LL[1];
+      float* gL = scr.arr(LL[5] + KpL);
+      // Each slab: the conditioner output from the scratch into O (rows of
+      // ldo), the adjoint in place, its cotangent back to the scratch in
+      // f32 (db sums it).
+      float* O = reinterpret_cast<float*>(HR);
+      for (int s = 0; s < nslab; ++s) {
+        slab_copy(O, ldo, gL, r0, s * SW, SW, NpL, true);
+        csync();
+        const int j0 = s * G, gs = min(G, da - j0);
+        for (int e = threadIdx.x; e < ENF_TM * gs; e += ENF_CONS) {
+          const int r = e / gs, jj = e - r * gs;
+          const int idx = r * d + tgt * da + j0 + jj;
+          float* h = O + r * ldo;
+          const float xv = cur[r * da + j0 + jj];
+          CY[idx] = spline ? spline_bwd(xv, h, G, jj, K, plan.itemf[i][1],
+                                        inv, shift, CY[idx], GL[r], h)
+                           : affine_bwd(xv, h, G, jj, plan.itemf[i][0], inv,
+                                        CY[idx], GL[r], h);
+        }
+        csync();
+        slab_copy(O, ldo, gL, r0, s * SW, SW, NpL, false);
+        csync();
+      }
+      // dh = g_pre W^T of the last layer, accumulated over the slabs: each
+      // slab's cotangent from the scratch, rounded, into HA, the product's
+      // A, K-major with 8-row groups SK values apart, beside O; a bf16
+      // slab read at a depth SK padded to 16 with zero columns, against
+      // W^T packed slab by slab at that depth.
+      const int SK = bf ? (SW + 15) / 16 * 16 : SW;
+      unsigned char* HA = HR + 4 * ENF_TM * ldo;
+      WAcc acc;
+      acc.zero();
+      for (int s = 0; s < nslab; ++s) {
+        slab_copy(O, ldo, gL, r0, s * SW, SW, NpL, true);
+        csync();
+        for (int e = threadIdx.x; e < ENF_TM * SK; e += ENF_CONS) {
+          int r, c;
+          fill_rc(e, SK, bf, r, c);
+          hset(HA, hidx(r, c, SK, bf), c < SW ? oprnd(O[r * ldo + c], bf) : 0.f,
+               bf);
+        }
+        fence_proxy_async();
+        csync();
+        wg_product(acc, rg, pipe, saddr(HA), (bf ? 16u : 32u) * SK, SK / KS,
+                   nb64(KpL), bf);
+        csync();  // both warpgroups have read HA; O is free
+      }
+      // Down the layers: acc holds the cotangent of layer l's input.
+      for (int l = nl - 1;; --l) {
+        const int Kp = plan.layer[l0 + l][0];
+        if (l == 0) {
+          for_acc(acc, Kp, [&](int r, int c, float v) {
+            if (c < da) CY[r * d + src * da + c] += v;
+          });
+          csync();
+          break;
+        }
+        // The activation's adjoint on the accumulators against the stored
+        // pre-activation; g_pre over it in the scratch in f32, rounded into
+        // H for the product.
+        const int* Lp = plan.layer[l0 + l - 1];  // its Np is Kp
+        float* gp = scr.arr(Lp[5] + Lp[0]);
+        epi_to_h(acc, Kp, HR, lda, bf, [&](int c, const int* r, float* v) {
+          long long q[8];
+          float pv[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            q[i] = sidx(r0 + r[i], c, Kp);
+            pv[i] = __ldcg(gp + q[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float g = act_bwd(act, pv[i], v[i]);
+            gp[q[i]] = g;
+            v[i] = oprnd(g, bf);
+          }
+        });
+        acc.zero();
+        wg_product(acc, rg, pipe, ha, sbo, Kp / KS, nb64(Lp[0]), bf);
+        csync();
+      }
+    }
+
+    for (int e = threadIdx.x; e < ns * d; e += ENF_CONS)
+      st_io(gx, r0 * d + e, CY[e], bfio);
+    csync();
+  }
+  for (int q = threadIdx.x; q < n_pslots * d; q += ENF_CONS)
+    p_part[(size_t)blockIdx.x * n_pslots * d + q] = PACC[q];
+}
+
+// coupling_dw_kernel's stages: warpgroup w's 64 dW rows times NB n-blocks
+// of 64 columns, 4 k-steps of 8 batch rows a stage, issued without
+// branches (a warpgroup whose rows lie past the layer computes on what the
+// stage holds there, and its rows are never stored). prep(slot) readies a
+// stage's g_pre; the next stage is readied while the tensor cores run this.
+template <int NB, class F>
+__device__ void dw_loop(WAcc& acc, const Ring& rg, int nst, F prep) {
+  const unsigned aoff = (threadIdx.x >> 7) * 8192;
+  const bool lead = (threadIdx.x & 31) == 0;
+  Pipe p{0, 0u};
+  if (nst > 0) {
+    mbar_wait(&rg.full[0], 0u);
+    prep(0);
+    fence_proxy_async();
+    csync();
+  }
+  for (int st = 0; st < nst; ++st) {
+    const unsigned a = rg.base + p.slot * ENF_DW_STAGE;
+    const unsigned b = a + 4 * ENF_DWR * ENF_DWM;
+    acc.fence();
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < ENF_DWR / 8; ++ks) {
+      const u64 da = gdesc(a + aoff + ks * 256, 128, 1024);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        wgmma_tf32(acc.v[j], da, gdesc(b + j * 8192 + ks * 256, 128, 1024));
+    }
+    wg_commit();
+    const int cur = p.slot;
+    p.next(rg.n);
+    if (st + 1 < nst) {
+      mbar_wait(&rg.full[p.slot], p.phase);
+      prep(p.slot);
+      fence_proxy_async();
+    }
+    wg_wait<0>();
+    acc.fence();
+    if (lead) mbar_arrive(&rg.empty[cur]);
+    csync();
+  }
+}
+
+// B5 (b): dW = sum_r h_in[r]^T g_pre[r] and db = sum_r g_pre[r] for every
+// layer over the `rows` scratch rows of one chunk (a multiple of 64),
+// split into nsplit fixed ranges of 32-row chunks. A block owns one split
+// of a 128 x 256 tile of a layer's (Kp, Np) dW: warpgroup w its rows
+// 64 w .. 64 w + 63, all its columns, on wgmma m64n64k8 TF32 with the batch
+// as K. The scratch's layout makes a stage, 32 rows of the tile's h_in
+// and g_pre columns, two contiguous runs: the producer copies each with
+// one cp.async.bulk into a ring of 4 stages. h_in is rounded already; the
+// consumers sum each g_pre column in f32 in row order for db (the blocks
+// of the first row of tiles) and round it in place, as the product reads
+// it: TF32, or bf16 for a bf16 layer (whose bf16 products, exact in f32,
+// TF32 computes exactly). The next stage is prepared while the tensor cores
+// run this one. Writes w_part[split * w_len + natural offset + k Np + n], b
+// after W. Blocks run layer by layer, split by split, tile by tile, so the
+// blocks resident together are the tiles of a few splits of one layer and
+// stream the same rows.
+__global__ void __launch_bounds__(ENF_THREADS, 1)
+    coupling_dw_kernel(const float* __restrict__ scratch,
+                       const __grid_constant__ CPlan plan, long long rows,
+                       int nsplit, float* __restrict__ w_part,
+                       long long w_len) {
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* smem = wsmem;
+  int t = blockIdx.x, l = 0, tn = 1, tiles = 1;
+  for (; l < plan.n_layers; ++l) {
+    tn = (plan.layer[l][1] + ENF_DWN - 1) / ENF_DWN;
+    tiles = (plan.layer[l][0] + ENF_DWM - 1) / ENF_DWM * tn;
+    if (t < tiles * nsplit) break;
+    t -= tiles * nsplit;
+  }
+  if (l >= plan.n_layers) return;
+  const int* L = plan.layer[l];
+  const int Kp = L[0], Np = L[1];
+  const bool bf = L[7] != 0;
+  const int s = t / tiles;
+  t -= s * tiles;
+  const int m0 = (t / tn) * ENF_DWM, n0 = (t % tn) * ENF_DWN;
+  const int mr = min(ENF_DWM, Kp - m0), nc = min(ENF_DWN, Np - n0);
+  const long long nch = rows / ENF_DWR;
+  const long long c0 = nch * s / nsplit;
+  const int nst = (int)(nch * (s + 1) / nsplit - c0);
+  const float* hin = scratch + rows * L[5];
+  const float* gp = scratch + rows * (L[5] + Kp);
+  const Ring rg = ring_at(smem, ENF_DW_RING, ENF_DW_STAGE);
+  __syncthreads();
+  if (threadIdx.x >= ENF_CONS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == ENF_CONS) {
+      const unsigned ab = mr * ENF_DWR * 4, bb = nc * ENF_DWR * 4;
+      Pipe p{0, 0u};
+      for (int st = 0; st < nst; ++st) {
+        mbar_wait(&rg.empty[p.slot], p.phase ^ 1u);
+        mbar_expect_tx(&rg.full[p.slot], ab + bb);
+        const unsigned dst = rg.base + p.slot * ENF_DW_STAGE;
+        const long long c = c0 + st;
+        bulk_g2s(dst, hin + ((c * (Kp >> 3) + (m0 >> 3)) << 8), ab,
+                 &rg.full[p.slot]);
+        bulk_g2s(dst + 4 * ENF_DWR * ENF_DWM,
+                 gp + ((c * (Np >> 3) + (n0 >> 3)) << 8), bb,
+                 &rg.full[p.slot]);
+        p.next(rg.n);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const bool bias = m0 == 0 && (int)threadIdx.x < nc;
+  WAcc acc;
+  acc.zero();
+  float colsum = 0.f;
+  // Column threadIdx.x of a stage's g_pre: summed (in f32, rows in order)
+  // and rounded in place.
+  auto prep = [&](int slot) {
+    if ((int)threadIdx.x >= nc) return;
+    float* col = reinterpret_cast<float*>(smem + ENF_BARS +
+                                          slot * ENF_DW_STAGE +
+                                          4 * ENF_DWR * ENF_DWM) +
+                 (threadIdx.x >> 3) * 256 + (threadIdx.x & 7) * 4;
+#pragma unroll
+    for (int kc = 0; kc < ENF_DWR / 4; ++kc) {
+      float4 v = *reinterpret_cast<float4*>(col + kc * 32);
+      if (bias) {
+        colsum += v.x;
+        colsum += v.y;
+        colsum += v.z;
+        colsum += v.w;
+      }
+      v = make_float4(oprnd(v.x, bf), oprnd(v.y, bf), oprnd(v.z, bf),
+                      oprnd(v.w, bf));
+      *reinterpret_cast<float4*>(col + kc * 32) = v;
+    }
+  };
+  switch (nb64(nc)) {
+    case 1: dw_loop<1>(acc, rg, nst, prep); break;
+    case 2: dw_loop<2>(acc, rg, nst, prep); break;
+    case 3: dw_loop<3>(acc, rg, nst, prep); break;
+    default: dw_loop<4>(acc, rg, nst, prep); break;
+  }
+  float* out = w_part + (size_t)s * w_len + L[6];
+  const int wg = threadIdx.x >> 7, w4 = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < ENF_NBW; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 64 * wg + 16 * w4 + g + 8 * h;
+          const int nn = n0 + 64 * j + 8 * i + 2 * q + e;
+          if (m < Kp && nn < Np)
+            out[(size_t)m * Np + nn] = acc.v[j][4 * i + 2 * h + e];
+        }
+  if (bias) out[(size_t)Kp * Np + n0 + threadIdx.x] = colsum;
+}
+
+// ------------------------------------------------------------------
 // C interface. Each function launches on `stream`, does not synchronize, and
 // returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a plan or shape the kernels do not take.
@@ -1349,7 +2475,7 @@ static bool tile_ok(const CPlan& p, int d, int ldh) {
 }
 
 template <int MF, int WM>
-static int launch_fwd(const void* x, void* y, void* ladj, const float* Wk,
+static int launch_fwd_wide(const void* x, void* y, void* ladj, const float* Wk,
                       const float* P, const CPlan& plan, long long n, int d,
                       int ldh, float* scratch, float* svs, int smem, int grid,
                       float shift, int bfio, cudaStream_t stream) {
@@ -1359,16 +2485,16 @@ static int launch_fwd(const void* x, void* y, void* ladj, const float* Wk,
   if (!tile_ok<MF, WM>(plan, d, ldh) || need > smem)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      coupling_fwd_kernel<MF, WM>,
+      coupling_fwd_kernel_wide<MF, WM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  coupling_fwd_kernel<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
+  coupling_fwd_kernel_wide<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
       x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs, shift, bfio);
   return (int)cudaGetLastError();
 }
 
 // bf16io: the storage of x, y and ladj (0 float32, 1 bf16).
-extern "C" int enf_coupling_fwd(int bf16io, const void* x, void* y,
+extern "C" int enf_coupling_fwd_wide(int bf16io, const void* x, void* y,
                                 void* ladj, const float* Wk, const float* P,
                                 const int* si, const float* sf, int n_items,
                                 const int* li, int n_layers, long long n,
@@ -1378,18 +2504,14 @@ extern "C" int enf_coupling_fwd(int bf16io, const void* x, void* y,
   CPlan plan;
   if (make_cplan(&plan, si, sf, n_items, li, n_layers))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (tm == 64)
-    return launch_fwd<2, 2>(x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs,
-                            smem, grid, shift, bf16io, s);
-  if (tm == 16)
-    return launch_fwd<1, 1>(x, y, ladj, Wk, P, plan, n, d, ldh, scratch, svs,
-                            smem, grid, shift, bf16io, s);
-  return (int)cudaErrorInvalidValue;
+  if (tm != 16) return (int)cudaErrorInvalidValue;
+  return launch_fwd_wide<1, 1>(x, y, ladj, Wk, P, plan, n, d, ldh, scratch,
+                               svs, smem, grid, shift, bf16io,
+                               (cudaStream_t)stream);
 }
 
 template <int MF, int WM>
-static int launch_bwd(const void* x, const void* gy, const void* gl,
+static int launch_bwd_wide(const void* x, const void* gy, const void* gl,
                       void* gx, const float* Wk, const float* P,
                       const CPlan& plan, long long rows, int d, int ldh,
                       int smem, int grid, int n_pslots, float* scratch,
@@ -1405,17 +2527,17 @@ static int launch_bwd(const void* x, const void* gy, const void* gl,
   if (!tile_ok<MF, WM>(plan, d, ldh) || need > smem)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      coupling_bwd_kernel<MF, WM>,
+      coupling_bwd_kernel_wide<MF, WM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  coupling_bwd_kernel<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
+  coupling_bwd_kernel_wide<MF, WM><<<grid, 32 * ENF_WARPS, smem, stream>>>(
       x, gy, gl, gx, Wk, P, plan, rows, d, ldh, n_pslots, scratch, svs,
       p_part, shift, bfio);
   return (int)cudaGetLastError();
 }
 
 // bf16io: the storage of x, gy, gl and gx (0 float32, 1 bf16).
-extern "C" int enf_coupling_bwd(int bf16io, const void* x, const void* gy,
+extern "C" int enf_coupling_bwd_wide(int bf16io, const void* x, const void* gy,
                                 const void* gl, void* gx, const float* Wk,
                                 const float* P, const int* si,
                                 const float* sf, int n_items, const int* li,
@@ -1426,19 +2548,13 @@ extern "C" int enf_coupling_bwd(int bf16io, const void* x, const void* gy,
   CPlan plan;
   if (make_cplan(&plan, si, sf, n_items, li, n_layers))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (tm == 64)
-    return launch_bwd<2, 2>(x, gy, gl, gx, Wk, P, plan, rows, d, ldh, smem,
-                            grid, n_pslots, scratch, svs, p_part, shift,
-                            bf16io, s);
-  if (tm == 16)
-    return launch_bwd<1, 1>(x, gy, gl, gx, Wk, P, plan, rows, d, ldh, smem,
-                            grid, n_pslots, scratch, svs, p_part, shift,
-                            bf16io, s);
-  return (int)cudaErrorInvalidValue;
+  if (tm != 16) return (int)cudaErrorInvalidValue;
+  return launch_bwd_wide<1, 1>(x, gy, gl, gx, Wk, P, plan, rows, d, ldh, smem,
+                               grid, n_pslots, scratch, svs, p_part, shift,
+                               bf16io, (cudaStream_t)stream);
 }
 
-extern "C" int enf_coupling_dw(const float* scratch, const int* li,
+extern "C" int enf_coupling_dw_wide(const float* scratch, const int* li,
                                int n_layers, long long rows, int nsplit,
                                float* w_part, long long w_len, int smem,
                                void* stream) {
@@ -1456,10 +2572,128 @@ extern "C" int enf_coupling_dw(const float* scratch, const int* li,
              ((Np + ENF_DW_TILE - 1) / ENF_DW_TILE);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      coupling_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      coupling_dw_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(tiles, nsplit);
-  coupling_dw_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
+  coupling_dw_kernel_wide<<<grid, 256, smem, (cudaStream_t)stream>>>(
       scratch, plan, rows, nsplit, w_part, w_len);
+  return (int)cudaGetLastError();
+}
+
+// The Hopper path's launches.
+
+// Whether the 64-row kernels take the plan: every pass within two
+// warpgroups' 512 columns and one ring slot, every layer input, hidden
+// output and B5 slab depth within H's lda values, every slab within ldo.
+static bool wg_ok(const CPlan& p, int d, int lda, int ldo, int nring,
+                  int slot_bytes) {
+  if (d < 2 || d % 2 || lda < 16 || lda % 16 || ldo < 8 || ldo % 8 ||
+      nring < 2 || nring > ENF_MAX_RING || slot_bytes % 2048)
+    return false;
+  const int maxnb = slot_bytes / 2048 < 2 * ENF_NBW ? slot_bytes / 2048
+                                                     : 2 * ENF_NBW;
+  for (int i = 0; i < p.n_items; ++i) {
+    const int* it = p.item[i];
+    if (it[0] == K_ELEM) continue;
+    const int* L0 = p.layer[it[5]];
+    const int sw = it[10], sk = L0[7] ? (sw + 15) / 16 * 16 : sw;
+    if (L0[0] < d / 2 || sw > ldo || sk > lda || nb64(sw) > maxnb)
+      return false;
+    for (int l = it[5]; l < it[5] + it[4]; ++l) {
+      if (p.layer[l][0] > lda || nb64(p.layer[l][0]) > maxnb) return false;
+      if (l + 1 < it[5] + it[4] &&
+          (p.layer[l][1] > lda || nb64(p.layer[l][1]) > maxnb ||
+           p.layer[l][1] != p.layer[l + 1][0]))
+        return false;
+    }
+  }
+  return true;
+}
+
+// bf16io: the storage of x, y and ladj (0 float32, 1 bf16). rows: the rows
+// of scratch and svs (a multiple of 64, at least n), when given.
+extern "C" int enf_coupling_fwd(int bf16io, const void* x, void* y,
+                                void* ladj, const float* Wk, const float* P,
+                                const int* si, const float* sf, int n_items,
+                                const int* li, int n_layers, long long n,
+                                long long rows, int d, int lda, int ldo,
+                                int nring, int slot_bytes, float* scratch,
+                                float* svs, int smem, int grid, float shift,
+                                void* stream) {
+  CPlan plan;
+  if (make_cplan(&plan, si, sf, n_items, li, n_layers) ||
+      !wg_ok(plan, d, lda, ldo, nring, slot_bytes) ||
+      (scratch && (rows % ENF_TM || rows < n)))
+    return (int)cudaErrorInvalidValue;
+  const long long need = ENF_BARS + (long long)nring * slot_bytes +
+                         plan_hr(plan, lda) + 4LL * ENF_TM * (d + ldo + 1);
+  if (need > smem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      coupling_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  coupling_fwd_kernel<<<grid, ENF_THREADS, smem, (cudaStream_t)stream>>>(
+      x, y, ladj, Wk, P, plan, n, rows, d, lda, ldo, nring, slot_bytes,
+      scratch, svs, shift, bf16io);
+  return (int)cudaGetLastError();
+}
+
+// bf16io: the storage of x, gy, gl and gx (0 float32, 1 bf16). rows: the
+// rows of scratch and svs (a multiple of 64, at least n). recompute: 1
+// when B5 recomputes the forward and writes scratch and svs itself.
+extern "C" int enf_coupling_bwd(int bf16io, const void* x, const void* gy,
+                                const void* gl, void* gx, const float* Wk,
+                                const float* P, const int* si,
+                                const float* sf, int n_items, const int* li,
+                                int n_layers, long long n, long long rows,
+                                int d, int lda, int ldo, int nring,
+                                int slot_bytes, int smem, int grid,
+                                int n_pslots, float* scratch, float* svs,
+                                int recompute, float* p_part, float shift,
+                                void* stream) {
+  CPlan plan;
+  if (make_cplan(&plan, si, sf, n_items, li, n_layers) ||
+      !wg_ok(plan, d, lda, ldo, nring, slot_bytes) || rows % ENF_TM ||
+      rows < n || !scratch || !svs)
+    return (int)cudaErrorInvalidValue;
+  const long long need =
+      ENF_BARS + (long long)nring * slot_bytes +
+      plan_hr_bwd(plan, lda, ldo) +
+      4LL * (ENF_TM * ((long long)d + 1 + (recompute ? ldo : 0)) +
+             (long long)n_pslots * d);
+  if (need > smem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      coupling_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  coupling_bwd_kernel<<<grid, ENF_THREADS, smem, (cudaStream_t)stream>>>(
+      x, gy, gl, gx, Wk, P, plan, n, rows, d, lda, ldo, nring, slot_bytes,
+      n_pslots, scratch, svs, recompute, p_part, shift, bf16io);
+  return (int)cudaGetLastError();
+}
+
+// rows: the scratch's rows (a multiple of 64). One block per split of each
+// 128 x 256 tile of each layer's dW.
+extern "C" int enf_coupling_dw(const float* scratch, const int* li,
+                               int n_layers, long long rows, int nsplit,
+                               float* w_part, long long w_len, int smem,
+                               void* stream) {
+  CPlan plan = CPlan{};
+  if (n_layers < 1 || n_layers > ENF_CMAX_LAYERS || nsplit < 1 ||
+      rows % ENF_TM || smem < ENF_BARS + ENF_DW_RING * ENF_DW_STAGE)
+    return (int)cudaErrorInvalidValue;
+  plan.n_layers = n_layers;
+  long long blocks = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    for (int f = 0; f < 8; ++f) plan.layer[l][f] = li[l * 8 + f];
+    const int Kp = plan.layer[l][0], Np = plan.layer[l][1];
+    if (Kp < 8 || Kp % 8 || Np < 8 || Np % 8) return (int)cudaErrorInvalidValue;
+    blocks += (long long)((Kp + ENF_DWM - 1) / ENF_DWM) *
+              ((Np + ENF_DWN - 1) / ENF_DWN) * nsplit;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      coupling_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  coupling_dw_kernel<<<(unsigned)blocks, ENF_THREADS, smem,
+                       (cudaStream_t)stream>>>(scratch, plan, rows, nsplit,
+                                               w_part, w_len);
   return (int)cudaGetLastError();
 }

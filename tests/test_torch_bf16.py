@@ -274,23 +274,26 @@ def test_plain_bf16_b4_b5_matches_pallas(kind, storage):
 @pytest.mark.parametrize("kind", ["mixed", "spline"])
 def test_bf16_plan_pads_and_packs_for_m16n8k16(kind):
     """A bf16 coupling's padded K and hidden widths are multiples of 16
-    while an f32 one's stay multiples of 8; its slabs stay multiples of 8,
-    and its last layer's W^T is packed slab by slab at the depth B5's dh
-    reads, padded to 16 with zero rows. Its packed W and W^T hold two
-    bf16 values to a word in the m16n8k16 B-fragment order:
-    lane (n % 8) * 4 + (k % 8) // 2, rows k and k + 1 in its first word,
-    k + 8 and k + 9 in its second, the lower row in the lower half."""
+    (the k-step of its bf16 products) while an f32 one's stay multiples of
+    8; its slabs stay multiples of 8, and its last layer's W^T is packed
+    slab by slab at the depth B5's dh reads, padded to 16 with zero rows.
+    Its packed W (pass by pass, the last layer slab by slab) and W^T hold
+    two bf16 values to a word in the order the wgmma kernels stream them:
+    per pass of columns padded to 64, per 16-row k-step, per 8-column
+    group, two core matrices of 8 columns x 8 rows, each column's 8 values
+    contiguous, the lower row in the lower half of a word."""
     jc = _bf16_stack(kind)
     tc = from_jax(jc, device="cpu")
     st = TC._stack_structure(tc, DIM)
     pp = TC._padded(st)
+    assert pp.tm == 64
     flags = st.layer_bf16
     assert any(flags) and all(flags) == (kind == "spline")
     for (Kp, Np), bf in zip(pp.kn, flags):
         assert Kp % (16 if bf else 8) == 0 and Np % 8 == 0
     for it, (G, sw, ns) in zip(st.items, pp.slabs):
         if it.kind != "elem":
-            assert sw % 8 == 0 and pp.ldh >= TC._slab_depth(it, sw) + 4
+            assert sw % 8 == 0 and pp.lda >= TC._slab_depth(it, sw)
     last = {it.layer0 + it.n_layers - 1: sw
             for it, (G, sw, ns) in zip(st.items, pp.slabs)
             if it.kind != "elem"}
@@ -315,15 +318,20 @@ def test_bf16_plan_pads_and_packs_for_m16n8k16(kind):
             WT = torch.zeros(Np // sw * sk, Kp)
             for s in range(Np // sw):
                 WT[s * sk:s * sk + sw] = W.T[s * sw:(s + 1) * sw]
-        for M, off in ((W, ow), (WT, owt)):
+        for M, off, pw in ((W, ow, last.get(li, Np)), (WT, owt, Kp)):
             R, Cn = M.shape
-            vals = wk[off:off + R * Cn // 2].view(torch.bfloat16).float()
-            frag = vals.view(R // 16, Cn // 8, 8, 4, 2, 2)
-            # frag[kk, nt, g, t, r, h] = M[16 kk + 8 r + 2 t + h, 8 nt + g]
-            want = M.reshape(R // 16, 2, 4, 2, Cn // 8, 8).permute(
-                0, 4, 5, 2, 1, 3)
+            pw64 = -(-pw // 64) * 64
+            want = []
+            for p in range(Cn // pw):
+                blk = torch.zeros(R, pw64)
+                blk[:, :pw] = M[:, p * pw:(p + 1) * pw]
+                # [k-step, group, core, column, value]
+                want.append(blk.reshape(R // 16, 2, 8, pw64 // 8, 8)
+                            .permute(0, 3, 1, 4, 2).reshape(-1))
+            want = torch.cat(want)
+            vals = wk[off:off + want.numel() // 2].view(torch.bfloat16)
             torch.testing.assert_close(
-                frag, want.contiguous().bfloat16().float(), rtol=0, atol=0)
+                vals.float(), want.bfloat16().float(), rtol=0, atol=0)
     arrays = TC._plan_arrays(st)[2]
     assert [arrays[8 * l + 7] for l in range(len(flags))] == \
         [int(f) for f in flags]

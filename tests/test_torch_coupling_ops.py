@@ -17,10 +17,11 @@ checked instead: the kernels' padded plan (K and N padded to multiples of
 packing into the B-fragment order of the TF32 tensor-core product, the
 hand-derived adjoints that csrc/coupling.cu implements (``_adjoint_*``)
 against autograd in float64, and a pure-torch replay of B5's algorithm on
-the padded plan (tiles, stored stage inputs, the layer-major scratch of
-layer inputs and pre-activations, the slab-by-slab reverse sweep, the
-chunked and split weight-gradient reduction and its gather back onto the
-plan) against autograd of the plain path.
+the padded plan (whole tiles with zero padding rows, stage inputs read
+back from their buffer, the layer-major scratch of layer inputs and
+pre-activations in its 32-row block layout, the slab-by-slab reverse
+sweep, the chunked and split weight-gradient reduction over 32-row stages
+and its gather back onto the plan) against autograd of the plain path.
 """
 import os
 import subprocess
@@ -322,15 +323,35 @@ def _slab_index(G, P, gs):
     return [p * G + jj for p in range(P) for jj in range(gs)]
 
 
-def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=8, chunk=50, nsplit=3):
+def _sidx(R, k, W):
+    """Position of (row R, column k) in a W-wide array of B5's scratch
+    (``sidx`` in csrc/coupling.cu): per 32 rows, per 8 columns, 8 core
+    matrices of 8 columns x 4 rows, so that 32 rows of a run of columns are
+    one contiguous run."""
+    return (((R // 32) * (W // 8) + k // 8) * 256 + ((R % 32) // 4) * 32
+            + (k % 8) * 4 + R % 4)
+
+
+def _chunk_rows(arr, c, W):
+    """Rows 32c .. 32c + 31 of a W-wide scratch array as a (32, W) matrix,
+    read from their one contiguous run as coupling_dw's stage copies it."""
+    run = arr[c * 32 * W:(c + 1) * 32 * W].view(W // 8, 8, 8, 4)
+    return run.permute(1, 3, 0, 2).reshape(32, W)
+
+
+def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=64, chunk=100, nsplit=3):
     """(gx, wbuf cotangent, pbuf cotangent) the way B5 computes them on the
-    padded plan: per chunk of rows, per tile, the forward with every stage's
-    input kept and every padded layer's input and pre-activation written to
-    a layer-major scratch, the last layer slab by slab; the reverse sweep of
-    the hand-derived adjoints slab by slab, overwriting each pre-activation
-    with its cotangent; then per layer dW = h_in^T g_pre and db = sum g_pre
-    over `nsplit` fixed row ranges of the chunk in the padded layout, the
-    partials summed in order and gathered back onto the plan."""
+    padded plan: per chunk of rows, padded with zero rows to whole tiles,
+    per tile, the forward with every stage's input written to a buffer and
+    every padded layer's input and pre-activation to the scratch (in its
+    32-row block layout), the last layer slab by slab; the reverse sweep of
+    the hand-derived adjoints on the stage inputs read back from the
+    buffer, slab by slab, overwriting each pre-activation with its
+    cotangent; then per layer dW = h_in^T g_pre and db = sum g_pre over
+    32-row stages, each one contiguous run of the scratch, in `nsplit` fixed
+    ranges of stages (an empty one too), the partials summed in order and
+    gathered back onto the plan. The padding rows carry zero cotangents
+    and add nothing."""
     d = st.dim
     da = d // 2
     pp = TC._padded(st)
@@ -342,26 +363,40 @@ def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=8, chunk=50, nsplit=3):
     gp = torch.zeros_like(pbuf).view(-1, d) if pbuf.numel() else pbuf
     for c0 in range(0, n, chunk):
         rows = min(chunk, n - c0)
-        h_in = [torch.zeros(rows, Kp, dtype=x.dtype) for Kp, _ in pp.kn]
-        g_pre = [torch.zeros(rows, Np, dtype=x.dtype) for _, Np in pp.kn]
-        for r0 in range(0, rows, tile):
-            sl = slice(c0 + r0, c0 + min(rows, r0 + tile))
-            rs = slice(r0, min(rows, r0 + tile))
-            ins = [x[sl]]
+        rp = -(-rows // tile) * tile
+        pad = lambda t: torch.cat([t, t.new_zeros(rp - rows, *t.shape[1:])])
+        xc, gyc, glc = pad(x[c0:c0 + rows]), pad(gy[c0:c0 + rows]), \
+            pad(gl[c0:c0 + rows])
+        h_in = [torch.zeros(rp * Kp, dtype=x.dtype) for Kp, _ in pp.kn]
+        g_pre = [torch.zeros(rp * Np, dtype=x.dtype) for _, Np in pp.kn]
+        svs = [None] * len(st.items)
+
+        def put(arr, rs, W, v):
+            R = torch.arange(rs.start, rs.stop)[:, None]
+            arr[_sidx(R, torch.arange(W)[None, :], W)] = v
+
+        def get(arr, rs, W):
+            R = torch.arange(rs.start, rs.stop)[:, None]
+            return arr[_sidx(R, torch.arange(W)[None, :], W)]
+
+        for r0 in range(0, rp, tile):
+            rs = slice(r0, r0 + tile)
+            t = xc[rs]
             for i, it in enumerate(st.items):      # forward, inputs kept
-                t = ins[-1]
+                svs[i] = t if svs[i] is None else torch.cat([svs[i], t])
                 if it.kind == "elem":
                     ps = P[it.slot:it.slot + TC._N_PARAMS[it.code]]
-                    ins.append(TC._APPLY[TC._BY_CODE[it.code]](t, *ps)[0])
+                    t = TC._APPLY[TC._BY_CODE[it.code]](t, *ps)[0]
                     continue
                 h = torch.nn.functional.pad(
                     t[:, it.src * da:(it.src + 1) * da],
                     (0, pp.kn[it.layer0][0] - da))
                 for li in range(it.n_layers):
-                    W, b = TC._layer(st, wn, it.layer0 + li, pp)
-                    h_in[it.layer0 + li][rs] = h
+                    lay = it.layer0 + li
+                    W, b = TC._layer(st, wn, lay, pp)
+                    put(h_in[lay], rs, pp.kn[lay][0], h)
                     h = h @ W + b
-                    g_pre[it.layer0 + li][rs] = h       # pre-activation
+                    put(g_pre[lay], rs, pp.kn[lay][1], h)   # pre-activation
                     if li + 1 < it.n_layers:
                         h = TC.ACTIVATIONS[it.act](h)
                 tgt = slice((1 - it.src) * da, (2 - it.src) * da)
@@ -378,11 +413,13 @@ def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=8, chunk=50, nsplit=3):
                               TC._spline_epilogue(xs, hs, gs, it.n_bins,
                                                   it.bound, it.inverted))
                     out[:, tgt.start + j0:tgt.start + j0 + gs] = new
-                ins.append(out)
-            cy = gy[sl].clone()
-            ce = gl[sl, None]
+                t = out
+        for r0 in range(0, rp, tile):
+            rs = slice(r0, r0 + tile)
+            cy = gyc[rs].clone()
+            ce = glc[rs, None]
             for i in range(len(st.items) - 1, -1, -1):   # reverse sweep
-                it, t = st.items[i], ins[i]
+                it, t = st.items[i], svs[i][rs]
                 if it.kind == "elem":
                     kind = TC._BY_CODE[it.code]
                     ps = P[it.slot:it.slot + TC._N_PARAMS[it.code]]
@@ -394,15 +431,15 @@ def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=8, chunk=50, nsplit=3):
                 tgt = slice((1 - it.src) * da, (2 - it.src) * da)
                 last = it.layer0 + it.n_layers - 1
                 G, sw, n_slabs = pp.slabs[i]
-                g = torch.zeros_like(g_pre[last][rs])
-                cy = cy.clone()
+                Np_last = pp.kn[last][1]
+                g = torch.zeros(tile, Np_last, dtype=x.dtype)
+                pre = get(g_pre[last], rs, Np_last)
                 for s in range(n_slabs):               # adjoint per slab
                     j0, gs = s * G, min(G, da - s * G)
                     cols = [s * sw + c for c in _slab_index(
                         G, TC._n_params(it), gs)]
-                    hs = g_pre[last][rs][:, cols]
                     lanes = slice(tgt.start + j0, tgt.start + j0 + gs)
-                    args = (t[:, lanes], hs, gs)
+                    args = (t[:, lanes], pre[:, cols], gs)
                     tail = (cy[:, lanes], ce.expand(-1, gs))
                     cx, g_s = (TC._adjoint_affine(*args, it.mls, it.inverted,
                                                   *tail)
@@ -414,22 +451,26 @@ def _replay_b5(st, x, wbuf, pbuf, gy, gl, tile=8, chunk=50, nsplit=3):
                 for li in range(it.n_layers - 1, -1, -1):
                     lay = it.layer0 + li
                     W, _ = TC._layer(st, wn, lay, pp)
-                    g_pre[lay][rs] = g
+                    put(g_pre[lay], rs, pp.kn[lay][1], g)
                     dh = g @ W.T
                     if li > 0:
                         g = TC._adjoint_activation(
-                            it.act, g_pre[lay - 1][rs], dh)
+                            it.act, get(g_pre[lay - 1], rs, pp.kn[lay][0]),
+                            dh)
                     else:
                         cy[:, src] = cy[:, src] + dh[:, :da]
-            gx[sl] = cy
+            if r0 < rows:
+                gx[c0 + r0:c0 + min(rows, r0 + tile)] = \
+                    cy[:min(rows, r0 + tile) - r0]
+        nch = rp // 32
         for lay, (Kp, Np) in enumerate(pp.kn):   # the dW reduction
             off = pp.nat_offs[lay]
             for s in range(nsplit):
-                a, b = rows * s // nsplit, rows * (s + 1) // nsplit
-                gnat[off:off + Kp * Np] += (h_in[lay][a:b].T
-                                            @ g_pre[lay][a:b]).reshape(-1)
-                gnat[off + Kp * Np:off + (Kp + 1) * Np] += \
-                    g_pre[lay][a:b].sum(0)
+                for c in range(nch * s // nsplit, nch * (s + 1) // nsplit):
+                    A = _chunk_rows(h_in[lay], c, Kp)
+                    B = _chunk_rows(g_pre[lay], c, Np)
+                    gnat[off:off + Kp * Np] += (A.T @ B).reshape(-1)
+                    gnat[off + Kp * Np:off + (Kp + 1) * Np] += B.sum(0)
     gw = gnat[torch.as_tensor(pp.grad_idx)]
     return gx, gw, gp.reshape(-1) if pbuf.numel() else gp
 
@@ -489,27 +530,68 @@ def test_padded_plan_matches_plan(kind):
         _close(b, a, 1e-12, what)
 
 
-def test_kernel_buffer_packs_the_padded_plan():
-    """The kernel buffer: each layer's padded W and W^T in the B-fragment
-    order of mma.sync.m16n8k8 (lane (n % 8) * 4 + k % 4 holds rows k and
-    k + 4 of column n), rounded to TF32, then the padded biases; and the
-    weight-gradient gather inverts the padding."""
-    tc, d = _stack64("ragged spline")
+def _wg_order(M, pw, ks):
+    """M's entries in the order the Hopper kernels stream them, built by
+    reshapes: per pass of ``pw`` columns (zero-padded to a multiple of 64),
+    per k-step of ``ks`` rows, per 8-column group, two core matrices of 8
+    columns x ks/2 rows, each column's ks/2 values contiguous."""
+    R, C = M.shape
+    pw64 = -(-pw // 64) * 64
+    out = []
+    for p in range(C // pw):
+        blk = torch.zeros(R, pw64, dtype=M.dtype)
+        blk[:, :pw] = M[:, p * pw:(p + 1) * pw]
+        out.append(blk.reshape(R // ks, 2, ks // 2, pw64 // 8, 8)
+                   .permute(0, 3, 1, 4, 2).reshape(-1))
+    return torch.cat(out)
+
+
+def _pass_widths(st, pp):
+    """Per layer the width of a pass of its W: a slab for a last layer, the
+    whole layer otherwise."""
+    widths = [Np for _, Np in pp.kn]
+    for it, (_, sw, _) in zip(st.items, pp.slabs):
+        if it.kind != "elem":
+            widths[it.layer0 + it.n_layers - 1] = sw
+    return widths
+
+
+@pytest.mark.parametrize("path", ["hopper", "wide"])
+def test_kernel_buffer_packs_the_padded_plan(path):
+    """The kernel buffer: each layer's padded W and W^T rounded to TF32,
+    then the padded biases; and the weight-gradient gather inverts the
+    padding. On the Hopper path (64-row tiles) W goes pass by pass (the
+    last layer slab by slab) and W^T over its whole width, k-step by
+    k-step in the K-major core-matrix layout the wgmma kernels stream; on
+    the wide path (16-row tiles, a 1024-wide layer) in the B-fragment order
+    of mma.sync.m16n8k8 (lane (n % 8) * 4 + k % 4 holds rows k and k + 4 of
+    column n)."""
+    if path == "hopper":
+        tc, d = _stack64("ragged spline")
+    else:
+        d = 8
+        tc = et.coupling_stack(torch.Generator().manual_seed(3), d, 1,
+                               (1024,), device="cpu")
     st = TC._stack_structure(tc, d)
     pp = TC._padded(st)
+    assert pp.tm == (64 if path == "hopper" else 16)
     wbuf, _ = TC._stack_plan(tc, st, torch.float32, "cpu")
     wbuf = wbuf.detach()
     wk = TC._kernel_weights(st, wbuf)
     wn = TC._padded_buffer(st, wbuf)
-    for li, (Kp, Np) in enumerate(pp.kn):
+    for li, ((Kp, Np), pw) in enumerate(zip(pp.kn, _pass_widths(st, pp))):
         W, b = TC._layer(st, wn, li, pp)
         ow, owt, ob = pp.k_offs[li]
-        for M, off in ((W, ow), (W.T, owt)):
-            R, Cn = M.shape
-            frag = wk[off:off + R * Cn].view(R // 8, Cn // 8, 8, 4, 2)
-            # frag[kk, nt, g, t, i] = M[8 kk + t + 4 i, 8 nt + g]
-            want = M.reshape(R // 8, 2, 4, Cn // 8, 8).permute(0, 3, 4, 2, 1)
-            _close(frag, TC._round_tf32(want.contiguous()), 0.0, "packed")
+        for M, off, width in ((W, ow, pw), (W.T, owt, Kp)):
+            if path == "hopper":
+                want = _wg_order(M, width, 8)
+            else:
+                R, Cn = M.shape
+                # frag[kk, nt, g, t, i] = M[8 kk + t + 4 i, 8 nt + g]
+                want = M.reshape(R // 8, 2, 4, Cn // 8, 8).permute(
+                    0, 3, 4, 2, 1).reshape(-1)
+            _close(wk[off:off + want.numel()], TC._round_tf32(want), 0.0,
+                   "packed")
         _close(wk[ob:ob + Np], b, 0.0, "bias")
     assert torch.equal(wn[torch.as_tensor(pp.grad_idx)], wbuf)
     # TF32: 10 mantissa bits, to nearest, ties away from zero.
@@ -543,17 +625,20 @@ def test_fusible_predicate():
                                                  torch.zeros(8)))
     assert not TC.is_fusible_coupling_stack(elementwise_only, 8)
     # The (1024, 1024) d=64 stack that tests/test_coupling.py:289-304 has
-    # the TPU accept: B4 and B5 in 16-row tiles (a 1024-column pass); the
-    # BASELINE stacks in 64-row tiles.
+    # the TPU accept: B4 and B5 in 16-row tiles on the wide path (a
+    # 1024-column pass); the BASELINE stacks and the VI templates around
+    # them (whose B5 took 16-row tiles while it kept the stage inputs in
+    # shared memory) in 64-row tiles on the Hopper path.
     big = et.coupling_stack(g, 64, 4, (1024, 1024), device="cpu")
     assert TC.is_fusible_coupling_stack(big, 64)
-    for backward in (False, True):
-        assert TC._pick_tile(TC._stack_structure(big, 64), backward) == 16
-        for base in (et.coupling_stack(g, 64, 4, (512, 512), device="cpu"),
-                     et.spline_coupling_stack(g, 64, 4, (512, 512), n_bins=8,
-                                              bound=5.0, device="cpu")):
-            assert TC._pick_tile(TC._stack_structure(base, 64),
-                                 backward) == 64
+    assert TC._pick_tile(TC._stack_structure(big, 64)) == 16
+    for base in (et.coupling_stack(g, 64, 4, (512, 512), device="cpu"),
+                 et.spline_coupling_stack(g, 64, 4, (512, 512), n_bins=8,
+                                          bound=5.0, device="cpu"),
+                 et.coupling_flow_template(4, (512, 512))(64, g),
+                 et.coupling_flow_template(4, (512, 512),
+                                           kind="spline")(64, g)):
+        assert TC._pick_tile(TC._stack_structure(base, 64)) == 64
     huge = et.coupling_stack(g, 64, 2, (4096,), device="cpu")
     assert not TC.is_fusible_coupling_stack(huge, 64)
 
