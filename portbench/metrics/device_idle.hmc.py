@@ -1,0 +1,2 @@
+"""Share of the traced HMC window with the device idle, in %."""
+from portbench.readers import idle_pct as read  # noqa: F401
